@@ -1,0 +1,105 @@
+"""Serving launcher of the port: a batch of prompts is prefilled in one pass
+(attention through the flash-attention kernel), then decoded greedily from
+the KV cache. Counterpart of ``repro/launch/serve.py`` and
+``examples/serve_batch.py``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+        --batch 4 --prompt-len 1024 --new-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+        --prompt-len 32 --new-tokens 8
+
+Times are host-clock spans that end in a device synchronise; the first call
+in a process includes the kernel build (or load) and library start-up.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models import LM
+
+
+def make_prompts(batch: int, prompt_len: int, vocab: int, seed: int) -> np.ndarray:
+    """Seeded random prompts [batch, prompt_len] of token ids."""
+    return np.random.default_rng(seed).integers(0, vocab, (batch, prompt_len))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def serve(lm: LM, params, prompts: torch.Tensor, new_tokens: int) -> dict:
+    """Prefill ``prompts`` [B, S], then ``new_tokens`` greedy decode steps.
+    Returns the B x (new_tokens + 1) generated tokens (the first from the
+    prefill logits), the prefill and last logits, and the two spans."""
+    B, S = prompts.shape
+    dev = lm.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    prefill_logits, cache = lm.prefill(params, prompts, max_seq=S + new_tokens)
+    tok = prefill_logits.argmax(-1)
+    _sync(dev)
+    t1 = time.perf_counter()
+    generated, logits = [tok], prefill_logits
+    for i in range(new_tokens):
+        logits, cache = lm.decode_step(params, cache, tok, S + i)
+        tok = logits.argmax(-1)
+        generated.append(tok)
+    _sync(dev)
+    t2 = time.perf_counter()
+    return {"tokens": torch.stack(generated, dim=1),
+            "prefill_logits": prefill_logits, "last_logits": logits,
+            "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "batch": B, "prompt_len": S, "new_tokens": new_tokens}
+
+
+def report(out: dict) -> str:
+    B, S, n = out["batch"], out["prompt_len"], out["new_tokens"]
+    dec = out["decode_s"]
+    return (f"prefill: {B}x{S} tokens in {out['prefill_s'] * 1e3:.2f} ms\n"
+            f"decode: {n} steps x {B} seqs in {dec * 1e3:.2f} ms "
+            f"({dec * 1e3 / max(n, 1):.3f} ms/step, "
+            f"{B * n / dec if dec > 0 else 0.0:,.1f} tok/s)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the small same-family config (CPU smoke runs)")
+    ap.add_argument("--device", default=None,
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    lm = LM(cfg, device=device)
+    params = lm.init(args.seed)
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"serving {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
+          f"{cfg.dtype}, batch={args.batch} on {where}")
+    prompts = torch.from_numpy(make_prompts(
+        args.batch, args.prompt_len, cfg.vocab_size, args.seed)).to(device)
+    out = serve(lm, params, prompts, args.new_tokens)
+    print(report(out))
+    for b in range(min(args.batch, 2)):
+        print(f"  seq {b}: {out['tokens'][b, :10].tolist()} ...")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

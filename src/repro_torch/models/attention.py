@@ -1,0 +1,133 @@
+"""GQA attention, ported from ``repro/models/attention.py``: prefill through
+the flash-attention kernel, and decode against a KV cache in plain torch."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import Params, _init, apply_rope, rope_tables
+
+
+def attention_init(gen: torch.Generator, d_model: int, num_heads: int,
+                   num_kv_heads: int, head_dim: int, *, stack: int = 0) -> Params:
+    return {
+        "wq": _init(gen, (d_model, num_heads * head_dim), stack=stack),
+        "wk": _init(gen, (d_model, num_kv_heads * head_dim), stack=stack),
+        "wv": _init(gen, (d_model, num_kv_heads * head_dim), stack=stack),
+        "wo": _init(gen, (num_heads * head_dim, d_model), stack=stack),
+    }
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def gqa_scores_mask(seq_q: int, seq_k: int, *, causal: bool, window: int = 0,
+                    offset: int = 0, device=None) -> torch.Tensor:
+    """[seq_q, seq_k] additive f32 mask; ``offset`` is the absolute position
+    of query 0; window > 0 is sliding-window attention."""
+    qpos = torch.arange(seq_q, device=device) + offset
+    kpos = torch.arange(seq_k, device=device)
+    ok = torch.ones((seq_q, seq_k), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        ok &= kpos[None, :] > qpos[:, None] - window
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(ok, zero, float("-inf"))
+
+
+def attend(q, k, v, mask, *, softcap: float = 0.0):
+    """q: [B,S,H,hd], k/v: [B,T,KV,hd] -> [B,S,H,hd]. GQA by head grouping;
+    scores in the operands' dtype, then softmax in f32, probabilities cast to
+    v's dtype before the PV product (as the reference does)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    dt = torch.promote_types(q.dtype, k.dtype)
+    qg = q.to(dt).reshape(B, S, KV, H // KV, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.to(dt)).float()
+    scores = scores / math.sqrt(hd)
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = scores + mask  # mask broadcasts [S,T]
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(B, S, H, hd)
+
+
+def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, *, num_heads,
+         num_kv_heads, head_dim, rope_theta, rotary_pct):
+    q = _split_heads(x @ p["wq"].to(x.dtype), num_heads, head_dim)
+    k = _split_heads(x @ p["wk"].to(x.dtype), num_kv_heads, head_dim)
+    v = _split_heads(x @ p["wv"].to(x.dtype), num_kv_heads, head_dim)
+    cos, sin, rot = rope_tables(positions, head_dim, rope_theta, rotary_pct)
+    return apply_rope(q, cos, sin, rot), apply_rope(k, cos, sin, rot), v
+
+
+def attention_prefill(
+    p: Params,
+    x: torch.Tensor,  # [B, S, d]
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    rotary_pct: float = 1.0,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    attention=kops.flash_attention,
+):
+    """Full-sequence attention at positions 0..S-1 through the flash kernel
+    (the ``use_flash`` branch of the reference's ``attention_train``).
+    Returns (out [B,S,d], rotated k [B,S,KV,hd], v [B,S,KV,hd]) so that a
+    caller can fill a KV cache. ``attention`` swaps the kernel for another
+    function of the same signature (the plain version, in comparisons)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _qkv(p, x, positions, num_heads=num_heads,
+                   num_kv_heads=num_kv_heads, head_dim=head_dim,
+                   rope_theta=rope_theta, rotary_pct=rotary_pct)
+    out = attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    out = out.reshape(B, S, num_heads * head_dim) @ p["wo"].to(x.dtype)
+    return out, k, v
+
+
+def attention_decode(
+    p: Params,
+    x: torch.Tensor,  # [B, 1, d] current-token activations
+    cache: Params,  # {"k","v"}: [B, T, KV, hd], updated in place
+    pos: int,  # current absolute position (same for the batch)
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    rotary_pct: float = 1.0,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """One decode step; returns out [B,1,d]. Unlike the reference, which
+    returns a new cache, the token's k/v are written into ``cache`` in place.
+    With window > 0 the cache is a ring buffer of size ``window``."""
+    B = x.shape[0]
+    T = cache["k"].shape[1]
+    q, k, v = _qkv(p, x, torch.full((1,), pos, device=x.device),
+                   num_heads=num_heads, num_kv_heads=num_kv_heads,
+                   head_dim=head_dim, rope_theta=rope_theta,
+                   rotary_pct=rotary_pct)
+    slot = pos % T if window > 0 else pos  # ring buffer under SWA
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    if window > 0:
+        kpos = torch.arange(T, device=x.device)
+        valid = (kpos <= pos % T) | (pos >= T)  # ring full -> all valid
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        mask = torch.where(valid, zero, float("-inf"))[None, :]
+    else:
+        mask = gqa_scores_mask(1, T, causal=True, offset=pos, device=x.device)
+    out = attend(q, cache["k"], cache["v"], mask, softcap=softcap).to(x.dtype)
+    return out.reshape(B, 1, num_heads * head_dim) @ p["wo"].to(x.dtype)

@@ -1,0 +1,142 @@
+"""Shared building blocks, ported from ``repro/models/layers.py``.
+
+Plain functions on tensors and nested parameter dicts with the JAX
+package's paths and layouts; layer stacks keep a leading ``[L, ...]`` axis.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+
+def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0):
+    """N(0, 1) * scale in f32 on the generator's device; scale defaults to
+    1/sqrt(shape[0]) (fan-in). ``stack > 0`` draws that many independent
+    weights of ``shape`` on a leading layer axis."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    full = (stack, *shape) if stack else tuple(shape)
+    return torch.randn(full, generator=gen, device=gen.device,
+                       dtype=torch.float32) * scale
+
+
+def cast_params(tree: Params, dtype: torch.dtype) -> Params:
+    """Store every weight once in ``dtype`` (the compute dtype), which rounds
+    exactly as the reference's per-use ``.astype(x.dtype)`` does; RMSNorm
+    scales stay f32, since the reference multiplies them in f32."""
+    if isinstance(tree, dict):
+        return {k: (v.float() if k == "scale" else cast_params(v, dtype))
+                for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def layer(tree: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked ``[L, ...]`` parameter or cache tree (views)."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def linear_init(gen: torch.Generator, d_in: int, d_out: int) -> Params:
+    return {"w": _init(gen, (d_in, d_out))}
+
+
+def swiglu_init(gen: torch.Generator, d: int, d_ff: int, *,
+                stack: int = 0) -> Params:
+    return {
+        "gate": _init(gen, (d, d_ff), stack=stack),
+        "up": _init(gen, (d, d_ff), stack=stack),
+        "down": _init(gen, (d_ff, d), stack=stack),
+    }
+
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int) -> Params:
+    return {"table": _init(gen, (vocab, d), scale=0.02)}
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def rms_norm_init(d: int, device=None, *, stack: int = 0) -> Params:
+    shape = (stack, d) if stack else (d,)
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=device)}
+
+
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Computed in f32, cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * p["scale"]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (interleaved pairs, optional partial rotary)
+# ---------------------------------------------------------------------------
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                rotary_pct: float = 1.0):
+    """f32 cos/sin tables [*, rot_dim/2] for the rotated prefix of head_dim."""
+    rot_dim = int(head_dim * rotary_pct)
+    rot_dim -= rot_dim % 2
+    exponent = torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                            device=positions.device) / rot_dim
+    inv_freq = 1.0 / (theta ** exponent)
+    angles = positions[..., None].float() * inv_freq
+    return torch.cos(angles), torch.sin(angles), rot_dim
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               rot_dim: int) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; cos/sin: [..., seq, rot_dim/2].
+    Rotates the pairs (x[..., 0::2], x[..., 1::2]), not the two halves."""
+    rot, keep = x[..., :rot_dim], x[..., rot_dim:]
+    x1, x2 = rot[..., 0::2], rot[..., 1::2]
+    c = cos[..., None, :].to(x.dtype)  # broadcast over heads
+    s = sin[..., None, :].to(x.dtype)
+    y1 = x1 * c - x2 * s
+    y2 = x1 * s + x2 * c
+    rotated = torch.stack([y1, y2], dim=-1).reshape(rot.shape)
+    return torch.cat([rotated, keep], dim=-1) if keep.shape[-1] else rotated
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU FFN
+# ---------------------------------------------------------------------------
+
+def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = x @ p["gate"].to(x.dtype)
+    u = x @ p["up"].to(x.dtype)
+    return (F.silu(g) * u) @ p["down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed(p: Params, tokens: torch.Tensor,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    # cast the table before the gather, as the reference does
+    return F.embedding(tokens, p["table"].to(dtype))
+
+
+def _f32_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with operands in x's dtype and f32 accumulation and output: a
+    bf16 ``torch.matmul`` would round the logits to bf16."""
+    return x.float() @ w.to(x.dtype).float()
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: x @ table.T, f32 logits."""
+    return _f32_logits(x, p["table"].T)
+
+
+def unembed_separate(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return _f32_logits(x, p["w"])

@@ -1,0 +1,170 @@
+"""The dense-family LM (GQA + SwiGLU, e.g. llama3.2-1b), ported from
+``repro/models/transformer.py`` for serving:
+
+  * init(seed)                                -> params (stacked [L, ...])
+  * forward_logits(params, tokens)            -> [B, S, vocab] f32
+  * prefill(params, tokens, max_seq=...)      -> (last logits [B, vocab], cache)
+  * decode_init(batch, max_seq)               -> KV cache
+  * decode_step(params, cache, tokens, pos)   -> (logits [B, vocab], cache)
+
+The layer stack is a Python loop over the stacked parameters (the
+reference's ``lax.scan``). Prefill attention goes through the
+flash-attention kernel; decode attention is plain torch, as in the
+reference. Other families raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    Params,
+    cast_params,
+    embed,
+    embedding_init,
+    layer,
+    linear_init,
+    rms_norm,
+    rms_norm_init,
+    swiglu,
+    swiglu_init,
+    unembed,
+    unembed_separate,
+)
+
+
+class LM:
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 attention=kops.flash_attention):
+        """``device``: 'cuda' (the default; raises without a card) or 'cpu'.
+        ``attention``: the prefill attention function; the flash kernel
+        unless a comparison swaps in the plain version."""
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not yet ported (dense only)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(cfg.dtype)
+        self.attention = attention
+
+    # ------------------------------------------------------------------
+    # init
+    # ------------------------------------------------------------------
+    def init(self, seed: int = 0) -> Params:
+        """Seeded random params with the reference's distributions (not its
+        bits: torch and jax.random differ). Weights are stored in the
+        config dtype, norm scales in f32."""
+        c, dev = self.cfg, self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        L = c.num_layers
+        params: Params = {
+            "embed": embedding_init(gen, c.vocab_size, c.d_model),
+            "final_ln": rms_norm_init(c.d_model, dev),
+            "layers": {
+                "ln1": rms_norm_init(c.d_model, dev, stack=L),
+                "attn": attn.attention_init(gen, c.d_model, c.num_heads,
+                                            c.num_kv_heads, c.head_dim,
+                                            stack=L),
+                "ln2": rms_norm_init(c.d_model, dev, stack=L),
+                "mlp": swiglu_init(gen, c.d_model, c.d_ff, stack=L),
+            },
+        }
+        if not c.tie_embeddings:
+            params["unembed"] = linear_init(gen, c.d_model, c.vocab_size)
+        return cast_params(params, self.dtype)
+
+    # ------------------------------------------------------------------
+    # forward / prefill
+    # ------------------------------------------------------------------
+    def _attn_kwargs(self) -> dict:
+        c = self.cfg
+        return dict(num_heads=c.num_heads, num_kv_heads=c.num_kv_heads,
+                    head_dim=c.head_dim, rope_theta=c.rope_theta,
+                    rotary_pct=c.rotary_pct, window=c.sliding_window,
+                    softcap=c.attn_logit_softcap)
+
+    def _body(self, params: Params, h: torch.Tensor,
+              kv: Params | None = None) -> torch.Tensor:
+        """The dense stack at positions 0..S-1. With ``kv`` (a decode_init
+        cache's "kv"), each layer's rotated k and v are written into it."""
+        c = self.cfg
+        S = h.shape[1]
+        for i in range(c.num_layers):
+            lp = layer(params["layers"], i)
+            a, k, v = attn.attention_prefill(
+                lp["attn"], rms_norm(lp["ln1"], h, c.norm_eps),
+                attention=self.attention, **self._attn_kwargs())
+            if kv is not None:
+                self._fill_cache(layer(kv, i), k, v, S)
+            h = h + a
+            h = h + swiglu(lp["mlp"], rms_norm(lp["ln2"], h, c.norm_eps))
+        return h
+
+    def _fill_cache(self, kv_slice: Params, k, v, S: int) -> None:
+        T = kv_slice["k"].shape[1]
+        if self.cfg.sliding_window > 0:  # ring buffer: the last T positions
+            pos = torch.arange(max(0, S - T), S, device=k.device)
+            slots = pos % T
+        else:
+            if S > T:
+                raise ValueError(f"prompt of {S} tokens exceeds cache of {T}")
+            pos = slots = torch.arange(S, device=k.device)
+        kv_slice["k"][:, slots] = k[:, pos].to(kv_slice["k"].dtype)
+        kv_slice["v"][:, slots] = v[:, pos].to(kv_slice["v"].dtype)
+
+    def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        h = rms_norm(params["final_ln"], h, c.norm_eps)
+        return (unembed(params["embed"], h) if c.tie_embeddings
+                else unembed_separate(params["unembed"], h))
+
+    def forward_logits(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Inference prefill: tokens [B,S] -> full-sequence f32 logits."""
+        h = embed(params["embed"], tokens, self.dtype)
+        return self._logits(params, self._body(params, h))
+
+    def prefill(self, params: Params, tokens: torch.Tensor, *,
+                max_seq: int | None = None, cache_dtype=None):
+        """One pass over the prompt: returns (f32 logits of the last position
+        [B, vocab], a cache of ``max_seq`` positions (default S) holding
+        every layer's rotated k/v at 0..S-1). Equals stepping
+        ``decode_step`` over the prompt from an empty cache."""
+        B, S = tokens.shape
+        cache = self.decode_init(B, max_seq or S,
+                                 dtype=cache_dtype or self.dtype)
+        h = embed(params["embed"], tokens, self.dtype)
+        h = self._body(params, h, kv=cache["kv"])
+        return self._logits(params, h[:, -1:])[:, 0], cache
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+    def decode_init(self, batch_size: int, max_seq: int,
+                    dtype=torch.bfloat16) -> Params:
+        c = self.cfg
+        kv_len = (min(max_seq, c.sliding_window) if c.sliding_window > 0
+                  else max_seq)
+        shape = (c.num_layers, batch_size, kv_len, c.num_kv_heads, c.head_dim)
+        return {"kv": {
+            "k": torch.zeros(shape, dtype=dtype, device=self.device),
+            "v": torch.zeros(shape, dtype=dtype, device=self.device),
+        }}
+
+    def decode_step(self, params: Params, cache: Params, tokens: torch.Tensor,
+                    pos: int):
+        """tokens: [B] int; pos: absolute position. Returns (logits [B, vocab]
+        f32, cache); the cache is updated in place and returned."""
+        c = self.cfg
+        x = embed(params["embed"], tokens[:, None], self.dtype)  # [B,1,d]
+        for i in range(c.num_layers):
+            lp = layer(params["layers"], i)
+            a = attn.attention_decode(
+                lp["attn"], rms_norm(lp["ln1"], x, c.norm_eps),
+                layer(cache["kv"], i), pos, **self._attn_kwargs())
+            h = x + a
+            x = h + swiglu(lp["mlp"], rms_norm(lp["ln2"], h, c.norm_eps))
+        return self._logits(params, x)[:, 0, :], cache

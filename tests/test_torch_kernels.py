@@ -1,0 +1,131 @@
+"""The port's flash attention against the JAX package's, on the same inputs.
+
+On the CPU the port's entry point runs the kernel's plain version; it is
+held against the Pallas kernel (interpret mode, as tests/test_kernels.py
+runs it) and the jnp oracle, at that file's shapes and tolerances. The CUDA
+kernel itself is held against the plain version in tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.ref import flash_attention_ref as jref  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_ref as tref  # noqa: E402
+
+F32_TOL = 2e-5
+BF16_TOL = 2e-2
+
+
+def _qkv_np(seed, B, S, H, KV, hd, T=None):
+    rng = np.random.default_rng(seed)
+    T = S if T is None else T
+    return (rng.standard_normal((B, S, H, hd), dtype=np.float32),
+            rng.standard_normal((B, T, KV, hd), dtype=np.float32),
+            rng.standard_normal((B, T, KV, hd), dtype=np.float32))
+
+
+def _both(arrs, dtype="float32"):
+    jd = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    td = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    return ([jnp.asarray(a).astype(jd) for a in arrs],
+            [torch.from_numpy(a).to(td) for a in arrs])
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _check(seed, B, S, H, KV, hd, tol=F32_TOL, dtype="float32", **kw):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv_np(seed, B, S, H, KV, hd), dtype)
+    tfa.flash_attention.launches = 0
+    got = tops.flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert tfa.flash_attention.launches == 0  # CPU tensors never launch
+    pallas = jops.flash_attention(jq, jk, jv, block_q=64, block_kv=64, **kw)
+    oracle = jref(jq, jk, jv, **kw)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 128, 4, 4, 32),   # MHA
+    (2, 128, 4, 2, 32),   # GQA 2:1
+    (1, 256, 8, 1, 16),   # MQA
+    (1, 192, 2, 2, 64),   # non-pow2 seq
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_shapes_causal(B, S, H, KV, hd, causal):
+    _check(0, B, S, H, KV, hd, causal=causal)
+
+
+@pytest.mark.parametrize("window", [32, 96])
+def test_sliding_window(window):
+    _check(1, 1, 256, 4, 4, 32, causal=True, window=window)
+
+
+def test_softcap():
+    _check(2, 1, 128, 2, 2, 32, causal=True, softcap=20.0)
+
+
+def test_bf16():
+    _check(3, 1, 128, 4, 2, 32, tol=BF16_TOL, dtype="bfloat16", causal=True)
+
+
+def test_block_shape_independence():
+    """The port has no block shape; it matches the Pallas kernel at two."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv_np(4, 1, 256, 2, 2, 32))
+    got = _np(tops.flash_attention(tq, tk, tv, causal=True))
+    for bq, bkv in ((64, 128), (128, 64)):
+        want = jops.flash_attention(jq, jk, jv, causal=True, block_q=bq,
+                                    block_kv=bkv)
+        np.testing.assert_allclose(got, _np(want), rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_ragged_and_cross_lengths():
+    """S=1000 (no power-of-two factor the Pallas walk would need) and T != S
+    go through the plain version; held against the jnp oracle."""
+    for S, T, causal in ((1000, 1000, True), (96, 160, False), (160, 96, True)):
+        arrs = _qkv_np(5, 1, S, 2, 1, 16, T=T)
+        (jq, jk, jv), (tq, tk, tv) = _both(arrs)
+        got = tops.flash_attention(tq, tk, tv, causal=causal)
+        np.testing.assert_allclose(_np(got), _np(jref(jq, jk, jv, causal=causal)),
+                                   rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_fully_masked_rows_are_zero():
+    """A query that sees no key (its window lies past a short T) gives 0."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv_np(6, 1, 64, 2, 2, 16, T=8))
+    out = tref(q, k, v, causal=True, window=4)
+    assert torch.all(out[:, 11:] == 0) and torch.all(torch.isfinite(out))
+    assert torch.all(out[:, :11].abs().sum(-1) > 0)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "group", "device"])
+def test_dispatch_rejects(bad):
+    q, k, v = (torch.from_numpy(a) for a in _qkv_np(7, 1, 16, 4, 2, 16))
+    if bad == "shape":
+        k = k[:, :, :, :8]
+    elif bad == "dtype":
+        v = v.to(torch.bfloat16)
+    elif bad == "group":
+        q = q[:, :, :3]
+    else:
+        q, k, v = (t.to("meta") for t in (q, k, v))
+    with pytest.raises((ValueError, TypeError)):
+        tops.flash_attention(q, k, v)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    q, k, v = (torch.from_numpy(a) for a in _qkv_np(8, 1, 16, 2, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(q, k, v)
+    assert tfa.flash_attention.launches == 0

@@ -1,0 +1,128 @@
+"""Rules the port keeps: it imports nothing of jax or of the JAX package,
+runs on the card unless asked for the CPU, and has no fallback when the
+card's pieces (CUDA, nvcc) are missing."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import resolve_device  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_scan_covers_the_package():
+    names = {p.name for p in PORT_FILES}
+    assert {"chip_smoke.py", "transformer.py", "ops.py", "serve.py"} <= names
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_needs_cuda_unless_cpu(no_cuda):
+    for asked in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device(asked)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    cfg = get_config("llama3.2-1b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--reduced", "--prompt-len", "4", "--new-tokens", "1"])
+
+
+def test_serve_runs_on_cpu_when_asked(capsys):
+    assert serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "8", "--new-tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "prefill: 2x8 tokens" in out and "decode: 3 steps x 2 seqs" in out
+
+
+def test_registry_holds_only_ported_archs():
+    assert get_config("llama3.2-1b").family == "dense"
+    with pytest.raises(KeyError, match="not yet ported"):
+        get_config("mamba2-370m")
+
+
+def test_other_families_not_ported():
+    cfg = get_config("llama3.2-1b").reduced()
+    for fam in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+        with pytest.raises(NotImplementedError):
+            LM(cfg.reduced(family=fam), device="cpu")
+
+
+def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build, "CUDA_HOMES", (str(tmp_path),))
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        build.build_all()
+    with pytest.raises(build.KernelBuildError):
+        build.load("flash_attention")
+
+
+def test_builder_raises_with_nvcc_output(monkeypatch, tmp_path):
+    """A refused source raises with what nvcc said, and leaves no library."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: sm_90a refused' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    with pytest.raises(build.KernelBuildError, match="sm_90a refused"):
+        build.build_all()
+    assert not list((tmp_path / "out").glob("*.so"))
+
+
+def test_build_target_follows_source_hash(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// one")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    first = build._target("k")[1]
+    (csrc / "k.cu").write_text("// two")
+    assert build._target("k")[1] != first
+    assert first.parent == build.BUILD_DIR
+
+
+def test_trace_needs_cuda_and_sums_busy_time(no_cuda):
+    from repro_torch.launch import trace
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trace.main()
+    assert trace._busy_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17
+    assert trace._busy_us([]) == 0
+    assert trace.kind_of("void (anonymous namespace)::flash_fwd_kernel<float, 64>") \
+        == "flash_attention"
+    assert trace.kind_of("sm90_xmma_gemm_bf16bf16_bf16f32") == "matmul"
+    assert trace.kind_of("vectorized_elementwise_kernel") == "other"
