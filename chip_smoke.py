@@ -11,19 +11,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    card at the test shapes and at the serving shape, and time it there
    beside the plain version and, as a yardstick the port never calls,
    ``torch.nn.functional.scaled_dot_product_attention``;
-4. serve full-width llama3.2-1b (bf16, seeded random weights): 4 prompts of
-   1024 tokens, one-pass prefill, 32 greedy decode steps, with the kernel's
-   launches counted over that run; then check the prefill against the same
-   forward with the plain attention, the cache against a prefill one token
-   longer, and the reduced model on the card against the CPU;
-5. print one JSON line of per-kernel numbers;
-6. print the result line ``{"ok": true, "device": {...}}`` last.
+4. hold the SSD chunked-scan kernel (output and final state) against its
+   plain version (the token-by-token recurrence) on the card at the test
+   shapes, a ragged S, S < chunk and the serving shape, and time it there
+   beside the plain version (no single PyTorch call computes it);
+5. serve full-width llama3.2-1b (bf16, seeded random weights): 4 prompts of
+   1024 tokens, one-pass prefill, 32 greedy decode steps, with the flash
+   kernel's launches counted over that run; then check the prefill against
+   the same forward with the plain attention, the cache against a prefill
+   one token longer, and the reduced model on the card against the CPU;
+6. the same for full-width mamba2-370m, with the SSD kernel's launches
+   counted and the plain SSD scan as the comparison, a planted fault that
+   the bf16 check must reject, and the checks repeated in f32;
+7. print one JSON line of per-kernel numbers;
+8. print the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of jax or of the JAX package ``repro``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -47,6 +55,23 @@ BF16_TOL = 2e-2
 # kernel's f32), and 16 layers compound it.
 LOGITS_REL_TOL = 5e-2
 REDUCED_F32_TOL = 1e-4
+# the SSD kernel against the token-by-token recurrence, f32 (the tolerance
+# of tests/test_kernels.py's SSD tests)
+SSD_TOL = 1e-4
+
+# mamba2 logits, rel-L2. In bf16 the kernel and the plain scan sum in
+# other orders in f32, which flips bf16 roundings of the block outputs, and
+# decode's conv runs in f32 on an f32 window where prefill's runs in bf16
+# (as in the reference); the random-weight 48-layer stack amplifies such
+# flips to ~0.1. So the bf16 limit is loose, and each run shows that it
+# still fails a planted fault: the same forward with an off-by-one causal
+# mask in the scan must miss the plain one by more than the limit. The same
+# checks on the same model in f32 carry the weight: there the two sides
+# differ only by f32 summation order. Neither sees the state carried across
+# chunks: with the reference's init (dt_bias = A_log = 0) the state decays
+# by ~exp(-0.7) a token, so the SSD kernel checks above hold the carry.
+SSM_BF16_REL_TOL = 0.3
+SSM_F32_REL_TOL = 1e-3
 
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
 SLICE_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 32, 8, 64)  # B, S, H, KV, hd
@@ -70,6 +95,18 @@ CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
     (1, 64, 8, 2, 2, 16, "float32", dict(causal=True, window=4)),     # empty rows
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
      "bfloat16", dict(causal=True)),                                  # the slice
+]
+
+SSD_SLICE = (SERVE_BATCH, SERVE_PROMPT, 32, 64, 128, 128)  # B, S, H, P, N, chunk
+SSD_CASES = [  # B, S, H, P, N, chunk
+    (1, 64, 2, 16, 8, 16),       # tests/test_kernels.py's shapes
+    (2, 128, 4, 32, 16, 32),
+    (1, 96, 2, 16, 8, 32),
+    (1, 64, 1, 64, 32, 64),
+    (2, 1000, 4, 64, 128, 128),  # ragged last chunk
+    (1, 50, 2, 64, 64, 128),     # S < chunk, N = 64
+    (2, 100, 8, 32, 16, 16),     # the reduced mamba2 shape
+    SSD_SLICE,                   # the slice
 ]
 
 
@@ -104,6 +141,36 @@ def attention_bound(q, k, v, causal, window):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def ssd_bound(xh, Bm, chunk: int):
+    """(bound_ms, bound_by, flops, bytes) of the SSD scan as prefill calls
+    it (with the final state). Operations over the f32 peak: C.B^T over the
+    causal pairs once per (b, chunk), since B and C, and so the scores, are
+    shared by all heads; then per (b, h, chunk) the scores' product with
+    x*dt, C.state^T and the state update. Bytes over HBM bandwidth: each
+    input read once, y and the final state written once."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    flops = 0
+    for t0 in range(0, S, chunk):
+        q = min(chunk, S - t0)
+        pairs = q * (q + 1) // 2
+        flops += B * (pairs * N * 2 + H * (pairs * P * 2 + 2 * q * N * P * 2))
+    nbytes = (2 * xh.numel() + B * S * H + H + 2 * Bm.numel() + B * H * P * N) * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def ssd_inputs(torch, gen, dev, B, S, H, P, N):
+    """Inputs as ssd_block gives them: dt after softplus, A < 0."""
+    xh = torch.randn((B, S, H, P), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    A = -torch.exp(0.3 * torch.randn((H,), generator=gen, device=dev))
+    Bm = 0.5 * torch.randn((B, S, N), generator=gen, device=dev)
+    Cm = 0.5 * torch.randn((B, S, N), generator=gen, device=dev)
+    return xh, dt, A, Bm, Cm
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -153,7 +220,8 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
     from repro_torch.launch.serve import make_prompts, report, serve
     from repro_torch.models import LM
 
@@ -227,75 +295,167 @@ def main() -> int:
           f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
           f"kernel at {flops / times['ms'] / 1e9:.2f} TFLOP/s")
 
-    # 4. serve -----------------------------------------------------------
-    phase("serve llama3.2-1b")
-    cfg = get_config("llama3.2-1b")
-    lm = LM(cfg, device=dev)
-    params = lm.init(0)
-    print(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}, "
-          f"{cfg.num_layers} layers, d_model {cfg.d_model}")
-    prompts = torch.from_numpy(
-        make_prompts(SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, 0)).to(dev)
-    serve(lm, params, prompts, 2)  # warm-up: cuBLAS and allocator start-up
+    # 4. the SSD kernel against its plain version ---------------------------
+    phase("SSD kernel checks")
+    ssd_err = None
+    for B, S, H, P, N, chunk in SSD_CASES:
+        xh, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, B, S, H, P, N)
+        got, got_state = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, return_state=True)
+        torch.cuda.synchronize()
+        want, want_state = ssd_scan_ref(xh, dt, A, Bm, Cm, return_state=True)
+        err, ok = compare(got, want, SSD_TOL)
+        err_state, ok_state = compare(got_state, want_state, SSD_TOL)
+        print(f"  B={B} S={S} H={H} P={P} N={N} chunk={chunk}: max_abs_err y={err:.3g} "
+              f"state={err_state:.3g} (rtol = atol = {SSD_TOL}) "
+              f"{'ok' if ok and ok_state else 'FAIL'}")
+        if not (ok and ok_state and torch.isfinite(got).all()):
+            fail(f"SSD kernel disagrees with its plain version at {(B, S, H, P, N, chunk)}")
+        if (B, S, H, P, N, chunk) == SSD_SLICE:
+            ssd_err = max(err, err_state)
 
-    fa.flash_attention.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    out = serve(lm, params, prompts, SERVE_NEW)
-    launches = fa.flash_attention.launches
-    peak = torch.cuda.max_memory_allocated(dev)
-    print(report(out))
-    print(f"serve: prefill_ms={out['prefill_s'] * 1e3:.3f} "
-          f"decode_ms_per_token={out['decode_s'] * 1e3 / SERVE_NEW:.3f} "
-          f"decode_tok_per_s={SERVE_BATCH * SERVE_NEW / out['decode_s']:.1f} "
-          f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) "
-          f"flash_attention_launches={launches}")
-    if launches != cfg.num_layers:
-        fail(f"flash_attention launched {launches} times in one prefill, "
-             f"want {cfg.num_layers} (one per layer)")
-    toks = out["tokens"]
-    if toks.shape != (SERVE_BATCH, SERVE_NEW + 1) or not (
-            (toks >= 0) & (toks < cfg.vocab_size)).all():
-        fail(f"bad generated tokens: shape {tuple(toks.shape)}")
-    for key in ("prefill_logits", "last_logits"):
-        if out[key].shape != (SERVE_BATCH, cfg.vocab_size) or \
-                out[key].dtype != torch.float32 or not torch.isfinite(out[key]).all():
-            fail(f"{key}: want finite f32 [{SERVE_BATCH}, {cfg.vocab_size}]")
+    B, S, H, P, N, chunk = SSD_SLICE
+    xh, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, B, S, H, P, N)
+    ssd_fn = lambda: ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk,  # noqa: E731
+                                  return_state=True)
+    ssd_plain_fn = lambda: ssd_scan_ref(xh, dt, A, Bm, Cm,  # noqa: E731
+                                        return_state=True)
+    ssd_times = {"ms": [], "plain_ms": []}
+    for _ in range(3):  # in turns
+        ssd_times["ms"].append(time_ms(torch, ssd_fn, 10))
+        ssd_times["plain_ms"].append(time_ms(torch, ssd_plain_fn, 2))
+    ssd_times = {key: statistics.median(vals) for key, vals in ssd_times.items()}
+    ssd_bound_ms, ssd_bound_by, flops, nbytes = ssd_bound(xh, Bm, chunk)
+    print(f"  slice shape {SSD_SLICE} f32 with final state: kernel "
+          f"{ssd_times['ms']:.4f} ms, plain {ssd_times['plain_ms']:.4f} ms; "
+          f"bound {ssd_bound_ms * 1e3:.2f} us by {ssd_bound_by} "
+          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+          f"kernel at {flops / ssd_times['ms'] / 1e9:.2f} TFLOP/s")
 
-    with torch.inference_mode():
-        plain_lm = LM(cfg, device=dev, attention=flash_attention_ref)
-        plain_logits, _ = plain_lm.prefill(params, prompts)
-        e_plain = rel_l2(out["prefill_logits"], plain_logits)
-        print(f"  prefill vs plain attention: rel_l2={e_plain:.3g} "
-              f"max_abs={float((out['prefill_logits'] - plain_logits).abs().max()):.3g} "
-              f"(tol rel_l2 {LOGITS_REL_TOL})")
-        if not e_plain <= LOGITS_REL_TOL:
-            fail("prefill logits disagree with the plain-attention forward")
+    # 5. and 6. serve each model through its kernel -------------------------
+    def diagonal_dropped(scan):
+        """``scan`` with a planted fault, an off-by-one causal mask: y_i
+        leaves out its own position's term (C_i . B_i) dt_i x_i."""
+        def faulty(xh, dt, A, Bm, Cm, *, chunk, return_state=False):
+            out = scan(xh, dt, A, Bm, Cm, chunk=chunk, return_state=return_state)
+            y = out[0] if return_state else out
+            y = y - (Cm * Bm).sum(-1)[..., None, None] * dt[..., None] * xh
+            return (y, out[1]) if return_state else y
+        return faulty
 
-        tok0 = out["tokens"][:, 0]
-        _, cache = lm.prefill(params, prompts, max_seq=SERVE_PROMPT + 1)
-        step_logits, _ = lm.decode_step(params, cache, tok0, SERVE_PROMPT)
-        longer, _ = lm.prefill(params, torch.cat([prompts, tok0[:, None]], 1))
-        e_cache = rel_l2(step_logits, longer)
-        print(f"  decode_step at S vs prefill of S+1: rel_l2={e_cache:.3g} "
-              f"max_abs={float((step_logits - longer).abs().max()):.3g} "
-              f"(tol rel_l2 {LOGITS_REL_TOL})")
-        if not e_cache <= LOGITS_REL_TOL:
-            fail("decode from the prefilled cache disagrees with a longer prefill")
+    def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
+                      out: dict | None = None, fault_kw: dict | None = None) -> None:
+        """Prefill logits against the same forward on the plain version(s),
+        and decode at position S from the prefilled cache against a prefill
+        of S+1 tokens, both by rel-L2. The prefill logits and first token are
+        the served run's ``out``, or a fresh prefill's without it. With
+        ``fault_kw`` (LM arguments that plant a fault), that forward must
+        miss the plain one by more than ``tol``: the check can fail a wrong
+        kernel."""
+        with torch.inference_mode():
+            plain_logits, _ = LM(cfg, device=dev, **plain_kw).prefill(params, prompts)
+            if out is None:
+                got, _ = lm.prefill(params, prompts)
+                tok0 = got.argmax(-1)
+            else:
+                got, tok0 = out["prefill_logits"], out["tokens"][:, 0]
+            e_plain = rel_l2(got, plain_logits)
+            print(f"  {cfg.dtype}: prefill vs plain {'/'.join(plain_kw)}: "
+                  f"rel_l2={e_plain:.3g} max_abs={float((got - plain_logits).abs().max()):.3g} "
+                  f"(tol rel_l2 {tol})")
+            if not e_plain <= tol:
+                fail(f"{cfg.dtype} prefill logits disagree with the plain "
+                     f"{'/'.join(plain_kw)} forward")
+            if fault_kw is not None:
+                faulty, _ = LM(cfg, device=dev, **fault_kw).prefill(params, prompts)
+                e_fault = rel_l2(faulty, plain_logits)
+                print(f"  {cfg.dtype}: planted fault (off-by-one causal mask) vs "
+                      f"plain: rel_l2={e_fault:.3g} (must exceed {tol})")
+                if not e_fault > tol:
+                    fail(f"the {cfg.dtype} prefill check passes a planted fault")
 
-        small = cfg.reduced(dtype="float32")
-        cpu_lm, gpu_lm = LM(small, device="cpu"), LM(small, device=dev)
-        cpu_params = cpu_lm.init(0)
-        gpu_params = to_device(cpu_params, dev)
-        small_tokens = torch.from_numpy(make_prompts(2, 100, small.vocab_size, 1))
-        want = cpu_lm.forward_logits(cpu_params, small_tokens)
-        got = gpu_lm.forward_logits(gpu_params, small_tokens.to(dev)).cpu()
-        e_small, ok = compare(got, want, REDUCED_F32_TOL)
-        print(f"  reduced f32 model (kernel at hd=32), card vs CPU: "
-              f"max_abs_err={e_small:.3g} (rtol = atol = {REDUCED_F32_TOL})")
-        if not ok:
-            fail("the reduced model on the card disagrees with the CPU")
+            _, cache = lm.prefill(params, prompts, max_seq=SERVE_PROMPT + 1)
+            step_logits, _ = lm.decode_step(params, cache, tok0, SERVE_PROMPT)
+            longer, _ = lm.prefill(params, torch.cat([prompts, tok0[:, None]], 1))
+            e_cache = rel_l2(step_logits, longer)
+            print(f"  {cfg.dtype}: decode_step at S vs prefill of S+1: rel_l2={e_cache:.3g} "
+                  f"max_abs={float((step_logits - longer).abs().max()):.3g} "
+                  f"(tol rel_l2 {tol})")
+            if not e_cache <= tol:
+                fail(f"{cfg.dtype} decode from the prefilled cache disagrees with "
+                     f"a longer prefill")
 
-    # 5. per-kernel numbers -------------------------------------------------
+    def check_serving(arch: str, counter, plain_kw: dict, rel_tol: float,
+                      f32_tol: float | None = None, fault_kw: dict | None = None) -> int:
+        """Serve ``arch`` at full width with its kernel's launches counted,
+        then the correctness checks; returns the launches of the run. With
+        ``f32_tol`` the logits checks are repeated on the same model in
+        f32, where rounding does not hide a fault; ``fault_kw`` plants a
+        fault that the bf16 check must fail."""
+        phase(f"serve {arch}")
+        cfg = get_config(arch)
+        lm = LM(cfg, device=dev)
+        params = lm.init(0)
+        print(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}, "
+              f"{cfg.num_layers} layers, d_model {cfg.d_model}")
+        prompts = torch.from_numpy(
+            make_prompts(SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, 0)).to(dev)
+        serve(lm, params, prompts, 2)  # warm-up: cuBLAS and allocator start-up
+
+        counter.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = serve(lm, params, prompts, SERVE_NEW)
+        launches = counter.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(report(out))
+        print(f"serve: prefill_ms={out['prefill_s'] * 1e3:.3f} "
+              f"decode_ms_per_token={out['decode_s'] * 1e3 / SERVE_NEW:.3f} "
+              f"decode_tok_per_s={SERVE_BATCH * SERVE_NEW / out['decode_s']:.1f} "
+              f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) "
+              f"{counter.__name__}_launches={launches}")
+        if launches != cfg.num_layers:
+            fail(f"{counter.__name__} launched {launches} times in one prefill, "
+                 f"want {cfg.num_layers} (one per layer)")
+        toks = out["tokens"]
+        if toks.shape != (SERVE_BATCH, SERVE_NEW + 1) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            fail(f"bad generated tokens: shape {tuple(toks.shape)}")
+        for key in ("prefill_logits", "last_logits"):
+            if out[key].shape != (SERVE_BATCH, cfg.vocab_size) or \
+                    out[key].dtype != torch.float32 or not torch.isfinite(out[key]).all():
+                fail(f"{key}: want finite f32 [{SERVE_BATCH}, {cfg.vocab_size}]")
+
+        logits_checks(cfg, lm, params, prompts, plain_kw, rel_tol, out=out,
+                      fault_kw=fault_kw)
+        del lm, params
+        if f32_tol is not None:
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            lm32 = LM(cfg32, device=dev)
+            logits_checks(cfg32, lm32, lm32.init(0), prompts, plain_kw, f32_tol)
+            del lm32
+
+        with torch.inference_mode():
+            small = cfg.reduced(dtype="float32")
+            cpu_lm, gpu_lm = LM(small, device="cpu"), LM(small, device=dev)
+            cpu_params = cpu_lm.init(0)
+            gpu_params = to_device(cpu_params, dev)
+            small_tokens = torch.from_numpy(make_prompts(2, 100, small.vocab_size, 1))
+            want = cpu_lm.forward_logits(cpu_params, small_tokens)
+            got = gpu_lm.forward_logits(gpu_params, small_tokens.to(dev)).cpu()
+            e_small, ok = compare(got, want, REDUCED_F32_TOL)
+            print(f"  reduced f32 model (its kernel at the reduced shape), card vs "
+                  f"CPU: max_abs_err={e_small:.3g} (rtol = atol = {REDUCED_F32_TOL})")
+            if not ok:
+                fail("the reduced model on the card disagrees with the CPU")
+        return launches
+
+    launches = check_serving("llama3.2-1b", fa.flash_attention,
+                             dict(attention=flash_attention_ref), LOGITS_REL_TOL)
+    ssd_launches = check_serving("mamba2-370m", ssd.ssd_scan,
+                                 dict(ssd_scan=ssd_scan_ref), SSM_BF16_REL_TOL,
+                                 f32_tol=SSM_F32_REL_TOL,
+                                 fault_kw=dict(ssd_scan=diagonal_dropped(ops.ssd_scan)))
+
+    # 7. per-kernel numbers -------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -308,8 +468,20 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": times["library_ms"],
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:26",
+        "launches": ssd_launches,
+        "max_abs_err": ssd_err,
+        "ms": ssd_times["ms"],
+        "plain_ms": ssd_times["plain_ms"],
+        "bound_ms": ssd_bound_ms,
+        "bound_by": ssd_bound_by,
+        "library_ms": None,
     }]}))
-    # 6. result --------------------------------------------------------------
+    # 8. result --------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

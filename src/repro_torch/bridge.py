@@ -17,7 +17,8 @@ def params_from_jax(tree: Params, device=None,
                     dtype: torch.dtype = torch.bfloat16) -> Params:
     """A numpy param pytree of ``repro``'s LM -> the port's params under the
     same dict paths (``embed.table``, ``layers.attn.wq`` [L, d, H*hd], ...).
-    Weights are stored in ``dtype``; RMSNorm scales stay f32."""
+    Weights are stored in ``dtype``; the f32 leaves of ``cast_params``
+    (norm scales, the SSM's dt_bias, A_log and D) stay f32."""
     dev = resolve_device(device)
 
     def to_torch(t):

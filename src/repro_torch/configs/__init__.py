@@ -5,8 +5,9 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.llama3_2_1b import CONFIG as llama3_2_1b
+from repro_torch.configs.mamba2_370m import CONFIG as mamba2_370m
 
-REGISTRY: dict[str, ModelConfig] = {c.name: c for c in [llama3_2_1b]}
+REGISTRY: dict[str, ModelConfig] = {c.name: c for c in [llama3_2_1b, mamba2_370m]}
 
 
 def get_config(arch: str) -> ModelConfig:

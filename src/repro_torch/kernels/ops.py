@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -35,3 +36,34 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     raise ValueError(f"no flash_attention for device {q.device}")
+
+
+def _check_ssd(xh, dt, A, Bm, Cm) -> None:
+    if xh.ndim != 4 or dt.ndim != 3 or A.ndim != 1 or Bm.ndim != 3 \
+            or Bm.shape != Cm.shape:
+        raise ValueError(f"want xh [B,S,H,P], dt [B,S,H], A [H], Bm = Cm "
+                         f"[B,S,N]; got {tuple(xh.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(A.shape)}, {tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    B, S, H, _ = xh.shape
+    if dt.shape != (B, S, H) or A.shape != (H,) or Bm.shape[:2] != (B, S):
+        raise ValueError(f"xh {tuple(xh.shape)} does not fit dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, Bm {tuple(Bm.shape)}")
+
+
+def ssd_scan(xh, dt, A, Bm, Cm, *, chunk=128, return_state=False):
+    """Chunked SSD: [B,S,H,P] inputs -> [B,S,H,P] outputs, and with
+    ``return_state`` also the f32 state after the last position
+    [B,H,P,N]."""
+    _check_ssd(xh, dt, A, Bm, Cm)
+    if xh.device.type == "cuda":
+        state = None
+        if return_state:
+            B, _, H, P = xh.shape
+            state = torch.empty((B, H, P, Bm.shape[-1]), dtype=torch.float32,
+                                device=xh.device)
+        y = _ssd.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, state_out=state)
+        return (y, state) if return_state else y
+    if xh.device.type == "cpu":
+        return ssd_scan_ref(xh, dt, A, Bm, Cm, chunk=chunk,
+                            return_state=return_state)
+    raise ValueError(f"no ssd_scan for device {xh.device}")

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels: the CPU path of the port and the
 oracle each CUDA kernel is held against on the card.
 
-Deliberately naive (dense scores), independent of the kernels' tile walks.
+Deliberately naive (dense scores; the token-by-token SSD recurrence),
+independent of the kernels' tile walks.
 """
 
 from __future__ import annotations
@@ -37,3 +38,29 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     p = torch.softmax(s, dim=-1).nan_to_num(0.0)  # rows with no visible key
     out = torch.einsum("bhst,bthd->bshd", p, vv.float())
     return out.to(q.dtype)
+
+
+def ssd_scan_ref(xh, dt, A, Bm, Cm, *, chunk=128, return_state=False):
+    """Token-by-token SSD recurrence (the definitional form), a port of
+    ``repro/kernels/ref.py:ssd_scan_ref``:
+
+        h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T ;  y_t = h_t C_t
+
+    xh: [B,S,H,P]; dt: [B,S,H] (post-softplus); A: [H] (< 0); Bm/Cm: [B,S,N].
+    Returns y [B,S,H,P] in xh's dtype, and with ``return_state`` also the f32
+    state after the last position, [B,H,P,N]. ``chunk`` is accepted for the
+    kernel's signature and does not change the result."""
+    del chunk
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    x, d = xh.float(), dt.float()
+    b, c, a = Bm.float(), Cm.float(), A.float()
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(d[:, t] * a[None, :])  # [B,H]
+        dbx = torch.einsum("bn,bhp->bhpn", b[:, t], x[:, t] * d[:, t, :, None])
+        h = h * decay[..., None, None] + dbx
+        ys.append(torch.einsum("bhpn,bn->bhp", h, c[:, t]))
+    y = (torch.stack(ys, dim=1) if ys else torch.zeros_like(x)).to(xh.dtype)
+    return (y, h) if return_state else y

@@ -1,10 +1,11 @@
 """Serving launcher of the port: a batch of prompts is prefilled in one pass
-(attention through the flash-attention kernel), then decoded greedily from
-the KV cache. Counterpart of ``repro/launch/serve.py`` and
-``examples/serve_batch.py``.
+(attention through the flash-attention kernel, the SSD scan through the SSD
+kernel), then decoded greedily from the KV or SSM cache. Counterpart of
+``repro/launch/serve.py`` and ``examples/serve_batch.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --batch 4 --prompt-len 1024 --new-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --prompt-len 32 --new-tokens 8
 

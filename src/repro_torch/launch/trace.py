@@ -1,20 +1,24 @@
 """Where serving time goes on the card: the serve workload of
-``chip_smoke.py`` (full-width llama3.2-1b, batch 4, prompts of 1024 tokens)
+``chip_smoke.py`` (a full-width model, batch 4, prompts of 1024 tokens)
 under ``torch.profiler``, one phase at a time.
 
-    PYTHONPATH=src python -m repro_torch.launch.trace
+    PYTHONPATH=src python -m repro_torch.launch.trace                     # llama3.2-1b
+    PYTHONPATH=src python -m repro_torch.launch.trace --arch mamba2-370m
 
 After one untraced warm-up, traces one prefill and then 8 greedy decode
 steps, each phase in its own profiler session, and prints per phase:
 host wall time (ending in a synchronise), device-busy time (the union of
 the kernels' intervals), the busy share, device time by kind (the flash
-attention kernel, matrix products, everything else) and the top kernels.
+attention kernel, the SSD scan kernel, matrix products, everything else)
+and the top kernels.
 Needs a card; exits non-zero if the profiler records no kernel.
 """
 
 from __future__ import annotations
 
+import argparse
 import re
+import sys
 import time
 from collections import defaultdict
 
@@ -32,6 +36,8 @@ _MATMUL = re.compile(r"gemm|gemv|xmma|cutlass|cublas|nvjet", re.I)
 def kind_of(kernel: str) -> str:
     if "flash_fwd_kernel" in kernel:
         return "flash_attention"
+    if "ssd_scan_kernel" in kernel:
+        return "ssd_scan"
     return "matmul" if _MATMUL.search(kernel) else "other"
 
 
@@ -86,9 +92,12 @@ def print_phase(name: str, r: dict, per: int, top: int) -> None:
 BATCH, PROMPT_LEN, DECODE_STEPS, SEED, TOP = 4, 1024, 8, 0, 8
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="llama3.2-1b")
+    args = ap.parse_args(argv)
     device = resolve_device("cuda")
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(args.arch)
     lm = LM(cfg, device=device)
     params = lm.init(SEED)
     B, S, n = BATCH, PROMPT_LEN, DECODE_STEPS
@@ -117,4 +126,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

@@ -25,12 +25,18 @@ def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0):
                        dtype=torch.float32) * scale
 
 
+# leaves the reference uses in f32 whatever the compute dtype: RMSNorm
+# scales, and the SSM's dt bias, decay, skip and gated-norm scale
+# (repro/models/ssm.py:154-155, 167, 172)
+F32_LEAVES = frozenset({"scale", "dt_bias", "A_log", "D", "norm_scale"})
+
+
 def cast_params(tree: Params, dtype: torch.dtype) -> Params:
     """Store every weight once in ``dtype`` (the compute dtype), which rounds
-    exactly as the reference's per-use ``.astype(x.dtype)`` does; RMSNorm
-    scales stay f32, since the reference multiplies them in f32."""
+    exactly as the reference's per-use ``.astype(x.dtype)`` does; the leaves
+    named in ``F32_LEAVES`` stay f32, since the reference uses them in f32."""
     if isinstance(tree, dict):
-        return {k: (v.float() if k == "scale" else cast_params(v, dtype))
+        return {k: (v.float() if k in F32_LEAVES else cast_params(v, dtype))
                 for k, v in tree.items()}
     return tree.to(dtype)
 

@@ -1,16 +1,18 @@
-"""The dense-family LM (GQA + SwiGLU, e.g. llama3.2-1b), ported from
+"""The LM of the dense family (GQA + SwiGLU, e.g. llama3.2-1b) and of the
+ssm family (a Mamba2/SSD stack, e.g. mamba2-370m), ported from
 ``repro/models/transformer.py`` for serving:
 
   * init(seed)                                -> params (stacked [L, ...])
   * forward_logits(params, tokens)            -> [B, S, vocab] f32
   * prefill(params, tokens, max_seq=...)      -> (last logits [B, vocab], cache)
-  * decode_init(batch, max_seq)               -> KV cache
+  * decode_init(batch, max_seq)               -> KV cache or SSM cache
   * decode_step(params, cache, tokens, pos)   -> (logits [B, vocab], cache)
 
 The layer stack is a Python loop over the stacked parameters (the
 reference's ``lax.scan``). Prefill attention goes through the
-flash-attention kernel; decode attention is plain torch, as in the
-reference. Other families raise ``NotImplementedError``.
+flash-attention kernel and the prefill SSD scan through the SSD kernel;
+decode is plain torch, as in the reference. Other families raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     Params,
     cast_params,
@@ -37,19 +40,23 @@ from repro_torch.models.layers import (
 )
 
 
+FAMILIES = ("dense", "ssm")
+
+
 class LM:
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 attention=kops.flash_attention):
+                 attention=kops.flash_attention, ssd_scan=kops.ssd_scan):
         """``device``: 'cuda' (the default; raises without a card) or 'cpu'.
-        ``attention``: the prefill attention function; the flash kernel
-        unless a comparison swaps in the plain version."""
-        if cfg.family != "dense":
+        ``attention`` and ``ssd_scan``: the prefill attention and SSD scan;
+        the kernels unless a comparison swaps in the plain versions."""
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not yet ported (dense only)")
+                f"family {cfg.family!r} is not yet ported ({', '.join(FAMILIES)} only)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         self.attention = attention
+        self.ssd_scan = ssd_scan
 
     # ------------------------------------------------------------------
     # init
@@ -57,21 +64,31 @@ class LM:
     def init(self, seed: int = 0) -> Params:
         """Seeded random params with the reference's distributions (not its
         bits: torch and jax.random differ). Weights are stored in the
-        config dtype, norm scales in f32."""
+        config dtype, the leaves of ``layers.F32_LEAVES`` in f32."""
         c, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         L = c.num_layers
-        params: Params = {
-            "embed": embedding_init(gen, c.vocab_size, c.d_model),
-            "final_ln": rms_norm_init(c.d_model, dev),
-            "layers": {
+        if c.family == "ssm":
+            layers = {
+                "ln": rms_norm_init(c.d_model, dev, stack=L),
+                "ssd": ssm_mod.ssd_init(gen, c.d_model, expand=c.ssm_expand,
+                                        head_dim=c.ssm_head_dim,
+                                        state=c.ssm_state,
+                                        conv_width=c.ssm_conv_width, stack=L),
+            }
+        else:
+            layers = {
                 "ln1": rms_norm_init(c.d_model, dev, stack=L),
                 "attn": attn.attention_init(gen, c.d_model, c.num_heads,
                                             c.num_kv_heads, c.head_dim,
                                             stack=L),
                 "ln2": rms_norm_init(c.d_model, dev, stack=L),
                 "mlp": swiglu_init(gen, c.d_model, c.d_ff, stack=L),
-            },
+            }
+        params: Params = {
+            "embed": embedding_init(gen, c.vocab_size, c.d_model),
+            "final_ln": rms_norm_init(c.d_model, dev),
+            "layers": layers,
         }
         if not c.tie_embeddings:
             params["unembed"] = linear_init(gen, c.d_model, c.vocab_size)
@@ -88,9 +105,16 @@ class LM:
                     softcap=c.attn_logit_softcap)
 
     def _body(self, params: Params, h: torch.Tensor,
-              kv: Params | None = None) -> torch.Tensor:
-        """The dense stack at positions 0..S-1. With ``kv`` (a decode_init
-        cache's "kv"), each layer's rotated k and v are written into it."""
+              cache: Params | None = None) -> torch.Tensor:
+        """The layer stack at positions 0..S-1. With ``cache`` (from
+        ``decode_init``), each layer's rotated k and v, or its SSM state and
+        conv windows, are written into it."""
+        if self.cfg.family == "ssm":
+            return self._body_ssm(params, h, cache)
+        return self._body_dense(params, h, None if cache is None else cache["kv"])
+
+    def _body_dense(self, params: Params, h: torch.Tensor,
+                    kv: Params | None) -> torch.Tensor:
         c = self.cfg
         S = h.shape[1]
         for i in range(c.num_layers):
@@ -102,6 +126,18 @@ class LM:
                 self._fill_cache(layer(kv, i), k, v, S)
             h = h + a
             h = h + swiglu(lp["mlp"], rms_norm(lp["ln2"], h, c.norm_eps))
+        return h
+
+    def _body_ssm(self, params: Params, h: torch.Tensor,
+                  cache: Params | None) -> torch.Tensor:
+        c = self.cfg
+        for i in range(c.num_layers):
+            lp = layer(params["layers"], i)
+            h = h + ssm_mod.ssd_block(
+                lp["ssd"], rms_norm(lp["ln"], h, c.norm_eps),
+                head_dim=c.ssm_head_dim, state=c.ssm_state, chunk=c.ssm_chunk,
+                conv_width=c.ssm_conv_width, scan=self.ssd_scan,
+                cache=None if cache is None else layer(cache["ssm"], i))
         return h
 
     def _fill_cache(self, kv_slice: Params, k, v, S: int) -> None:
@@ -131,13 +167,14 @@ class LM:
                 max_seq: int | None = None, cache_dtype=None):
         """One pass over the prompt: returns (f32 logits of the last position
         [B, vocab], a cache of ``max_seq`` positions (default S) holding
-        every layer's rotated k/v at 0..S-1). Equals stepping
+        every layer's rotated k/v at 0..S-1, or for the ssm family every
+        layer's f32 state after S tokens and conv windows). Equals stepping
         ``decode_step`` over the prompt from an empty cache."""
         B, S = tokens.shape
         cache = self.decode_init(B, max_seq or S,
                                  dtype=cache_dtype or self.dtype)
         h = embed(params["embed"], tokens, self.dtype)
-        h = self._body(params, h, kv=cache["kv"])
+        h = self._body(params, h, cache)
         return self._logits(params, h[:, -1:])[:, 0], cache
 
     # ------------------------------------------------------------------
@@ -145,7 +182,13 @@ class LM:
     # ------------------------------------------------------------------
     def decode_init(self, batch_size: int, max_seq: int,
                     dtype=torch.bfloat16) -> Params:
+        """The dense family's KV cache in ``dtype``; the ssm family's cache
+        is f32 whatever ``dtype`` is, as in the reference."""
         c = self.cfg
+        if c.family == "ssm":
+            return {"ssm": ssm_mod.init_ssm_cache(
+                batch_size, c.d_inner, c.ssm_head_dim, c.ssm_state,
+                c.ssm_conv_width, device=self.device, stack=c.num_layers)}
         kv_len = (min(max_seq, c.sliding_window) if c.sliding_window > 0
                   else max_seq)
         shape = (c.num_layers, batch_size, kv_len, c.num_kv_heads, c.head_dim)
@@ -162,6 +205,12 @@ class LM:
         x = embed(params["embed"], tokens[:, None], self.dtype)  # [B,1,d]
         for i in range(c.num_layers):
             lp = layer(params["layers"], i)
+            if c.family == "ssm":
+                x = x + ssm_mod.ssd_decode_step(
+                    lp["ssd"], rms_norm(lp["ln"], x, c.norm_eps),
+                    layer(cache["ssm"], i), head_dim=c.ssm_head_dim,
+                    state=c.ssm_state)
+                continue
             a = attn.attention_decode(
                 lp["attn"], rms_norm(lp["ln1"], x, c.norm_eps),
                 layer(cache["kv"], i), pos, **self._attn_kwargs())

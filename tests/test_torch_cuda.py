@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Every test is ``cuda``-marked and skips without a card. The file imports no
 jax, so it runs on a machine with PyTorch alone:
@@ -13,10 +13,13 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref as tref  # noqa: E402
+from repro_torch.kernels.ref import ssd_scan_ref  # noqa: E402
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
+SSD_TOL = 1e-4  # tests/test_kernels.py's SSD tolerance
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +84,65 @@ def test_kernel_rejects_unsupported_head_dim(cuda):
     q, k, v = _qkv(cuda, torch.float32, 1, 16, 16, 2, 2, 48)
     with pytest.raises(ValueError, match="head_dim"):
         tops.flash_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(device, B, S, H, P, N, seed=11):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((B, S, H, P)),
+            np.log1p(np.exp(rng.standard_normal((B, S, H)))),
+            -np.exp(rng.standard_normal(H) * 0.3),
+            rng.standard_normal((B, S, N)) * 0.5,
+            rng.standard_normal((B, S, N)) * 0.5)
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrs]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 64, 2, 16, 8, 16),      # tests/test_kernels.py's shapes
+    (2, 128, 4, 32, 16, 32),
+    (1, 96, 2, 16, 8, 32),
+    (1, 64, 1, 64, 32, 64),
+    (2, 1000, 4, 64, 128, 128),  # ragged last chunk
+    (1, 50, 2, 64, 64, 128),     # S < chunk, N = 64
+    (2, 256, 4, 32, 16, 16),     # the reduced mamba2 shape
+    (4, 1024, 32, 64, 128, 128),  # the slice
+])
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
+    xh, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, P, N)
+    before = tssd.ssd_scan.launches
+    got, state = tops.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert tssd.ssd_scan.launches == before + 1
+    want, want_state = ssd_scan_ref(xh, dt, A, Bm, Cm, return_state=True)
+    torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(state, want_state, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_kernel_reads_strided_layout(cuda):
+    """x and B/C as views of one fused projection (not contiguous)."""
+    B, S, H, P, N = 2, 70, 2, 32, 16
+    rng = np.random.default_rng(12)
+    fused = torch.from_numpy(rng.standard_normal(
+        (B, S, H * P + 2 * N), dtype=np.float32)).to(cuda)
+    xh = fused[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = fused[..., H * P:H * P + N], fused[..., H * P + N:]
+    _, dt, A, _, _ = _ssd_inputs(cuda, B, S, H, P, N)
+    assert not xh.is_contiguous() and not Bm.is_contiguous()
+    got = tops.ssd_scan(xh, dt, A, Bm, Cm, chunk=32)
+    torch.testing.assert_close(got, ssd_scan_ref(xh, dt, A, Bm, Cm),
+                               rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    xh, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 16, 2, 16, 8)
+    with pytest.raises(TypeError, match="float32"):
+        tssd.ssd_scan(xh.bfloat16(), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tssd.ssd_scan(xh, dt, A.cpu(), Bm, Cm)
+    with pytest.raises(ValueError, match="head_dim"):
+        tssd.ssd_scan(xh[..., :8], dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="chunk"):
+        tssd.ssd_scan(xh, dt, A, Bm, Cm, chunk=256)

@@ -36,7 +36,8 @@ def test_no_jax_or_repro_imports(path):
 
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "transformer.py", "ops.py", "serve.py"} <= names
+    assert {"chip_smoke.py", "transformer.py", "ops.py", "serve.py", "ssm.py",
+            "ssd_scan.py", "mamba2_370m.py"} <= names
 
 
 @pytest.fixture
@@ -54,29 +55,34 @@ def test_resolve_device_needs_cuda_unless_cpu(no_cuda):
 
 
 def test_entry_points_raise_without_cuda(no_cuda):
-    cfg = get_config("llama3.2-1b").reduced()
-    with pytest.raises(RuntimeError, match="CUDA"):
-        LM(cfg)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--reduced", "--prompt-len", "4", "--new-tokens", "1"])
+    for arch in ("llama3.2-1b", "mamba2-370m"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            LM(get_config(arch).reduced())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--arch", arch, "--reduced", "--prompt-len", "4",
+                        "--new-tokens", "1"])
 
 
 def test_serve_runs_on_cpu_when_asked(capsys):
-    assert serve.main(["--reduced", "--device", "cpu", "--batch", "2",
-                       "--prompt-len", "8", "--new-tokens", "3"]) == 0
-    out = capsys.readouterr().out
-    assert "prefill: 2x8 tokens" in out and "decode: 3 steps x 2 seqs" in out
+    for arch in ("llama3.2-1b", "mamba2-370m"):
+        assert serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                           "--batch", "2", "--prompt-len", "8",
+                           "--new-tokens", "3"]) == 0
+        out = capsys.readouterr().out
+        assert f"serving {arch}" in out
+        assert "prefill: 2x8 tokens" in out and "decode: 3 steps x 2 seqs" in out
 
 
 def test_registry_holds_only_ported_archs():
     assert get_config("llama3.2-1b").family == "dense"
+    assert get_config("mamba2-370m").family == "ssm"
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("mamba2-370m")
+        get_config("zamba2-7b")
 
 
 def test_other_families_not_ported():
     cfg = get_config("llama3.2-1b").reduced()
-    for fam in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+    for fam in ("moe", "hybrid", "encdec", "vlm"):
         with pytest.raises(NotImplementedError):
             LM(cfg.reduced(family=fam), device="cpu")
 
@@ -88,8 +94,9 @@ def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "CUDA_HOMES", (str(tmp_path),))
     with pytest.raises(build.KernelBuildError, match="nvcc not found"):
         build.build_all()
-    with pytest.raises(build.KernelBuildError):
-        build.load("flash_attention")
+    for name in ("flash_attention", "ssd_scan"):
+        with pytest.raises(build.KernelBuildError):
+            build.load(name)
 
 
 def test_builder_raises_with_nvcc_output(monkeypatch, tmp_path):
@@ -124,5 +131,7 @@ def test_trace_needs_cuda_and_sums_busy_time(no_cuda):
     assert trace._busy_us([]) == 0
     assert trace.kind_of("void (anonymous namespace)::flash_fwd_kernel<float, 64>") \
         == "flash_attention"
+    assert trace.kind_of("void (anonymous namespace)::ssd_scan_kernel<64, 128>") \
+        == "ssd_scan"
     assert trace.kind_of("sm90_xmma_gemm_bf16bf16_bf16f32") == "matmul"
     assert trace.kind_of("vectorized_elementwise_kernel") == "other"
