@@ -7,19 +7,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. the card: nvidia-smi's name and power limit, torch's device name; TF32 off;
 2. build the CUDA kernels from the sources in this checkout (nvcc, sm_90a);
-3. hold the flash-attention kernel against its plain PyTorch version on the
-   card at the test shapes and at the serving shape, and time it there
-   beside the plain version and, as a yardstick the port never calls,
+3. hold both flash-attention routes (the wgmma kernel for bf16 at head_dim
+   64 / 128, the scalar kernel for the rest) against their plain PyTorch
+   version on the card at the test shapes, a strided view of a fused
+   projection and the serving shape, each call counted on the route that
+   the table names; then time both at the serving shape beside the plain
+   version, the bound and, as a yardstick the port never calls,
    ``torch.nn.functional.scaled_dot_product_attention``;
 4. hold the SSD chunked-scan kernel (output and final state) against its
    plain version (the token-by-token recurrence) on the card at the test
    shapes, a ragged S, S < chunk and the serving shape, and time it there
    beside the plain version (no single PyTorch call computes it);
 5. serve full-width llama3.2-1b (bf16, seeded random weights): 4 prompts of
-   1024 tokens, one-pass prefill, 32 greedy decode steps, with the flash
-   kernel's launches counted over that run; then check the prefill against
-   the same forward with the plain attention, the cache against a prefill
-   one token longer, and the reduced model on the card against the CPU;
+   1024 tokens, one-pass prefill, 32 greedy decode steps, with each flash
+   route's launches counted over that run (all 16 on the wgmma route); then
+   check the prefill against the same forward with the plain attention, the
+   cache against a prefill one token longer; serve and check the same model
+   in f32 (all 16 launches on the scalar route), and the reduced model on
+   the card against the CPU;
 6. the same for full-width mamba2-370m, with the SSD kernel's launches
    counted and the plain SSD scan as the comparison, a planted fault that
    the bf16 check must reject, and the checks repeated in f32;
@@ -55,6 +60,9 @@ BF16_TOL = 2e-2
 # kernel's f32), and 16 layers compound it.
 LOGITS_REL_TOL = 5e-2
 REDUCED_F32_TOL = 1e-4
+# llama3.2-1b logits in f32 (the scalar route), rel-L2: the kernel and the
+# plain attention differ only by f32 summation order
+LLAMA_F32_REL_TOL = 1e-3
 # the SSD kernel against the token-by-token recurrence, f32 (the tolerance
 # of tests/test_kernels.py's SSD tests)
 SSD_TOL = 1e-4
@@ -93,8 +101,30 @@ CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
     (1, 1000, 1000, 4, 2, 64, "bfloat16", dict(causal=True)),
     (1, 96, 160, 4, 2, 128, "float32", dict(causal=False)),           # T != S
     (1, 64, 8, 2, 2, 16, "float32", dict(causal=True, window=4)),     # empty rows
+    # bf16 at head_dim 64 / 128: the wgmma route
+    (1, 128, 128, 4, 4, 64, "bfloat16", dict(causal=True)),           # MHA
+    (2, 128, 128, 4, 2, 64, "bfloat16", dict(causal=False)),          # GQA
+    (1, 256, 256, 8, 1, 64, "bfloat16", dict(causal=True)),           # MQA
+    (1, 256, 256, 4, 4, 64, "bfloat16", dict(causal=True, window=32)),
+    (1, 256, 256, 4, 4, 64, "bfloat16", dict(causal=True, window=96)),
+    (1, 128, 128, 2, 2, 64, "bfloat16", dict(causal=True, softcap=20.0)),
+    (1, 96, 160, 4, 2, 64, "bfloat16", dict(causal=False)),           # T != S
+    (1, 64, 8, 2, 2, 64, "bfloat16", dict(causal=True, window=4)),    # empty rows
+    (2, 1000, 1000, 8, 2, 128, "bfloat16", dict(causal=True)),        # hd 128
+    # more work tiles than SMs: each persistent block walks several
+    (2, 1000, 1000, 32, 8, 64, "bfloat16", dict(causal=True, window=96)),
+    (4, 300, 700, 32, 4, 64, "bfloat16", dict(causal=False)),
+    (4, 512, 8, 32, 8, 64, "bfloat16", dict(causal=True, window=4)),  # empty work tiles
+    (3, 1000, 1000, 16, 4, 128, "bfloat16", dict(causal=True, softcap=20.0)),
+    (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
+     "float32", dict(causal=True)),                                   # the slice, f32
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
      "bfloat16", dict(causal=True)),                                  # the slice
+]
+# q/k/v as views of one [B, S, (H + 2 KV) hd] projection (heads not contiguous)
+FUSED_CASES = [  # B, S, H, KV, hd, dtype, kwargs
+    (2, 130, 4, 1, 64, "bfloat16", dict(causal=True)),
+    (2, 130, 4, 1, 32, "float32", dict(causal=True)),
 ]
 
 SSD_SLICE = (SERVE_BATCH, SERVE_PROMPT, 32, 64, 128, 128)  # B, S, H, P, N, chunk
@@ -247,53 +277,117 @@ def main() -> int:
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("registers", "spill", "(C75")):
                 print(f"  {name}: {line.strip()}")
 
-    # 3. kernel against its plain version ---------------------------------
+    # 3. both flash routes against their plain version ---------------------
     phase("kernel checks")
     gen = torch.Generator(device=dev).manual_seed(0)
-    slice_err = None
-    for B, S, T, H, KV, hd, dt, kw in CHECK_CASES:
+    routes = {"wgmma": fa.flash_attention_wgmma, "scalar": fa.flash_attention_scalar}
+
+    def fused_qkv(B, S, H, KV, hd, dtype):
+        qkv = torch.randn((B, S, (H + 2 * KV) * hd), generator=gen, device=dev).to(dtype)
+        return (qkv[..., :H * hd].reshape(B, S, H, hd),
+                qkv[..., H * hd:(H + KV) * hd].reshape(B, S, KV, hd),
+                qkv[..., (H + KV) * hd:].reshape(B, S, KV, hd))
+
+    slice_err = {}
+    cases = [(case, False) for case in CHECK_CASES] + [
+        ((B, S, S, H, KV, hd, dt, kw), True) for B, S, H, KV, hd, dt, kw in FUSED_CASES]
+    for (B, S, T, H, KV, hd, dt, kw), fused in cases:
         dtype = getattr(torch, dt)
-        q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
-        k = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dtype)
+        if fused:
+            q, k, v = fused_qkv(B, S, H, KV, hd, dtype)
+        else:
+            q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
+            k = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dtype)
+            v = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dtype)
+        route = fa.route(dtype, hd)
+        before = {r: fn.launches for r, fn in routes.items()}
         got = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        counted = {r: fn.launches - before[r] for r, fn in routes.items()}
         want = flash_attention_ref(q, k, v, **kw)
         tol = F32_TOL if dt == "float32" else BF16_TOL
         err, ok = compare(got, want, tol)
-        print(f"  B={B} S={S} T={T} H={H} KV={KV} hd={hd} {dt} {kw}: "
-              f"max_abs_err={err:.3g} (tol {tol}) {'ok' if ok else 'FAIL'}")
+        print(f"  {route}: B={B} S={S} T={T} H={H} KV={KV} hd={hd} {dt} {kw}"
+              f"{' fused qkv view' if fused else ''}: max_abs_err={err:.3g} "
+              f"(tol {tol}) {'ok' if ok else 'FAIL'}")
+        if counted != {r: int(r == route) for r in routes}:
+            fail(f"launches by route {counted}: want one on the {route} route")
         if not (ok and torch.isfinite(got).all()):
             fail(f"kernel disagrees with its plain version at {(B, S, T, H, KV, hd, dt, kw)}")
-        if (B, S, H, KV, hd) == SLICE_SHAPE:
-            slice_err = err
+        if (B, S, H, KV, hd) == SLICE_SHAPE and not fused:
+            slice_err[dt] = err
 
+    # both routes at the serving shape: wgmma (bf16), scalar (f32, its route
+    # now; and bf16, the route llama took before the wgmma kernel)
     B, S, H, KV, hd = SLICE_SHAPE
-    q = torch.randn((B, S, H, hd), generator=gen, device=dev).bfloat16()
-    k = torch.randn((B, S, KV, hd), generator=gen, device=dev).bfloat16()
-    v = torch.randn((B, S, KV, hd), generator=gen, device=dev).bfloat16()
+    slice_in = {}
+    for dt in ("bfloat16", "float32"):
+        qkv = [torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dt))
+               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+        slice_in[dt] = (qkv, [x.transpose(1, 2).contiguous() for x in qkv])
+
+    def kernel_fn(fn, dt):
+        q, k, v = slice_in[dt][0]
+        return lambda: fn(q, k, v, causal=True)
+
+    def sdpa_fn(dt):
+        qt, kt, vt = slice_in[dt][1]
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    torch.testing.assert_close(sdpa_fn("bfloat16")().transpose(1, 2).float(),
+                               kernel_fn(ops.flash_attention, "bfloat16")().float(),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+    timed = {  # name: (function, launches a round)
+        "wgmma": (kernel_fn(ops.flash_attention, "bfloat16"), 100),
+        "plain_bf16": (kernel_fn(flash_attention_ref, "bfloat16"), 5),
+        "sdpa_bf16": (sdpa_fn("bfloat16"), 100),
+        "scalar_bf16": (kernel_fn(fa.flash_attention_scalar, "bfloat16"), 10),
+        "scalar": (kernel_fn(ops.flash_attention, "float32"), 10),
+        "plain_f32": (kernel_fn(flash_attention_ref, "float32"), 5),
+        "sdpa_f32": (sdpa_fn("float32"), 20),
+    }
+    times = {name: [] for name in timed}
+    for _ in range(3):  # in turns, so drift hits all alike
+        for name, (fn, reps) in timed.items():
+            times[name].append(time_ms(torch, fn, reps))
+    times = {name: statistics.median(vals) for name, vals in times.items()}
+    bounds = {dt: attention_bound(*slice_in[dt][0], True, 0) for dt in slice_in}
+    for dt, route_ms, label in (("bfloat16", "wgmma", "wgmma"),
+                                ("bfloat16", "scalar_bf16", "scalar (bf16, the route before)"),
+                                ("float32", "scalar", "scalar")):
+        bound_ms, bound_by, flops, nbytes = bounds[dt]
+        short = "bf16" if dt == "bfloat16" else "f32"
+        print(f"  slice shape {SLICE_SHAPE} {dt} causal, {label}: kernel "
+              f"{times[route_ms]:.4f} ms, plain {times['plain_' + short]:.4f} ms, sdpa "
+              f"{times['sdpa_' + short]:.4f} ms; bound {bound_ms * 1e3:.2f} us by "
+              f"{bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); kernel at "
+              f"{flops / times[route_ms] / 1e9:.2f} TFLOP/s")
+    print(f"  wgmma route: {times['scalar_bf16'] / times['wgmma']:.1f}x faster than the "
+          f"scalar kernel on the same bf16 inputs, {times['wgmma'] / times['sdpa_bf16']:.2f}x "
+          f"SDPA's time, {times['wgmma'] / bounds['bfloat16'][0]:.2f}x its bound")
+    # peak memory while serving counts the model alone (fn: the last closure)
+    del timed, slice_in, fn
+
+    # the wgmma route at head_dim 128 (chatglm3, internlm2, llava), the same
+    # B, S, H, KV: printed, not in the kernels line (no path here runs it)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               for shape in ((B, S, H, 128), (B, S, KV, 128), (B, S, KV, 128)))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    kernel_fn = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
-    plain_fn = lambda: flash_attention_ref(q, k, v, causal=True)  # noqa: E731
-    sdpa_fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    torch.testing.assert_close(sdpa_fn().transpose(1, 2).float(),
-                               kernel_fn().float(), rtol=BF16_TOL, atol=BF16_TOL)
-    times = {"ms": [], "plain_ms": [], "library_ms": []}
-    for _ in range(3):  # in turns, so drift hits all three alike
-        times["ms"].append(time_ms(torch, kernel_fn, 20))
-        times["plain_ms"].append(time_ms(torch, plain_fn, 5))
-        times["library_ms"].append(time_ms(torch, sdpa_fn, 20))
-    times = {key: statistics.median(vals) for key, vals in times.items()}
-    bound_ms, bound_by, flops, nbytes = attention_bound(q, k, v, True, 0)
-    print(f"  slice shape {SLICE_SHAPE} bf16 causal: kernel {times['ms']:.4f} ms, "
-          f"plain {times['plain_ms']:.4f} ms, sdpa {times['library_ms']:.4f} ms; "
-          f"bound {bound_ms * 1e3:.2f} us by {bound_by} "
-          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-          f"kernel at {flops / times['ms'] / 1e9:.2f} TFLOP/s")
+    hd128 = {"wgmma": [], "sdpa": []}
+    for _ in range(3):
+        hd128["wgmma"].append(time_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True), 100))
+        hd128["sdpa"].append(time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 100))
+    bound_ms, bound_by, flops, _ = attention_bound(q, k, v, True, 0)
+    print(f"  {(B, S, H, KV, 128)} bfloat16 causal, wgmma: kernel "
+          f"{statistics.median(hd128['wgmma']):.4f} ms, sdpa "
+          f"{statistics.median(hd128['sdpa']):.4f} ms; bound {bound_ms * 1e3:.2f} us by "
+          f"{bound_by}; kernel at {flops / statistics.median(hd128['wgmma']) / 1e9:.2f} TFLOP/s")
+    del q, k, v, qt, kt, vt
 
     # 4. the SSD kernel against its plain version ---------------------------
     phase("SSD kernel checks")
@@ -384,37 +478,27 @@ def main() -> int:
                 fail(f"{cfg.dtype} decode from the prefilled cache disagrees with "
                      f"a longer prefill")
 
-    def check_serving(arch: str, counter, plain_kw: dict, rel_tol: float,
-                      f32_tol: float | None = None, fault_kw: dict | None = None) -> int:
-        """Serve ``arch`` at full width with its kernel's launches counted,
-        then the correctness checks; returns the launches of the run. With
-        ``f32_tol`` the logits checks are repeated on the same model in
-        f32, where rounding does not hide a fault; ``fault_kw`` plants a
-        fault that the bf16 check must fail."""
-        phase(f"serve {arch}")
-        cfg = get_config(arch)
-        lm = LM(cfg, device=dev)
-        params = lm.init(0)
-        print(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}, "
-              f"{cfg.num_layers} layers, d_model {cfg.d_model}")
-        prompts = torch.from_numpy(
-            make_prompts(SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, 0)).to(dev)
+    def serve_counted(cfg, lm, params, prompts, want: dict) -> tuple[dict, dict]:
+        """Serve ``prompts`` with every counter of ``want`` set to 0 just
+        before the run and read just after; fail unless each counted
+        ``want[counter]`` launches. Returns the served output and the counts."""
         serve(lm, params, prompts, 2)  # warm-up: cuBLAS and allocator start-up
-
-        counter.launches = 0
+        for counter in want:
+            counter.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
         out = serve(lm, params, prompts, SERVE_NEW)
-        launches = counter.launches
+        launches = {counter: counter.launches for counter in want}
         peak = torch.cuda.max_memory_allocated(dev)
         print(report(out))
-        print(f"serve: prefill_ms={out['prefill_s'] * 1e3:.3f} "
+        print(f"serve {cfg.dtype}: prefill_ms={out['prefill_s'] * 1e3:.3f} "
               f"decode_ms_per_token={out['decode_s'] * 1e3 / SERVE_NEW:.3f} "
               f"decode_tok_per_s={SERVE_BATCH * SERVE_NEW / out['decode_s']:.1f} "
-              f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) "
-              f"{counter.__name__}_launches={launches}")
-        if launches != cfg.num_layers:
-            fail(f"{counter.__name__} launched {launches} times in one prefill, "
-                 f"want {cfg.num_layers} (one per layer)")
+              f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) " +
+              " ".join(f"{c.__name__}_launches={n}" for c, n in launches.items()))
+        for counter, n in want.items():
+            if launches[counter] != n:
+                fail(f"{counter.__name__} launched {launches[counter]} times in one "
+                     f"{cfg.dtype} prefill of {cfg.num_layers} layers, want {n}")
         toks = out["tokens"]
         if toks.shape != (SERVE_BATCH, SERVE_NEW + 1) or not (
                 (toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -423,15 +507,40 @@ def main() -> int:
             if out[key].shape != (SERVE_BATCH, cfg.vocab_size) or \
                     out[key].dtype != torch.float32 or not torch.isfinite(out[key]).all():
                 fail(f"{key}: want finite f32 [{SERVE_BATCH}, {cfg.vocab_size}]")
+        return out, launches
 
+    def check_serving(arch: str, want: dict, plain_kw: dict, rel_tol: float,
+                      f32_tol: float | None = None, fault_kw: dict | None = None,
+                      want_f32: dict | None = None) -> tuple[dict, dict | None]:
+        """Serve ``arch`` at full width with its kernels' launches counted
+        (``want``: counter -> launches the run must make), then the
+        correctness checks. With ``f32_tol`` the logits checks are repeated
+        on the same model in f32, where rounding does not hide a fault, on a
+        served f32 run counted like the first if ``want_f32`` is given;
+        ``fault_kw`` plants a fault that the bf16 check must fail. Returns
+        the launches of the served runs."""
+        phase(f"serve {arch}")
+        cfg = get_config(arch)
+        lm = LM(cfg, device=dev)
+        params = lm.init(0)
+        print(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}, "
+              f"{cfg.num_layers} layers, d_model {cfg.d_model}")
+        prompts = torch.from_numpy(
+            make_prompts(SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, 0)).to(dev)
+        out, launches = serve_counted(cfg, lm, params, prompts, want)
         logits_checks(cfg, lm, params, prompts, plain_kw, rel_tol, out=out,
                       fault_kw=fault_kw)
         del lm, params
+        launches32 = None
         if f32_tol is not None:
             cfg32 = dataclasses.replace(cfg, dtype="float32")
             lm32 = LM(cfg32, device=dev)
-            logits_checks(cfg32, lm32, lm32.init(0), prompts, plain_kw, f32_tol)
-            del lm32
+            params32 = lm32.init(0)
+            out32 = None
+            if want_f32 is not None:
+                out32, launches32 = serve_counted(cfg32, lm32, params32, prompts, want_f32)
+            logits_checks(cfg32, lm32, params32, prompts, plain_kw, f32_tol, out=out32)
+            del lm32, params32
 
         with torch.inference_mode():
             small = cfg.reduced(dtype="float32")
@@ -446,34 +555,53 @@ def main() -> int:
                   f"CPU: max_abs_err={e_small:.3g} (rtol = atol = {REDUCED_F32_TOL})")
             if not ok:
                 fail("the reduced model on the card disagrees with the CPU")
-        return launches
+        return launches, launches32
 
-    launches = check_serving("llama3.2-1b", fa.flash_attention,
-                             dict(attention=flash_attention_ref), LOGITS_REL_TOL)
-    ssd_launches = check_serving("mamba2-370m", ssd.ssd_scan,
-                                 dict(ssd_scan=ssd_scan_ref), SSM_BF16_REL_TOL,
-                                 f32_tol=SSM_F32_REL_TOL,
-                                 fault_kw=dict(ssd_scan=diagonal_dropped(ops.ssd_scan)))
+    layers = get_config("llama3.2-1b").num_layers
+    flash, flash32 = check_serving(
+        "llama3.2-1b",
+        {fa.flash_attention: layers, fa.flash_attention_wgmma: layers,
+         fa.flash_attention_scalar: 0},
+        dict(attention=flash_attention_ref), LOGITS_REL_TOL, f32_tol=LLAMA_F32_REL_TOL,
+        want_f32={fa.flash_attention: layers, fa.flash_attention_wgmma: 0,
+                  fa.flash_attention_scalar: layers})
+    ssd_launches, _ = check_serving(
+        "mamba2-370m", {ssd.ssd_scan: get_config("mamba2-370m").num_layers},
+        dict(ssd_scan=ssd_scan_ref), SSM_BF16_REL_TOL, f32_tol=SSM_F32_REL_TOL,
+        fault_kw=dict(ssd_scan=diagonal_dropped(ops.ssd_scan)))
 
     # 7. per-kernel numbers -------------------------------------------------
+    flash_source = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
-        "name": "flash_attention",
+        "name": "flash_attention_wgmma",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": flash_source + "flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
-        "launches": launches,
-        "max_abs_err": slice_err,
-        "ms": times["ms"],
-        "plain_ms": times["plain_ms"],
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": times["library_ms"],
+        "launches": flash[fa.flash_attention_wgmma],
+        "max_abs_err": slice_err["bfloat16"],
+        "ms": times["wgmma"],
+        "plain_ms": times["plain_bf16"],
+        "bound_ms": bounds["bfloat16"][0],
+        "bound_by": bounds["bfloat16"][1],
+        "library_ms": times["sdpa_bf16"],
+    }, {
+        "name": "flash_attention_scalar",
+        "route": "cuda",
+        "source": flash_source + "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29",
+        "launches": flash32[fa.flash_attention_scalar],
+        "max_abs_err": slice_err["float32"],
+        "ms": times["scalar"],
+        "plain_ms": times["plain_f32"],
+        "bound_ms": bounds["float32"][0],
+        "bound_by": bounds["float32"][1],
+        "library_ms": times["sdpa_f32"],
     }, {
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:26",
-        "launches": ssd_launches,
+        "launches": ssd_launches[ssd.ssd_scan],
         "max_abs_err": ssd_err,
         "ms": ssd_times["ms"],
         "plain_ms": ssd_times["plain_ms"],

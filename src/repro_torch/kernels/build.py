@@ -6,6 +6,12 @@ library with a plain C interface, loaded with ``ctypes``. Libraries go to
 source and flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is. A failed build raises with nvcc's output; nothing falls
 back to another implementation.
+
+``flash_attention_wgmma.cu`` builds TMA tensor maps on the host with
+``cuTensorMapEncodeTiled``, a driver function. It takes the function from
+the driver that the CUDA runtime has loaded (``cudaGetDriverEntryPoint``), so
+no library is linked with ``-lcuda`` and the flags are the same for every
+source; ``cuda.h`` is included for the types alone.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "ssd_scan")
+SOURCES = ("flash_attention", "flash_attention_wgmma", "ssd_scan")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

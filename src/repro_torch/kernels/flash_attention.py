@@ -1,9 +1,21 @@
-"""Wrapper of the CUDA flash-attention forward kernel (csrc/flash_attention.cu).
+"""Wrappers of the two CUDA flash-attention forward kernels, and the table
+that routes a call to one of them.
 
-Replaces ``repro/kernels/flash_attention.py:flash_attention`` (Pallas). Takes
-CUDA tensors only: it checks them, allocates the output, launches the
-kernel on PyTorch's current stream and raises if the launch failed. Counts
-its launches in ``flash_attention.launches``.
+Both replace ``repro/kernels/flash_attention.py:flash_attention`` (Pallas):
+
+- ``wgmma`` (``csrc/flash_attention_wgmma.cu``): TMA loads and tensor-core
+  products (wgmma), for bf16 at head_dim 64 and 128;
+- ``scalar`` (``csrc/flash_attention.cu``): f32 FMAs on the CUDA cores, for
+  f32 (tensor cores would need TF32, which misses the f32 tolerance) and the
+  other head dims.
+
+``ROUTES`` picks the route from (dtype, head_dim); nothing is chosen by
+catching a failure, and a launch or build error raises. The wrappers take
+CUDA tensors only: they check them, allocate the output, launch on
+PyTorch's current stream and raise if the launch failed. Each route counts
+its own launches (``flash_attention_wgmma.launches``,
+``flash_attention_scalar.launches``); ``flash_attention.launches`` is the
+total.
 """
 
 from __future__ import annotations
@@ -17,29 +29,42 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+ROUTES = {
+    **{(torch.float32, hd): "scalar" for hd in HEAD_DIMS},
+    (torch.bfloat16, 16): "scalar",
+    (torch.bfloat16, 32): "scalar",
+    (torch.bfloat16, 64): "wgmma",
+    (torch.bfloat16, 128): "wgmma",
+}
+_fns: dict[str, tuple] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = build.load("flash_attention")
-        fn = lib.repro_flash_attention_fwd
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes (dtype, head_dim): "wgmma" or "scalar"."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype} not in {list(_DTYPES)}")
+    if (dtype, head_dim) not in ROUTES:
+        raise ValueError(f"head_dim {head_dim} not in {HEAD_DIMS}")
+    return ROUTES[(dtype, head_dim)]
+
+
+def _kernel(name: str, symbol: str, err_symbol: str):
+    if name not in _fns:
+        lib = build.load(name)
+        fn = getattr(lib, symbol)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_longlong), i, i,
                        ctypes.c_float, ctypes.c_float, p]
         fn.restype = i
-        lib.repro_cuda_error_string.argtypes = [i]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.repro_cuda_error_string)
-    return _fn
+        err_str = getattr(lib, err_symbol)
+        err_str.argtypes = [i]
+        err_str.restype = ctypes.c_char_p
+        _fns[name] = (fn, err_str)
+    return _fns[name]
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
-    """[B,S,H,hd] x [B,T,KV,hd]^2 -> [B,S,H,hd] on the card."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} is on {t.device}; the kernel takes CUDA tensors")
@@ -49,27 +74,97 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name}'s head_dim must be contiguous")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("q, k and v must be on one device")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """Element strides (batch, seq, head) of a [B, L, N, hd] bf16 view for
+    a TMA tensor map, or ValueError if TMA cannot read it: the base must be
+    16-byte aligned and each stride a multiple of 16 bytes. A dim of size 1
+    is never stepped, so it gets the packed stride of the dims inside it."""
+    nbytes = t.element_size()
+    if t.data_ptr() % 16:
+        raise ValueError(f"TMA needs a 16-byte aligned base; this view starts "
+                         f"at {t.data_ptr() % 16} bytes past one")
+    out = []
+    inner = t.shape[-1]  # packed stride of the next dim out, in elements
+    for dim in (2, 1, 0):
+        stride = t.stride(dim) if t.shape[dim] > 1 else inner
+        if stride * nbytes % 16:
+            raise ValueError(f"TMA needs strides of 16-byte multiples; stride "
+                             f"{stride} of dim {dim} is {stride * nbytes} bytes")
+        out.append(stride)
+        inner = stride * t.shape[dim]
+    return out[2], out[1], out[0]
+
+
+def _launch(name, symbol, err_symbol, q, k, v, strides, causal, window, softcap):
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     if o.numel() == 0:
-        return o
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
-    fn, err_str = _kernel()
+        return o, False
+    st = (ctypes.c_longlong * 12)(*strides, *o.stride()[:3])
+    fn, err_str = _kernel(name, symbol, err_symbol)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 _DTYPES[q.dtype], B, S, T, H, KV, hd, strides,
-                 int(causal), int(window), float(softcap),
-                 1.0 / math.sqrt(hd), stream)
+                 _DTYPES[q.dtype], B, S, T, H, KV, hd, st, int(causal),
+                 int(window), float(softcap), 1.0 / math.sqrt(hd), stream)
+    if err < 0:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a tensor "
+                           f"map (CUresult {-err})")
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
+        raise RuntimeError(f"{name} kernel launch failed: "
                            f"{err_str(err).decode()} ({err})")
-    flash_attention.launches += 1
+    return o, True
+
+
+def flash_attention_scalar(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The scalar route: f32 or bf16, any head_dim of ``HEAD_DIMS``."""
+    _check(q, k, v)
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]} not in {HEAD_DIMS}")
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    o, launched = _launch("flash_attention", "repro_flash_attention_fwd",
+                          "repro_cuda_error_string", q, k, v, strides, causal,
+                          window, softcap)
+    flash_attention_scalar.launches += int(launched)
+    return o
+
+
+def flash_attention_wgmma(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The tensor-core route: bf16 at head_dim 64 or 128, q/k/v readable by
+    TMA (else ValueError; nothing goes to another route)."""
+    _check(q, k, v)
+    if route(q.dtype, q.shape[-1]) != "wgmma":
+        raise ValueError(f"the wgmma kernel takes bf16 at head_dim 64 or 128, "
+                         f"not {q.dtype} at {q.shape[-1]}")
+    strides = (*tma_strides(q), *tma_strides(k), *tma_strides(v))
+    o, launched = _launch("flash_attention_wgmma", "repro_flash_attention_wgmma_fwd",
+                          "repro_wgmma_cuda_error_string", q, k, v, strides,
+                          causal, window, softcap)
+    flash_attention_wgmma.launches += int(launched)
+    return o
+
+
+_ROUTE_FNS = {"wgmma": flash_attention_wgmma, "scalar": flash_attention_scalar}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """[B,S,H,hd] x [B,T,KV,hd]^2 -> [B,S,H,hd] on the card, through the
+    kernel that ``ROUTES`` names for (dtype, head_dim); the route's wrapper
+    checks the tensors."""
+    fn = _ROUTE_FNS[route(q.dtype, q.shape[-1])]
+    before = fn.launches
+    o = fn(q, k, v, causal=causal, window=window, softcap=softcap)
+    flash_attention.launches += fn.launches - before
     return o
 
 
 flash_attention.launches = 0
+flash_attention_scalar.launches = 0
+flash_attention_wgmma.launches = 0

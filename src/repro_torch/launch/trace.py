@@ -9,7 +9,8 @@ After one untraced warm-up, traces one prefill and then 8 greedy decode
 steps, each phase in its own profiler session, and prints per phase:
 host wall time (ending in a synchronise), device-busy time (the union of
 the kernels' intervals), the busy share, device time by kind (the flash
-attention kernel, the SSD scan kernel, matrix products, everything else)
+attention kernels of both routes, the SSD scan kernel, matrix products,
+everything else)
 and the top kernels.
 Needs a card; exits non-zero if the profiler records no kernel.
 """
@@ -30,11 +31,15 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.serve import make_prompts, serve
 from repro_torch.models import LM
 
+_FLASH = re.compile(r"flash_fwd_(wgmma_)?kernel")
 _MATMUL = re.compile(r"gemm|gemv|xmma|cutlass|cublas|nvjet", re.I)
 
 
 def kind_of(kernel: str) -> str:
-    if "flash_fwd_kernel" in kernel:
+    """The port's own kernels by symbol (both flash routes, the SSD scan),
+    before the library products, whose names a kernel's template arguments
+    may also contain."""
+    if _FLASH.search(kernel):
         return "flash_attention"
     if "ssd_scan_kernel" in kernel:
         return "ssd_scan"

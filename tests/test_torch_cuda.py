@@ -50,16 +50,38 @@ def _qkv(device, dtype, B, S, T, H, KV, hd, seed=9):
     (1, 1000, 1000, 4, 2, 64, "float32", dict(causal=True)),          # ragged
     (1, 96, 160, 4, 2, 128, "float32", dict(causal=False)),           # T != S
     (1, 64, 8, 2, 2, 16, "float32", dict(causal=True, window=4)),     # empty rows
+    (1, 128, 128, 4, 2, 32, "bfloat16", dict(causal=True)),           # bf16, scalar route
+    # bf16 at head_dim 64 / 128: the wgmma route
+    (1, 128, 128, 4, 4, 64, "bfloat16", dict(causal=True)),           # MHA
+    (2, 128, 128, 4, 2, 64, "bfloat16", dict(causal=False)),          # GQA
+    (1, 256, 256, 8, 1, 64, "bfloat16", dict(causal=True)),           # MQA
+    (1, 256, 256, 4, 4, 64, "bfloat16", dict(causal=True, window=32)),
+    (1, 256, 256, 4, 4, 64, "bfloat16", dict(causal=True, window=96)),
+    (1, 128, 128, 2, 2, 64, "bfloat16", dict(causal=True, softcap=20.0)),
+    (1, 1000, 1000, 4, 2, 64, "bfloat16", dict(causal=True)),         # ragged
+    (1, 96, 160, 4, 2, 64, "bfloat16", dict(causal=False)),           # T != S
+    (1, 96, 160, 4, 2, 128, "bfloat16", dict(causal=True)),
+    (1, 64, 8, 2, 2, 64, "bfloat16", dict(causal=True, window=4)),    # empty rows
     (2, 1000, 1000, 8, 2, 128, "bfloat16", dict(causal=True)),
+    # more work tiles than SMs: each persistent block walks several
+    (2, 1000, 1000, 32, 8, 64, "bfloat16", dict(causal=True, window=96)),
+    (4, 300, 700, 32, 4, 64, "bfloat16", dict(causal=False)),
+    (4, 512, 8, 32, 8, 64, "bfloat16", dict(causal=True, window=4)),
+    (3, 1000, 1000, 16, 4, 128, "bfloat16", dict(causal=True, softcap=20.0)),
     (4, 1024, 1024, 32, 8, 64, "bfloat16", dict(causal=True)),        # the slice
 ])
 def test_kernel_matches_plain(cuda, B, S, T, H, KV, hd, dtype, kw):
     td = getattr(torch, dtype)
     q, k, v = _qkv(cuda, td, B, S, T, H, KV, hd)
-    before = tfa.flash_attention.launches
+    counters = (tfa.flash_attention, tfa.flash_attention_wgmma,
+                tfa.flash_attention_scalar)
+    before = [c.launches for c in counters]
     got = tops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert tfa.flash_attention.launches == before + 1
+    route = tfa.route(td, hd)
+    assert route == ("wgmma" if dtype == "bfloat16" and hd in (64, 128) else "scalar")
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [1, int(route == "wgmma"), int(route == "scalar")]
     assert got.dtype == td
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     torch.testing.assert_close(got.float(), tref(q, k, v, **kw).float(),
@@ -78,6 +100,36 @@ def test_kernel_reads_strided_layout(cuda):
     got = tops.flash_attention(q, k, v, causal=True)
     torch.testing.assert_close(got, tref(q, k, v, causal=True),
                                rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_wgmma_kernel_reads_strided_bf16_layout(cuda):
+    """bf16 q/k/v as views of one fused projection, on the wgmma route."""
+    rng = np.random.default_rng(13)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (2, 130, 6 * 64), dtype=np.float32)).to(cuda, torch.bfloat16)
+    q = qkv[..., :4 * 64].reshape(2, 130, 4, 64)
+    k = qkv[..., 4 * 64:5 * 64].reshape(2, 130, 1, 64)
+    v = qkv[..., 5 * 64:].reshape(2, 130, 1, 64)
+    assert not q.is_contiguous()
+    before = tfa.flash_attention_wgmma.launches
+    got = tops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_wgmma.launches == before + 1
+    torch.testing.assert_close(got.float(), tref(q, k, v, causal=True).float(),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_wgmma_kernel_refuses_strides_tma_cannot_take(cuda):
+    """A bf16 hd-64 view whose heads lie 136 bytes apart raises; it goes to
+    no other route."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 64, 64, 4, 4, 68)
+    q, k, v = (t[..., :64] for t in (q, k, v))
+    counters = (tfa.flash_attention, tfa.flash_attention_wgmma,
+                tfa.flash_attention_scalar)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError, match="TMA"):
+        tops.flash_attention(q, k, v)
+    assert [c.launches for c in counters] == before
 
 
 def test_kernel_rejects_unsupported_head_dim(cuda):

@@ -129,3 +129,71 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(q, k, v)
     assert tfa.flash_attention.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The route table and the CUDA wrappers' checks (no card needed)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.float32, 16, "scalar"),
+    (torch.float32, 32, "scalar"),
+    (torch.float32, 64, "scalar"),   # tensor cores would need TF32
+    (torch.float32, 128, "scalar"),
+    (torch.bfloat16, 16, "scalar"),
+    (torch.bfloat16, 32, "scalar"),
+    (torch.bfloat16, 64, "wgmma"),   # llama3.2-1b
+    (torch.bfloat16, 128, "wgmma"),  # chatglm3, internlm2, llava
+])
+def test_route_table(dtype, hd, want):
+    assert tfa.route(dtype, hd) == want
+    assert tfa.ROUTES[(dtype, hd)] == want
+
+
+@pytest.mark.parametrize("dtype,hd,exc,match", [
+    (torch.float32, 48, ValueError, "head_dim"),
+    (torch.bfloat16, 112, ValueError, "head_dim"),  # zamba2-7b, not taken yet
+    (torch.float16, 64, TypeError, "dtype"),
+])
+def test_route_table_refuses(dtype, hd, exc, match):
+    with pytest.raises(exc, match=match):
+        tfa.route(dtype, hd)
+
+
+@pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_wgmma",
+                                "flash_attention_scalar"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_wrappers_refuse_cpu_tensors(fn, dtype):
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv_np(8, 1, 16, 2, 2, 64))
+    counts = {f: getattr(tfa, f).launches for f in
+              ("flash_attention", "flash_attention_wgmma", "flash_attention_scalar")}
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(tfa, fn)(q, k, v)
+    assert counts == {f: getattr(tfa, f).launches for f in counts}
+
+
+def test_tma_strides_of_fused_projection_views():
+    """q/k/v as views of one [B, S, (H + 2 KV) hd] projection: TMA takes
+    their strides as they are; a dim of size 1 gets its packed stride."""
+    B, S, H, KV, hd = 2, 130, 4, 1, 64
+    qkv = torch.zeros((B, S, (H + 2 * KV) * hd), dtype=torch.bfloat16)
+    q = qkv[..., :H * hd].reshape(B, S, H, hd)
+    k = qkv[..., H * hd:(H + KV) * hd].reshape(B, S, KV, hd)
+    row = (H + 2 * KV) * hd
+    assert tfa.tma_strides(q) == (S * row, row, hd)
+    assert tfa.tma_strides(k) == (S * row, row, hd)
+    one = torch.zeros((1, 8, 1, hd), dtype=torch.bfloat16)
+    assert tfa.tma_strides(one.as_strided(one.shape, (3, hd, 5, 1))) == (8 * hd, hd, hd)
+
+
+@pytest.mark.parametrize("bad", ["stride", "base"])
+def test_tma_strides_refuse_what_tma_cannot_read(bad):
+    if bad == "stride":  # heads 68 elements = 136 bytes apart
+        t = torch.zeros((1, 8, 4, 68), dtype=torch.bfloat16)[..., :64]
+        match = "16-byte multiples"
+    else:  # a view starting 2 bytes past an aligned base
+        t = torch.zeros((1, 8, 4, 65), dtype=torch.bfloat16)[..., 1:]
+        match = "aligned base"
+    with pytest.raises(ValueError, match=match):
+        tfa.tma_strides(t)

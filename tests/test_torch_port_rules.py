@@ -94,7 +94,7 @@ def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "CUDA_HOMES", (str(tmp_path),))
     with pytest.raises(build.KernelBuildError, match="nvcc not found"):
         build.build_all()
-    for name in ("flash_attention", "ssd_scan"):
+    for name in build.SOURCES:
         with pytest.raises(build.KernelBuildError):
             build.load(name)
 
@@ -129,9 +129,28 @@ def test_trace_needs_cuda_and_sums_busy_time(no_cuda):
         trace.main()
     assert trace._busy_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17
     assert trace._busy_us([]) == 0
-    assert trace.kind_of("void (anonymous namespace)::flash_fwd_kernel<float, 64>") \
-        == "flash_attention"
     assert trace.kind_of("void (anonymous namespace)::ssd_scan_kernel<64, 128>") \
         == "ssd_scan"
     assert trace.kind_of("sm90_xmma_gemm_bf16bf16_bf16f32") == "matmul"
     assert trace.kind_of("vectorized_elementwise_kernel") == "other"
+
+
+@pytest.mark.parametrize("symbol", [
+    # the scalar route, as the profiler names it
+    "void (anonymous namespace)::flash_fwd_kernel<float, 64>(float const*, float const*, "
+    "float const*, float*, int, int, int, long long, long long, long long, long long, "
+    "long long, long long, long long, long long, long long, long long, long long, "
+    "long long, int, int, float, float)",
+    # the wgmma route: its tensor-map arguments must not make it a matmul
+    "void (anonymous namespace)::flash_fwd_wgmma_kernel<64>(CUtensorMap_st, CUtensorMap_st, "
+    "CUtensorMap_st, __nv_bfloat16*, int, int, int, int, int, long long, long long, "
+    "long long, int, int, float, float)",
+    "_ZN57_GLOBAL__N__a6294427_24_flash_attention_wgmma_cu_22dcb6b322flash_fwd_wgmma_kernel"
+    "ILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiiiixxxiiff",
+    # a CUTLASS-named symbol that carries the kernel as a template argument
+    "void cutlass::device_kernel<flash_fwd_wgmma_kernel<64> >(cutlass::Params)",
+])
+def test_trace_kind_of_flash_routes(symbol):
+    from repro_torch.launch import trace
+
+    assert trace.kind_of(symbol) == "flash_attention"
