@@ -16,8 +16,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``torch.nn.functional.scaled_dot_product_attention``;
 4. hold the SSD chunked-scan kernel (output and final state) against its
    plain version (the token-by-token recurrence) on the card at the test
-   shapes, a ragged S, S < chunk and the serving shape, and time it there
-   beside the plain version (no single PyTorch call computes it);
+   shapes, a ragged S, S < chunk and the serving shape, and again with a
+   slow decay that carries the state across many chunks (the slice, 32
+   chunks, a chunk of 100, grids smaller and larger than the card); then
+   time it at the serving shape beside the plain version (no single
+   PyTorch call computes it) and its bound, the faster of the f32 CUDA
+   cores and the TF32 tensor cores at three products (3xTF32), or bytes;
 5. serve full-width llama3.2-1b (bf16, seeded random weights): 4 prompts of
    1024 tokens, one-pass prefill, 32 greedy decode steps, with each flash
    route's launches counted over that run (all 16 on the wgmma route); then
@@ -48,8 +52,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA
-# cores, HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# cores, TF32 tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 
 F32_TOL = 2e-5
@@ -128,15 +132,23 @@ FUSED_CASES = [  # B, S, H, KV, hd, dtype, kwargs
 ]
 
 SSD_SLICE = (SERVE_BATCH, SERVE_PROMPT, 32, 64, 128, 128)  # B, S, H, P, N, chunk
-SSD_CASES = [  # B, S, H, P, N, chunk
-    (1, 64, 2, 16, 8, 16),       # tests/test_kernels.py's shapes
-    (2, 128, 4, 32, 16, 32),
-    (1, 96, 2, 16, 8, 32),
-    (1, 64, 1, 64, 32, 64),
-    (2, 1000, 4, 64, 128, 128),  # ragged last chunk
-    (1, 50, 2, 64, 64, 128),     # S < chunk, N = 64
-    (2, 100, 8, 32, 16, 16),     # the reduced mamba2 shape
-    SSD_SLICE,                   # the slice
+SSD_CASES = [  # B, S, H, P, N, chunk, slow decay
+    (1, 64, 2, 16, 8, 16, False),       # tests/test_kernels.py's shapes
+    (2, 128, 4, 32, 16, 32, False),
+    (1, 96, 2, 16, 8, 32, False),
+    (1, 64, 1, 64, 32, 64, False),
+    (2, 1000, 4, 64, 128, 128, False),  # ragged last chunk
+    (1, 50, 2, 64, 64, 128, False),     # S < chunk, N = 64
+    (2, 100, 8, 32, 16, 16, False),     # the reduced mamba2 shape
+    (*SSD_SLICE, False),                # the slice
+    # slow decay (dt scaled by 0.02): the state a chunk passes on lasts
+    # several chunks, where at dt = softplus(randn) a chunk of 128 decays it
+    # by ~e^-100 and only the previous chunk's own state reaches the next
+    (*SSD_SLICE, True),                 # the slice
+    (1, 4096, 4, 64, 128, 128, True),   # 32 chunks
+    (2, 1000, 4, 64, 128, 100, True),   # chunk no multiple of 16, ragged
+    (1, 256, 4, 64, 128, 128, True),    # fewer blocks than SMs
+    (2, 2048, 32, 64, 128, 128, True),  # more blocks than SMs
 ]
 
 
@@ -174,12 +186,15 @@ def attention_bound(q, k, v, causal, window):
 
 
 def ssd_bound(xh, Bm, chunk: int):
-    """(bound_ms, bound_by, flops, bytes) of the SSD scan as prefill calls
-    it (with the final state). Operations over the f32 peak: C.B^T over the
-    causal pairs once per (b, chunk), since B and C, and so the scores, are
-    shared by all heads; then per (b, h, chunk) the scores' product with
-    x*dt, C.state^T and the state update. Bytes over HBM bandwidth: each
-    input read once, y and the final state written once."""
+    """(bound_ms, bound_by, flops, bytes, terms) of the SSD scan as prefill
+    calls it (with the final state). The operations: C.B^T over the causal
+    pairs once per (b, chunk), since B and C, and so the scores, are shared
+    by all heads; then per (b, h, chunk) the scores' product with x*dt,
+    C.state^T and the state update. They take the faster of two routes that
+    keep f32 accuracy: the f32 CUDA cores, or the TF32 tensor cores at three
+    products each (3xTF32: hi*hi' + hi*lo' + lo*hi'; one TF32 product misses
+    the scan's 1e-4). Bytes over HBM bandwidth: each input read once, y and
+    the final state written once. ``terms`` holds the three times in ms."""
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
     flops = 0
@@ -188,15 +203,21 @@ def ssd_bound(xh, Bm, chunk: int):
         pairs = q * (q + 1) // 2
         flops += B * (pairs * N * 2 + H * (pairs * P * 2 + 2 * q * N * P * 2))
     nbytes = (2 * xh.numel() + B * S * H + H + 2 * Bm.numel() + B * H * P * N) * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    terms = {"f32_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+             "3xtf32_ms": 3 * flops / PEAK_FLOPS["tf32"] * 1e3,
+             "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+    t_ops = min(terms["f32_ms"], terms["3xtf32_ms"])
+    return (max(t_ops, terms["bytes_ms"]),
+            "operations" if t_ops >= terms["bytes_ms"] else "bytes", flops, nbytes, terms)
 
 
-def ssd_inputs(torch, gen, dev, B, S, H, P, N):
-    """Inputs as ssd_block gives them: dt after softplus, A < 0."""
+def ssd_inputs(torch, gen, dev, B, S, H, P, N, slow=False):
+    """Inputs as ssd_block gives them: dt after softplus (scaled by 0.02 with
+    ``slow``), A < 0."""
     xh = torch.randn((B, S, H, P), generator=gen, device=dev)
     dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    if slow:
+        dt = 0.02 * dt
     A = -torch.exp(0.3 * torch.randn((H,), generator=gen, device=dev))
     Bm = 0.5 * torch.randn((B, S, N), generator=gen, device=dev)
     Cm = 0.5 * torch.randn((B, S, N), generator=gen, device=dev)
@@ -391,21 +412,23 @@ def main() -> int:
 
     # 4. the SSD kernel against its plain version ---------------------------
     phase("SSD kernel checks")
-    ssd_err = None
-    for B, S, H, P, N, chunk in SSD_CASES:
-        xh, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, B, S, H, P, N)
+    ssd_err = 0.0
+    for B, S, H, P, N, chunk, slow in SSD_CASES:
+        xh, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, B, S, H, P, N, slow)
         got, got_state = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, return_state=True)
         torch.cuda.synchronize()
         want, want_state = ssd_scan_ref(xh, dt, A, Bm, Cm, return_state=True)
         err, ok = compare(got, want, SSD_TOL)
         err_state, ok_state = compare(got_state, want_state, SSD_TOL)
-        print(f"  B={B} S={S} H={H} P={P} N={N} chunk={chunk}: max_abs_err y={err:.3g} "
+        print(f"  B={B} S={S} H={H} P={P} N={N} chunk={chunk}"
+              f"{' slow decay' if slow else ''}: max_abs_err y={err:.3g} "
               f"state={err_state:.3g} (rtol = atol = {SSD_TOL}) "
               f"{'ok' if ok and ok_state else 'FAIL'}")
         if not (ok and ok_state and torch.isfinite(got).all()):
-            fail(f"SSD kernel disagrees with its plain version at {(B, S, H, P, N, chunk)}")
-        if (B, S, H, P, N, chunk) == SSD_SLICE:
-            ssd_err = max(err, err_state)
+            fail(f"SSD kernel disagrees with its plain version at "
+                 f"{(B, S, H, P, N, chunk, slow)}")
+        if (B, S, H, P, N, chunk) == SSD_SLICE:  # both decays
+            ssd_err = max(ssd_err, err, err_state)
 
     B, S, H, P, N, chunk = SSD_SLICE
     xh, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, B, S, H, P, N)
@@ -418,12 +441,18 @@ def main() -> int:
         ssd_times["ms"].append(time_ms(torch, ssd_fn, 10))
         ssd_times["plain_ms"].append(time_ms(torch, ssd_plain_fn, 2))
     ssd_times = {key: statistics.median(vals) for key, vals in ssd_times.items()}
-    ssd_bound_ms, ssd_bound_by, flops, nbytes = ssd_bound(xh, Bm, chunk)
+    ssd_bound_ms, ssd_bound_by, flops, nbytes, terms = ssd_bound(xh, Bm, chunk)
     print(f"  slice shape {SSD_SLICE} f32 with final state: kernel "
           f"{ssd_times['ms']:.4f} ms, plain {ssd_times['plain_ms']:.4f} ms; "
-          f"bound {ssd_bound_ms * 1e3:.2f} us by {ssd_bound_by} "
-          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-          f"kernel at {flops / ssd_times['ms'] / 1e9:.2f} TFLOP/s")
+          f"bound {ssd_bound_ms * 1e3:.2f} us by {ssd_bound_by}: operations "
+          f"{flops / 1e9:.2f} GFLOP take {terms['f32_ms'] * 1e3:.2f} us on the f32 cores and "
+          f"{terms['3xtf32_ms'] * 1e3:.2f} us as 3xTF32 on the tensor cores, bytes "
+          f"{nbytes / 1e6:.1f} MB take {terms['bytes_ms'] * 1e3:.2f} us; kernel at "
+          f"{flops / ssd_times['ms'] / 1e9:.2f} TFLOP/s of counted operations, "
+          f"{ssd_times['ms'] / ssd_bound_ms:.2f}x its bound")
+    if ssd_times["ms"] < ssd_bound_ms:
+        fail(f"the SSD kernel reads {ssd_times['ms']:.4f} ms, below its "
+             f"{ssd_bound_ms:.4f} ms bound: the timing or the bound is wrong")
 
     # 5. and 6. serve each model through its kernel -------------------------
     def diagonal_dropped(scan):

@@ -1,10 +1,11 @@
 """Wrapper of the CUDA SSD chunked-scan kernel (csrc/ssd_scan.cu).
 
 Replaces ``repro/kernels/ssd_scan.py:ssd_scan`` (Pallas). Takes CUDA f32
-tensors only: it checks them, allocates the output, launches the kernel on
-PyTorch's current stream and raises if the launch failed. With
-``state_out`` it also writes the f32 state after the last position there.
-Counts its launches in ``ssd_scan.launches``.
+tensors only: it checks them, allocates the output and the kernel's scratch
+(each chunk's state, [B, H, nc, P, N], and its total decay, [B, H, nc]),
+launches the kernel's passes on PyTorch's current stream and raises if a
+launch failed. With ``state_out`` it also writes the f32 state after the
+last position there. Counts its calls in ``ssd_scan.launches``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ def _kernel():
         lib = build.load("ssd_scan")
         fn = lib.repro_ssd_scan_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_longlong), p]
         fn.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
@@ -71,6 +72,9 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if state_out is not None:
             state_out.zero_()
         return y
+    nc = -(-S // chunk)
+    states = torch.empty((B, H, nc, P, N), dtype=torch.float32, device=xh.device)
+    totals = torch.empty((B, H, nc), dtype=torch.float32, device=xh.device)
     strides = (ctypes.c_longlong * 12)(
         *xh.stride()[:3], *dt.stride()[:2], *Bm.stride()[:2],
         *Cm.stride()[:2], *y.stride()[:3])
@@ -80,7 +84,8 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         err = fn(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                  Cm.data_ptr(), y.data_ptr(),
                  None if state_out is None else state_out.data_ptr(),
-                 B, S, H, P, N, int(chunk), strides, stream)
+                 states.data_ptr(), totals.data_ptr(), B, S, H, P, N, int(chunk),
+                 strides, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: "
                            f"{err_str(err).decode()} ({err})")

@@ -9,7 +9,7 @@ After one untraced warm-up, traces one prefill and then 8 greedy decode
 steps, each phase in its own profiler session, and prints per phase:
 host wall time (ending in a synchronise), device-busy time (the union of
 the kernels' intervals), the busy share, device time by kind (the flash
-attention kernels of both routes, the SSD scan kernel, matrix products,
+attention kernels of both routes, the SSD scan's kernels, matrix products,
 everything else)
 and the top kernels.
 Needs a card; exits non-zero if the profiler records no kernel.
@@ -32,16 +32,18 @@ from repro_torch.launch.serve import make_prompts, serve
 from repro_torch.models import LM
 
 _FLASH = re.compile(r"flash_fwd_(wgmma_)?kernel")
+# the SSD scan's three passes (csrc/ssd_scan.cu)
+_SSD = re.compile(r"ssd_(chunk_state|state_pass|chunk_out)_kernel")
 _MATMUL = re.compile(r"gemm|gemv|xmma|cutlass|cublas|nvjet", re.I)
 
 
 def kind_of(kernel: str) -> str:
-    """The port's own kernels by symbol (both flash routes, the SSD scan),
-    before the library products, whose names a kernel's template arguments
-    may also contain."""
+    """The port's own kernels by symbol (both flash routes, the SSD scan's
+    passes), before the library products, whose names a kernel's template
+    arguments may also contain."""
     if _FLASH.search(kernel):
         return "flash_attention"
-    if "ssd_scan_kernel" in kernel:
+    if _SSD.search(kernel):
         return "ssd_scan"
     return "matmul" if _MATMUL.search(kernel) else "other"
 

@@ -142,28 +142,37 @@ def test_kernel_rejects_unsupported_head_dim(cuda):
 # SSD chunked scan
 # ---------------------------------------------------------------------------
 
-def _ssd_inputs(device, B, S, H, P, N, seed=11):
+def _ssd_inputs(device, B, S, H, P, N, seed=11, slow=False):
+    """dt = softplus(randn): a chunk of 128 forgets its carry before the
+    next ends. With ``slow`` dt is scaled by 0.02, so that a chunk decays
+    the state by ~e^-2 and the carry spans several chunks."""
     rng = np.random.default_rng(seed)
     arrs = (rng.standard_normal((B, S, H, P)),
-            np.log1p(np.exp(rng.standard_normal((B, S, H)))),
+            np.log1p(np.exp(rng.standard_normal((B, S, H)))) * (0.02 if slow else 1.0),
             -np.exp(rng.standard_normal(H) * 0.3),
             rng.standard_normal((B, S, N)) * 0.5,
             rng.standard_normal((B, S, N)) * 0.5)
     return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrs]
 
 
-@pytest.mark.parametrize("B,S,H,P,N,chunk", [
-    (1, 64, 2, 16, 8, 16),      # tests/test_kernels.py's shapes
-    (2, 128, 4, 32, 16, 32),
-    (1, 96, 2, 16, 8, 32),
-    (1, 64, 1, 64, 32, 64),
-    (2, 1000, 4, 64, 128, 128),  # ragged last chunk
-    (1, 50, 2, 64, 64, 128),     # S < chunk, N = 64
-    (2, 256, 4, 32, 16, 16),     # the reduced mamba2 shape
-    (4, 1024, 32, 64, 128, 128),  # the slice
+@pytest.mark.parametrize("B,S,H,P,N,chunk,slow", [
+    (1, 64, 2, 16, 8, 16, False),      # tests/test_kernels.py's shapes
+    (2, 128, 4, 32, 16, 32, False),
+    (1, 96, 2, 16, 8, 32, False),
+    (1, 64, 1, 64, 32, 64, False),
+    (2, 1000, 4, 64, 128, 128, False),  # ragged last chunk
+    (1, 50, 2, 64, 64, 128, False),     # S < chunk, N = 64
+    (2, 256, 4, 32, 16, 16, False),     # the reduced mamba2 shape
+    (4, 1024, 32, 64, 128, 128, False),  # the slice
+    # slow decay: the state carried across several chunks
+    (4, 1024, 32, 64, 128, 128, True),  # the slice
+    (1, 4096, 4, 64, 128, 128, True),   # 32 chunks
+    (2, 1000, 4, 64, 128, 100, True),   # chunk no multiple of 16, ragged
+    (1, 256, 4, 64, 128, 128, True),    # fewer blocks than SMs
+    (2, 2048, 32, 64, 128, 128, True),  # more blocks than SMs
 ])
-def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
-    xh, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, P, N)
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, slow):
+    xh, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, P, N, slow=slow)
     before = tssd.ssd_scan.launches
     got, state = tops.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, return_state=True)
     torch.cuda.synchronize()

@@ -129,8 +129,8 @@ def test_trace_needs_cuda_and_sums_busy_time(no_cuda):
         trace.main()
     assert trace._busy_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17
     assert trace._busy_us([]) == 0
-    assert trace.kind_of("void (anonymous namespace)::ssd_scan_kernel<64, 128>") \
-        == "ssd_scan"
+    assert trace.kind_of("void (anonymous namespace)::ssd_chunk_out_kernel<64, 128>("
+                         "(anonymous namespace)::Params, int)") == "ssd_scan"
     assert trace.kind_of("sm90_xmma_gemm_bf16bf16_bf16f32") == "matmul"
     assert trace.kind_of("vectorized_elementwise_kernel") == "other"
 
@@ -154,3 +154,20 @@ def test_trace_kind_of_flash_routes(symbol):
     from repro_torch.launch import trace
 
     assert trace.kind_of(symbol) == "flash_attention"
+
+
+@pytest.mark.parametrize("symbol", [
+    # each pass of the SSD scan, as the profiler names it
+    "void (anonymous namespace)::ssd_chunk_state_kernel<64, 128>((anonymous namespace)::Params, "
+    "int)",
+    "(anonymous namespace)::ssd_state_pass_kernel(float*, float const*, float*, int, int)",
+    "void (anonymous namespace)::ssd_chunk_out_kernel<64, 128>((anonymous namespace)::Params, "
+    "int)",
+    # mangled, and the smaller instantiations
+    "_ZN12_GLOBAL__N_122ssd_chunk_state_kernelILi16ELi8EEEvNS_6ParamsEi",
+    "void (anonymous namespace)::ssd_chunk_out_kernel<32, 16>((anonymous namespace)::Params, int)",
+])
+def test_trace_kind_of_ssd_passes(symbol):
+    from repro_torch.launch import trace
+
+    assert trace.kind_of(symbol) == "ssd_scan"

@@ -111,6 +111,132 @@ def test_ssd_scan_inputs_exercise_the_carry():
     assert float((pieces - whole).abs().max()) > 100 * TOL
 
 
+# ---------------------------------------------------------------------------
+# the CUDA kernel's decomposition, in numpy: chunk states -> state passing ->
+# chunk outputs (csrc/ssd_scan.cu's three passes), with its TF32 products
+# ---------------------------------------------------------------------------
+
+def _slow_ssd_inputs(seed, B, S, H, P, N):
+    """_ssd_inputs with dt scaled by 0.02: a chunk of 128 then decays the
+    state by ~e^-2, so the carry spans several chunks."""
+    xh, dt, A, Bm, Cm = _ssd_inputs(seed, B, S, H, P, N)
+    return xh, (0.02 * dt).astype(np.float32), A, Bm, Cm
+
+
+def _recurrence64(xh, dt, A, Bm, Cm):
+    """The token-by-token recurrence in float64: y [B,S,H,P], state [B,H,P,N]."""
+    x, d, a, b, c = (np.asarray(v, np.float64) for v in (xh, dt, A, Bm, Cm))
+    B, S, H, P = x.shape
+    h = np.zeros((B, H, P, b.shape[-1]))
+    ys = np.empty_like(x)
+    for t in range(S):
+        h = h * np.exp(d[:, t] * a)[..., None, None] + np.einsum(
+            "bn,bhp->bhpn", b[:, t], x[:, t] * d[:, t, :, None])
+        ys[:, t] = np.einsum("bhpn,bn->bhp", h, c[:, t])
+    return ys, h
+
+
+def _tf32_round(a):
+    """a rounded to TF32 (10 mantissa bits), to nearest, ties away from zero."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(a):
+    """a as the tensor cores read an f32 operand: the low 13 bits dropped."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _product(scheme):
+    """a @ b with f32 accumulation, the operands as the scheme feeds them:
+    "f32" as they are, "1xtf32" rounded to TF32, "3xtf32" split as the
+    kernel splits them (hi rounded, lo = a - hi read truncated) and summed
+    as lo*hi' + hi*lo' + hi*hi'."""
+    def mm(a, b):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        if scheme == "f32":
+            return a @ b
+        ah, bh = _tf32_round(a), _tf32_round(b)
+        if scheme == "1xtf32":
+            return ah @ bh
+        al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+        return al @ bh + ah @ bl + ah @ bh
+    return mm
+
+
+def _three_pass(xh, dt, A, Bm, Cm, Q, mm, fault=None):
+    """The kernel's decomposition of the scan (S a multiple of Q). ``fault``
+    plants an error in the state passing: "decay_twice" applies each chunk's
+    exp(total) twice, "no_carry" keeps only the previous chunk's own state
+    (the state from two chunks back and earlier is left out)."""
+    B, S, H, P = xh.shape
+    N, nc = Bm.shape[-1], S // Q
+    y = np.empty((B, S, H, P), np.float32)
+    final = np.empty((B, H, P, N), np.float32)
+    for b in range(B):
+        for h in range(H):
+            parts = []
+            for c in range(nc):  # (a) each chunk's own state and total decay
+                sl = slice(c * Q, (c + 1) * Q)
+                d = dt[b, sl, h].astype(np.float64)
+                csum = np.cumsum(d * A[h])
+                w = (d * np.exp(csum[-1] - csum)).astype(np.float32)
+                dstate = mm((xh[b, sl, h] * w[:, None]).T, Bm[b, sl])
+                parts.append((sl, d, csum, np.float32(csum[-1]), dstate))
+            state, state_in = np.zeros((P, N), np.float32), []
+            for _, _, _, total, dstate in parts:  # (b) state passing
+                state_in.append(state)
+                decay = np.exp(total) ** (2 if fault == "decay_twice" else 1)
+                state = dstate if fault == "no_carry" else decay * state + dstate
+            final[b, h] = state
+            for (sl, d, csum, _, _), s_in in zip(parts, state_in):  # (c) outputs
+                L = np.tril(np.exp(csum[:, None] - csum[None, :]))
+                scores = mm(Cm[b, sl], Bm[b, sl].T)
+                intra = mm((scores * L * d[None, :]).astype(np.float32), xh[b, sl, h])
+                inter = np.exp(csum)[:, None] * mm(Cm[b, sl], s_in.T)
+                y[b, sl, h] = intra + inter
+    return y, final
+
+
+def _misses(got, want, tol=TOL):
+    """How far got is outside allclose(rtol = atol = tol) of want (<= 0: inside)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) - tol * (1 + np.abs(want))).max())
+
+
+def test_ssd_slow_decay_inputs_see_the_state_passing():
+    """On slow-decay inputs the state carries across several chunks, so a
+    state passing with a wrong decay misses the recurrence by more than 100
+    times the tolerance, where the kernel's decomposition holds it (the
+    fast-decay inputs forget a chunk's carry before the next ends)."""
+    B, S, H, P, N, Q = 1, 1024, 2, 16, 64, 128
+    arrs = _slow_ssd_inputs(3, B, S, H, P, N)
+    want_y, want_state = _recurrence64(*arrs)
+    y, state = _three_pass(*arrs, Q, _product("f32"))
+    assert _misses(y, want_y) <= 0 and _misses(state, want_state) <= 0
+    for fault in ("decay_twice", "no_carry"):
+        y, _ = _three_pass(*arrs, Q, _product("f32"), fault=fault)
+        assert float(np.abs(y - want_y).max()) > 100 * TOL, fault
+    # the fast-decay inputs cannot tell the carry from no carry
+    fast = _ssd_inputs(3, B, S, H, P, N)
+    y, _ = _three_pass(*fast, Q, _product("f32"), fault="no_carry")
+    assert _misses(y, _recurrence64(*fast)[0]) <= 0
+
+
+def test_ssd_three_pass_precision_needs_3xtf32():
+    """The kernel's three passes with its tensor-core products against the
+    float64 recurrence, at a slice-like shape (Q = N = 128, P = 64) on the
+    inputs chip_smoke.py draws: split into three TF32 products (3xTF32) they
+    hold rtol = atol = 1e-4, plain TF32 does not."""
+    arrs = _ssd_inputs(4, 1, 1024, 4, 64, 128)
+    want_y, want_state = _recurrence64(*arrs)
+    y3, s3 = _three_pass(*arrs, 128, _product("3xtf32"))
+    assert _misses(y3, want_y) <= 0 and _misses(s3, want_state) <= 0
+    y1, _ = _three_pass(*arrs, 128, _product("1xtf32"))
+    assert _misses(y1, want_y) > 0
+
+
 def test_ssd_scan_checks_shapes_and_device():
     xh, dt, A, Bm, Cm = (torch.from_numpy(a) for a in _ssd_inputs(2, 1, 8, 2, 16, 8))
     with pytest.raises(ValueError, match="does not fit"):
