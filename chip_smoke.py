@@ -8,12 +8,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. the card: nvidia-smi's name and power limit, torch's device name; TF32 off;
 2. build the CUDA kernels from the sources in this checkout (nvcc, sm_90a);
 3. hold both flash-attention routes (the wgmma kernel for bf16 at head_dim
-   64 / 128, the scalar kernel for the rest) against their plain PyTorch
-   version on the card at the test shapes, a strided view of a fused
-   projection and the serving shape, each call counted on the route that
-   the table names; then time both at the serving shape beside the plain
-   version, the bound and, as a yardstick the port never calls,
-   ``torch.nn.functional.scaled_dot_product_attention``;
+   64 / 128, the mma kernel for f32 and every other head_dim up to 256)
+   against their plain PyTorch version on the card at the test shapes
+   (head_dim 112 and 120 included), strided views of a fused projection and
+   the serving shape, each call counted on the route that the table names;
+   then time both at the serving shape beside the plain version, the bound
+   and, as a yardstick the port never calls,
+   ``torch.nn.functional.scaled_dot_product_attention``; and the mma route
+   in bf16 at the training slice's shape and at head_dim 120 and 112 beside
+   SDPA (printed only);
 4. hold the SSD chunked-scan kernel (output and final state) against its
    plain version (the token-by-token recurrence) on the card at the test
    shapes, a ragged S, S < chunk and the serving shape, and again with a
@@ -27,7 +30,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    route's launches counted over that run (all 16 on the wgmma route); then
    check the prefill against the same forward with the plain attention, the
    cache against a prefill one token longer; serve and check the same model
-   in f32 (all 16 launches on the scalar route), and the reduced model on
+   in f32 (all 16 launches on the mma route), and the reduced model on
    the card against the CPU;
 6. the same for full-width mamba2-370m, with the SSD kernel's launches
    counted and the plain SSD scan as the comparison, a planted fault that
@@ -64,8 +67,9 @@ BF16_TOL = 2e-2
 # kernel's f32), and 16 layers compound it.
 LOGITS_REL_TOL = 5e-2
 REDUCED_F32_TOL = 1e-4
-# llama3.2-1b logits in f32 (the scalar route), rel-L2: the kernel and the
-# plain attention differ only by f32 summation order
+# llama3.2-1b logits in f32 (the mma route), rel-L2: the kernel and the
+# plain attention differ by f32 summation order and the ~2^-22 residue of
+# the 3xTF32 products
 LLAMA_F32_REL_TOL = 1e-3
 # the SSD kernel against the token-by-token recurrence, f32 (the tolerance
 # of tests/test_kernels.py's SSD tests)
@@ -120,6 +124,15 @@ CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
     (4, 300, 700, 32, 4, 64, "bfloat16", dict(causal=False)),
     (4, 512, 8, 32, 8, 64, "bfloat16", dict(causal=True, window=4)),  # empty work tiles
     (3, 1000, 1000, 16, 4, 128, "bfloat16", dict(causal=True, softcap=20.0)),
+    # head dims only the mma route takes: zamba2-7b's 112, h2o-danube's 120
+    *[case for hd in (112, 120) for dt in ("float32", "bfloat16") for case in (
+        (1, 1000, 1000, 4, 2, hd, dt, dict(causal=True)),             # ragged, GQA
+        (1, 256, 256, 4, 4, hd, dt, dict(causal=True, window=96)),
+        (1, 128, 128, 2, 2, hd, dt, dict(causal=True, softcap=20.0)),
+        (1, 64, 8, 2, 2, hd, dt, dict(causal=True, window=4)),         # empty rows
+    )],
+    (1, 200, 300, 4, 2, 20, "float32", dict(causal=True)),            # hd 20, T != S
+    (1, 300, 200, 4, 1, 256, "bfloat16", dict(causal=True)),          # the widest hd
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
      "float32", dict(causal=True)),                                   # the slice, f32
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
@@ -129,7 +142,15 @@ CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
 FUSED_CASES = [  # B, S, H, KV, hd, dtype, kwargs
     (2, 130, 4, 1, 64, "bfloat16", dict(causal=True)),
     (2, 130, 4, 1, 32, "float32", dict(causal=True)),
+    *[(2, 130, 4, 1, hd, dt, dict(causal=True))
+      for hd in (112, 120) for dt in ("float32", "bfloat16")],
 ]
+# the mma route in bf16, timed beside SDPA (causal): B, S, H, KV, hd
+YARDSTICKS = {
+    "the 10m training model": (8, 256, 8, 4, 32),
+    "h2o-danube-3-4b's head_dim": (SERVE_BATCH, SERVE_PROMPT, 32, 8, 120),
+    "zamba2-7b's head_dim": (SERVE_BATCH, SERVE_PROMPT, 32, 32, 112),
+}
 
 SSD_SLICE = (SERVE_BATCH, SERVE_PROMPT, 32, 64, 128, 128)  # B, S, H, P, N, chunk
 SSD_CASES = [  # B, S, H, P, N, chunk, slow decay
@@ -172,17 +193,39 @@ def visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
 
 
 def attention_bound(q, k, v, causal, window):
-    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth (each
-    input read once, the output written once) and the two products' FLOPs
-    over the peak rate of the inputs' type."""
+    """(bound_ms, bound_by, flops, bytes, terms): the larger of bytes over
+    HBM bandwidth (each input read once, the output written once) and the
+    two products' FLOPs over the peak rate of the inputs' type. f32 takes
+    the faster of two routes that keep f32 accuracy, as ``ssd_bound`` does:
+    the f32 CUDA cores, or the TF32 tensor cores at three products each
+    (3xTF32; one TF32 product misses the f32 tolerance). ``terms`` holds
+    each time in ms."""
     B, S, H, hd = q.shape
     T = k.shape[1]
     flops = 4 * B * H * hd * visible_pairs(S, T, causal, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    dtype = str(q.dtype).removeprefix("torch.")
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    if q.dtype.is_floating_point and q.element_size() == 4:
+        terms = {"f32_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+                 "3xtf32_ms": 3 * flops / PEAK_FLOPS["tf32"] * 1e3}
+    else:
+        terms = {"bf16_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3}
+    t_ops = min(terms.values())
+    terms["bytes_ms"] = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, terms["bytes_ms"]),
+            "operations" if t_ops >= terms["bytes_ms"] else "bytes", flops, nbytes, terms)
+
+
+def bound_terms(terms: dict) -> str:
+    return ", ".join(f"{key.removesuffix('_ms')} {ms * 1e3:.2f} us" for key, ms in terms.items())
+
+
+def attention_inputs(torch, gen, dev, shape, dt):
+    """q [B, S, H, hd], k and v [B, S, KV, hd] of type ``dt``, and their
+    [B, heads, S, hd] copies for SDPA."""
+    B, S, H, KV, hd = shape
+    qkv = [torch.randn(s, generator=gen, device=dev).to(getattr(torch, dt))
+           for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+    return qkv, [x.transpose(1, 2).contiguous() for x in qkv]
 
 
 def ssd_bound(xh, Bm, chunk: int):
@@ -304,7 +347,7 @@ def main() -> int:
     # 3. both flash routes against their plain version ---------------------
     phase("kernel checks")
     gen = torch.Generator(device=dev).manual_seed(0)
-    routes = {"wgmma": fa.flash_attention_wgmma, "scalar": fa.flash_attention_scalar}
+    routes = {"wgmma": fa.flash_attention_wgmma, "mma": fa.flash_attention_mma}
 
     def fused_qkv(B, S, H, KV, hd, dtype):
         qkv = torch.randn((B, S, (H + 2 * KV) * hd), generator=gen, device=dev).to(dtype)
@@ -341,14 +384,10 @@ def main() -> int:
         if (B, S, H, KV, hd) == SLICE_SHAPE and not fused:
             slice_err[dt] = err
 
-    # both routes at the serving shape: wgmma (bf16), scalar (f32, its route
-    # now; and bf16, the route llama took before the wgmma kernel)
-    B, S, H, KV, hd = SLICE_SHAPE
-    slice_in = {}
-    for dt in ("bfloat16", "float32"):
-        qkv = [torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dt))
-               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
-        slice_in[dt] = (qkv, [x.transpose(1, 2).contiguous() for x in qkv])
+    # both routes at the serving shape: wgmma (bf16), mma (f32, its route;
+    # and bf16, a yardstick beside wgmma that nothing here serves)
+    slice_in = {dt: attention_inputs(torch, gen, dev, SLICE_SHAPE, dt)
+                for dt in ("bfloat16", "float32")}
 
     def kernel_fn(fn, dt):
         q, k, v = slice_in[dt][0]
@@ -366,8 +405,8 @@ def main() -> int:
         "wgmma": (kernel_fn(ops.flash_attention, "bfloat16"), 100),
         "plain_bf16": (kernel_fn(flash_attention_ref, "bfloat16"), 5),
         "sdpa_bf16": (sdpa_fn("bfloat16"), 100),
-        "scalar_bf16": (kernel_fn(fa.flash_attention_scalar, "bfloat16"), 10),
-        "scalar": (kernel_fn(ops.flash_attention, "float32"), 10),
+        "mma_bf16": (kernel_fn(fa.flash_attention_mma, "bfloat16"), 50),
+        "mma": (kernel_fn(ops.flash_attention, "float32"), 50),
         "plain_f32": (kernel_fn(flash_attention_ref, "float32"), 5),
         "sdpa_f32": (sdpa_fn("float32"), 20),
     }
@@ -378,37 +417,53 @@ def main() -> int:
     times = {name: statistics.median(vals) for name, vals in times.items()}
     bounds = {dt: attention_bound(*slice_in[dt][0], True, 0) for dt in slice_in}
     for dt, route_ms, label in (("bfloat16", "wgmma", "wgmma"),
-                                ("bfloat16", "scalar_bf16", "scalar (bf16, the route before)"),
-                                ("float32", "scalar", "scalar")):
-        bound_ms, bound_by, flops, nbytes = bounds[dt]
+                                ("bfloat16", "mma_bf16", "mma (bf16, a yardstick)"),
+                                ("float32", "mma", "mma")):
+        bound_ms, bound_by, flops, nbytes, terms = bounds[dt]
         short = "bf16" if dt == "bfloat16" else "f32"
         print(f"  slice shape {SLICE_SHAPE} {dt} causal, {label}: kernel "
               f"{times[route_ms]:.4f} ms, plain {times['plain_' + short]:.4f} ms, sdpa "
               f"{times['sdpa_' + short]:.4f} ms; bound {bound_ms * 1e3:.2f} us by "
-              f"{bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); kernel at "
-              f"{flops / times[route_ms] / 1e9:.2f} TFLOP/s")
-    print(f"  wgmma route: {times['scalar_bf16'] / times['wgmma']:.1f}x faster than the "
-          f"scalar kernel on the same bf16 inputs, {times['wgmma'] / times['sdpa_bf16']:.2f}x "
+              f"{bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: "
+              f"{bound_terms(terms)}); kernel at {flops / times[route_ms] / 1e9:.2f} "
+              f"TFLOP/s, {times[route_ms] / bound_ms:.2f}x its bound")
+    print(f"  wgmma route: {times['mma_bf16'] / times['wgmma']:.2f}x faster than the "
+          f"mma kernel on the same bf16 inputs, {times['wgmma'] / times['sdpa_bf16']:.2f}x "
           f"SDPA's time, {times['wgmma'] / bounds['bfloat16'][0]:.2f}x its bound")
+    print(f"  mma route, f32: {times['sdpa_f32'] / times['mma']:.2f}x faster than SDPA f32")
     # peak memory while serving counts the model alone (fn: the last closure)
     del timed, slice_in, fn
 
+    def time_pair(fns: dict, reps: int) -> dict:
+        """Median ms of each function over three rounds in turns."""
+        got = {name: [] for name in fns}
+        for _ in range(3):
+            for name, fn in fns.items():
+                got[name].append(time_ms(torch, fn, reps))
+        return {name: statistics.median(vals) for name, vals in got.items()}
+
     # the wgmma route at head_dim 128 (chatglm3, internlm2, llava), the same
-    # B, S, H, KV: printed, not in the kernels line (no path here runs it)
-    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
-               for shape in ((B, S, H, 128), (B, S, KV, 128), (B, S, KV, 128)))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    hd128 = {"wgmma": [], "sdpa": []}
-    for _ in range(3):
-        hd128["wgmma"].append(time_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True), 100))
-        hd128["sdpa"].append(time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 100))
-    bound_ms, bound_by, flops, _ = attention_bound(q, k, v, True, 0)
-    print(f"  {(B, S, H, KV, 128)} bfloat16 causal, wgmma: kernel "
-          f"{statistics.median(hd128['wgmma']):.4f} ms, sdpa "
-          f"{statistics.median(hd128['sdpa']):.4f} ms; bound {bound_ms * 1e3:.2f} us by "
-          f"{bound_by}; kernel at {flops / statistics.median(hd128['wgmma']) / 1e9:.2f} TFLOP/s")
-    del q, k, v, qt, kt, vt
+    # B, S, H, KV, and the mma route in bf16 at the yardstick shapes, beside
+    # SDPA: printed, not in the kernels line (no path here runs them)
+    for label, shape, route_fn in (
+            ("head_dim 128, wgmma", (*SLICE_SHAPE[:4], 128), ops.flash_attention),
+            *[(f"{name}, mma", shape, fa.flash_attention_mma)
+              for name, shape in YARDSTICKS.items()]):
+        (q, k, v), (qt, kt, vt) = attention_inputs(torch, gen, dev, shape, "bfloat16")
+        pair = {"kernel": lambda: route_fn(q, k, v, causal=True),
+                "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)}
+        torch.testing.assert_close(pair["kernel"]().float(),
+                                   pair["sdpa"]().transpose(1, 2).float(),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+        got = time_pair(pair, 100)
+        bound_ms, bound_by, flops, nbytes, terms = attention_bound(q, k, v, True, 0)
+        print(f"  {label}: {shape} bfloat16 causal: kernel {got['kernel']:.4f} ms, sdpa "
+              f"{got['sdpa']:.4f} ms ({got['kernel'] / got['sdpa']:.2f}x); bound "
+              f"{bound_ms * 1e3:.2f} us by {bound_by} ({bound_terms(terms)}); kernel at "
+              f"{flops / got['kernel'] / 1e9:.2f} TFLOP/s, "
+              f"{got['kernel'] / bound_ms:.2f}x its bound")
+        del q, k, v, qt, kt, vt, pair
 
     # 4. the SSD kernel against its plain version ---------------------------
     phase("SSD kernel checks")
@@ -590,10 +645,10 @@ def main() -> int:
     flash, flash32 = check_serving(
         "llama3.2-1b",
         {fa.flash_attention: layers, fa.flash_attention_wgmma: layers,
-         fa.flash_attention_scalar: 0},
+         fa.flash_attention_mma: 0},
         dict(attention=flash_attention_ref), LOGITS_REL_TOL, f32_tol=LLAMA_F32_REL_TOL,
         want_f32={fa.flash_attention: layers, fa.flash_attention_wgmma: 0,
-                  fa.flash_attention_scalar: layers})
+                  fa.flash_attention_mma: layers})
     ssd_launches, _ = check_serving(
         "mamba2-370m", {ssd.ssd_scan: get_config("mamba2-370m").num_layers},
         dict(ssd_scan=ssd_scan_ref), SSM_BF16_REL_TOL, f32_tol=SSM_F32_REL_TOL,
@@ -614,13 +669,13 @@ def main() -> int:
         "bound_by": bounds["bfloat16"][1],
         "library_ms": times["sdpa_bf16"],
     }, {
-        "name": "flash_attention_scalar",
+        "name": "flash_attention_mma",
         "route": "cuda",
         "source": flash_source + "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
-        "launches": flash32[fa.flash_attention_scalar],
+        "launches": flash32[fa.flash_attention_mma],
         "max_abs_err": slice_err["float32"],
-        "ms": times["scalar"],
+        "ms": times["mma"],
         "plain_ms": times["plain_f32"],
         "bound_ms": bounds["float32"][0],
         "bound_by": bounds["float32"][1],

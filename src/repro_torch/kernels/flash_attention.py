@@ -5,16 +5,16 @@ Both replace ``repro/kernels/flash_attention.py:flash_attention`` (Pallas):
 
 - ``wgmma`` (``csrc/flash_attention_wgmma.cu``): TMA loads and tensor-core
   products (wgmma), for bf16 at head_dim 64 and 128;
-- ``scalar`` (``csrc/flash_attention.cu``): f32 FMAs on the CUDA cores, for
-  f32 (tensor cores would need TF32, which misses the f32 tolerance) and the
-  other head dims.
+- ``mma`` (``csrc/flash_attention.cu``): tensor-core products by mma.sync,
+  f32 as three TF32 products (3xTF32, as one misses the f32 tolerance) and
+  bf16 as one, for every other head_dim up to ``MAX_HEAD_DIM``.
 
 ``ROUTES`` picks the route from (dtype, head_dim); nothing is chosen by
 catching a failure, and a launch or build error raises. The wrappers take
 CUDA tensors only: they check them, allocate the output, launch on
 PyTorch's current stream and raise if the launch failed. Each route counts
 its own launches (``flash_attention_wgmma.launches``,
-``flash_attention_scalar.launches``); ``flash_attention.launches`` is the
+``flash_attention_mma.launches``); ``flash_attention.launches`` is the
 total.
 """
 
@@ -27,24 +27,21 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = 256  # the widest padded width the mma kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {
-    **{(torch.float32, hd): "scalar" for hd in HEAD_DIMS},
-    (torch.bfloat16, 16): "scalar",
-    (torch.bfloat16, 32): "scalar",
-    (torch.bfloat16, 64): "wgmma",
-    (torch.bfloat16, 128): "wgmma",
+    (dtype, hd): "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "mma"
+    for dtype in _DTYPES for hd in range(1, MAX_HEAD_DIM + 1)
 }
 _fns: dict[str, tuple] = {}
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that takes (dtype, head_dim): "wgmma" or "scalar"."""
+    """The kernel that takes (dtype, head_dim): "wgmma" or "mma"."""
     if dtype not in _DTYPES:
         raise TypeError(f"dtype {dtype} not in {list(_DTYPES)}")
     if (dtype, head_dim) not in ROUTES:
-        raise ValueError(f"head_dim {head_dim} not in {HEAD_DIMS}")
+        raise ValueError(f"head_dim {head_dim} outside 1..{MAX_HEAD_DIM}")
     return ROUTES[(dtype, head_dim)]
 
 
@@ -121,16 +118,16 @@ def _launch(name, symbol, err_symbol, q, k, v, strides, causal, window, softcap)
     return o, True
 
 
-def flash_attention_scalar(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """The scalar route: f32 or bf16, any head_dim of ``HEAD_DIMS``."""
+def flash_attention_mma(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The mma.sync route: f32 or bf16, any head_dim from 1 to
+    ``MAX_HEAD_DIM``."""
     _check(q, k, v)
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[-1]} not in {HEAD_DIMS}")
+    route(q.dtype, q.shape[-1])  # ValueError outside 1..MAX_HEAD_DIM
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     o, launched = _launch("flash_attention", "repro_flash_attention_fwd",
                           "repro_cuda_error_string", q, k, v, strides, causal,
                           window, softcap)
-    flash_attention_scalar.launches += int(launched)
+    flash_attention_mma.launches += int(launched)
     return o
 
 
@@ -149,7 +146,7 @@ def flash_attention_wgmma(q, k, v, *, causal=True, window=0, softcap=0.0):
     return o
 
 
-_ROUTE_FNS = {"wgmma": flash_attention_wgmma, "scalar": flash_attention_scalar}
+_ROUTE_FNS = {"wgmma": flash_attention_wgmma, "mma": flash_attention_mma}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -166,5 +163,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
-flash_attention_scalar.launches = 0
+flash_attention_mma.launches = 0
 flash_attention_wgmma.launches = 0

@@ -4,6 +4,7 @@ under ``torch.profiler``, one phase at a time.
 
     PYTHONPATH=src python -m repro_torch.launch.trace                     # llama3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.trace --arch mamba2-370m
+    PYTHONPATH=src python -m repro_torch.launch.trace --dtype float32    # llama in f32
 
 After one untraced warm-up, traces one prefill and then 8 greedy decode
 steps, each phase in its own profiler session, and prints per phase:
@@ -18,6 +19,7 @@ Needs a card; exits non-zero if the profiler records no kernel.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import re
 import sys
 import time
@@ -31,7 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.serve import make_prompts, serve
 from repro_torch.models import LM
 
-_FLASH = re.compile(r"flash_fwd_(wgmma_)?kernel")
+_FLASH = re.compile(r"flash_fwd_(wgmma|mma)_kernel")
 # the SSD scan's three passes (csrc/ssd_scan.cu)
 _SSD = re.compile(r"ssd_(chunk_state|state_pass|chunk_out)_kernel")
 _MATMUL = re.compile(r"gemm|gemv|xmma|cutlass|cublas|nvjet", re.I)
@@ -102,15 +104,19 @@ BATCH, PROMPT_LEN, DECODE_STEPS, SEED, TOP = 4, 1024, 8, 0, 8
 def main(argv=()) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    help="serve in this dtype instead of the config's")
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     cfg = get_config(args.arch)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     lm = LM(cfg, device=device)
     params = lm.init(SEED)
     B, S, n = BATCH, PROMPT_LEN, DECODE_STEPS
     prompts = torch.from_numpy(
         make_prompts(B, S, cfg.vocab_size, SEED)).to(device)
-    print(f"{cfg.name} on {torch.cuda.get_device_name(device)}: batch {B}, "
+    print(f"{cfg.name} ({cfg.dtype}) on {torch.cuda.get_device_name(device)}: batch {B}, "
           f"prompt {S}, {n} decode steps")
     serve(lm, params, prompts, 2)  # warm-up
 

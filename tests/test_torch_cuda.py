@@ -50,7 +50,16 @@ def _qkv(device, dtype, B, S, T, H, KV, hd, seed=9):
     (1, 1000, 1000, 4, 2, 64, "float32", dict(causal=True)),          # ragged
     (1, 96, 160, 4, 2, 128, "float32", dict(causal=False)),           # T != S
     (1, 64, 8, 2, 2, 16, "float32", dict(causal=True, window=4)),     # empty rows
-    (1, 128, 128, 4, 2, 32, "bfloat16", dict(causal=True)),           # bf16, scalar route
+    (1, 128, 128, 4, 2, 32, "bfloat16", dict(causal=True)),           # bf16, mma route
+    # head dims only the mma route takes: zamba2-7b's 112, h2o-danube's 120
+    *[case for hd in (112, 120) for dt in ("float32", "bfloat16") for case in (
+        (1, 1000, 1000, 4, 2, hd, dt, dict(causal=True)),             # ragged, GQA
+        (1, 256, 256, 4, 4, hd, dt, dict(causal=True, window=96)),
+        (1, 128, 128, 2, 2, hd, dt, dict(causal=True, softcap=20.0)),
+        (1, 64, 8, 2, 2, hd, dt, dict(causal=True, window=4)),         # empty rows
+    )],
+    (1, 200, 300, 4, 2, 20, "float32", dict(causal=True)),            # hd 20, T != S
+    (1, 300, 200, 4, 1, 256, "bfloat16", dict(causal=True)),          # the widest hd
     # bf16 at head_dim 64 / 128: the wgmma route
     (1, 128, 128, 4, 4, 64, "bfloat16", dict(causal=True)),           # MHA
     (2, 128, 128, 4, 2, 64, "bfloat16", dict(causal=False)),          # GQA
@@ -74,14 +83,14 @@ def test_kernel_matches_plain(cuda, B, S, T, H, KV, hd, dtype, kw):
     td = getattr(torch, dtype)
     q, k, v = _qkv(cuda, td, B, S, T, H, KV, hd)
     counters = (tfa.flash_attention, tfa.flash_attention_wgmma,
-                tfa.flash_attention_scalar)
+                tfa.flash_attention_mma)
     before = [c.launches for c in counters]
     got = tops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     route = tfa.route(td, hd)
-    assert route == ("wgmma" if dtype == "bfloat16" and hd in (64, 128) else "scalar")
+    assert route == ("wgmma" if dtype == "bfloat16" and hd in (64, 128) else "mma")
     assert [c.launches - b for c, b in zip(counters, before)] == \
-        [1, int(route == "wgmma"), int(route == "scalar")]
+        [1, int(route == "wgmma"), int(route == "mma")]
     assert got.dtype == td
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     torch.testing.assert_close(got.float(), tref(q, k, v, **kw).float(),
@@ -100,6 +109,26 @@ def test_kernel_reads_strided_layout(cuda):
     got = tops.flash_attention(q, k, v, causal=True)
     torch.testing.assert_close(got, tref(q, k, v, causal=True),
                                rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("hd", [112, 120])
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
+def test_mma_kernel_reads_strided_layout_at_wide_head_dims(cuda, hd, dtype, tol):
+    """q/k/v as views of one fused projection at zamba2-7b's and
+    h2o-danube's head dims, on the mma route."""
+    rng = np.random.default_rng(14)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (2, 130, 6 * hd), dtype=np.float32)).to(cuda, getattr(torch, dtype))
+    q = qkv[..., :4 * hd].reshape(2, 130, 4, hd)
+    k = qkv[..., 4 * hd:5 * hd].reshape(2, 130, 1, hd)
+    v = qkv[..., 5 * hd:].reshape(2, 130, 1, hd)
+    assert not q.is_contiguous()
+    before = tfa.flash_attention_mma.launches
+    got = tops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_mma.launches == before + 1
+    torch.testing.assert_close(got.float(), tref(q, k, v, causal=True).float(),
+                               rtol=tol, atol=tol)
 
 
 def test_wgmma_kernel_reads_strided_bf16_layout(cuda):
@@ -125,7 +154,7 @@ def test_wgmma_kernel_refuses_strides_tma_cannot_take(cuda):
     q, k, v = _qkv(cuda, torch.bfloat16, 1, 64, 64, 4, 4, 68)
     q, k, v = (t[..., :64] for t in (q, k, v))
     counters = (tfa.flash_attention, tfa.flash_attention_wgmma,
-                tfa.flash_attention_scalar)
+                tfa.flash_attention_mma)
     before = [c.launches for c in counters]
     with pytest.raises(ValueError, match="TMA"):
         tops.flash_attention(q, k, v)
@@ -133,9 +162,13 @@ def test_wgmma_kernel_refuses_strides_tma_cannot_take(cuda):
 
 
 def test_kernel_rejects_unsupported_head_dim(cuda):
-    q, k, v = _qkv(cuda, torch.float32, 1, 16, 16, 2, 2, 48)
-    with pytest.raises(ValueError, match="head_dim"):
+    """Every head_dim from 1 to 256 is taken; a wider one raises and
+    launches nothing."""
+    q, k, v = _qkv(cuda, torch.float32, 1, 16, 16, 2, 2, 300)
+    before = tfa.flash_attention.launches
+    with pytest.raises(ValueError, match="outside 1..256"):
         tops.flash_attention(q, k, v)
+    assert tfa.flash_attention.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -44,8 +44,8 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-def _check(seed, B, S, H, KV, hd, tol=F32_TOL, dtype="float32", **kw):
-    (jq, jk, jv), (tq, tk, tv) = _both(_qkv_np(seed, B, S, H, KV, hd), dtype)
+def _check(seed, B, S, H, KV, hd, tol=F32_TOL, dtype="float32", T=None, **kw):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv_np(seed, B, S, H, KV, hd, T=T), dtype)
     tfa.flash_attention.launches = 0
     got = tops.flash_attention(tq, tk, tv, **kw)
     assert got.dtype == tq.dtype and got.shape == tq.shape
@@ -78,6 +78,19 @@ def test_softcap():
 
 def test_bf16():
     _check(3, 1, 128, 4, 2, 32, tol=BF16_TOL, dtype="bfloat16", causal=True)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
+@pytest.mark.parametrize("B,S,H,KV,hd,T,kw", [
+    (1, 128, 4, 4, 112, None, dict(causal=True)),               # zamba2-7b's hd, MHA
+    (1, 256, 4, 2, 120, None, dict(causal=True, window=32)),    # h2o-danube's hd, GQA
+    (1, 128, 2, 2, 20, None, dict(causal=True, softcap=20.0)),  # no multiple of 8
+    (1, 96, 4, 2, 200, 160, dict(causal=False)),                # wider than 128, T != S
+])
+def test_head_dims_of_the_mma_route(B, S, H, KV, hd, T, kw, dtype, tol):
+    """Head dims that only the mma route takes on the card (any but bf16 at
+    64 / 128), held against the Pallas kernel and the oracle."""
+    _check(9, B, S, H, KV, hd, tol=tol, dtype=dtype, T=T, **kw)
 
 
 def test_block_shape_independence():
@@ -136,14 +149,16 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype,hd,want", [
-    (torch.float32, 16, "scalar"),
-    (torch.float32, 32, "scalar"),
-    (torch.float32, 64, "scalar"),   # tensor cores would need TF32
-    (torch.float32, 128, "scalar"),
-    (torch.bfloat16, 16, "scalar"),
-    (torch.bfloat16, 32, "scalar"),
+    (torch.float32, 16, "mma"),
+    (torch.float32, 32, "mma"),
+    (torch.float32, 64, "mma"),      # llama3.2-1b served in f32: 3xTF32
+    (torch.float32, 128, "mma"),
+    (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 32, "mma"),     # the training slice's tiny and 10m models
     (torch.bfloat16, 64, "wgmma"),   # llama3.2-1b
     (torch.bfloat16, 128, "wgmma"),  # chatglm3, internlm2, llava
+    *[(dtype, hd, "mma") for dtype in (torch.float32, torch.bfloat16)
+      for hd in (8, 20, 40, 112, 120, 200, 256)],  # 112: zamba2-7b, 120: h2o-danube
 ])
 def test_route_table(dtype, hd, want):
     assert tfa.route(dtype, hd) == want
@@ -151,8 +166,9 @@ def test_route_table(dtype, hd, want):
 
 
 @pytest.mark.parametrize("dtype,hd,exc,match", [
-    (torch.float32, 48, ValueError, "head_dim"),
-    (torch.bfloat16, 112, ValueError, "head_dim"),  # zamba2-7b, not taken yet
+    (torch.float32, 0, ValueError, "head_dim 0 outside 1..256"),
+    (torch.bfloat16, 257, ValueError, "head_dim 257 outside 1..256"),
+    (torch.float32, 300, ValueError, "head_dim 300 outside 1..256"),
     (torch.float16, 64, TypeError, "dtype"),
 ])
 def test_route_table_refuses(dtype, hd, exc, match):
@@ -161,13 +177,13 @@ def test_route_table_refuses(dtype, hd, exc, match):
 
 
 @pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_wgmma",
-                                "flash_attention_scalar"])
+                                "flash_attention_mma"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_wrappers_refuse_cpu_tensors(fn, dtype):
     q, k, v = (torch.from_numpy(a).to(dtype)
                for a in _qkv_np(8, 1, 16, 2, 2, 64))
     counts = {f: getattr(tfa, f).launches for f in
-              ("flash_attention", "flash_attention_wgmma", "flash_attention_scalar")}
+              ("flash_attention", "flash_attention_wgmma", "flash_attention_mma")}
     with pytest.raises(ValueError, match="CUDA"):
         getattr(tfa, fn)(q, k, v)
     assert counts == {f: getattr(tfa, f).launches for f in counts}
@@ -197,3 +213,55 @@ def test_tma_strides_refuse_what_tma_cannot_read(bad):
         match = "aligned base"
     with pytest.raises(ValueError, match=match):
         tfa.tma_strides(t)
+
+
+# ---------------------------------------------------------------------------
+# Why the f32 route splits its products (numpy, no card needed)
+# ---------------------------------------------------------------------------
+
+def _tf32_round(a):
+    """a rounded to TF32 (10 mantissa bits), to nearest, ties away from zero,
+    as the kernel rounds the high half."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(a):
+    """a as the tensor cores read an f32 operand: the low 13 bits dropped."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tc_matmul(a, b, scheme):
+    """a @ b in f32 with the operands as the tensor cores get them: one
+    TF32-rounded product ("1xtf32") or the kernel's split (hi rounded, lo =
+    a - hi read truncated) summed as lo*hi' + hi*lo' + hi*hi' ("3xtf32")."""
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    if scheme == "1xtf32":
+        return ah @ bh
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def test_attention_precision_needs_3xtf32():
+    """Causal attention at llama3.2-1b's head_dim (64), with S = 512 and the
+    inputs chip_smoke.py draws (randn), both products on the tensor cores:
+    split in three (3xTF32) the output holds the f32 tolerance (rtol = atol
+    = 2e-5) against a float64 oracle; one TF32 product per GEMM does not."""
+    S, hd = 512, 64
+    q, k, v = (a[0, :, 0] for a in _qkv_np(11, 1, S, 1, 1, hd))
+    causal = np.tril(np.ones((S, S), bool))
+
+    def attend(mm):
+        s = mm(q, k.T) * np.float32(1 / np.sqrt(hd))
+        s = np.where(causal, s, -np.inf)
+        p = np.exp(s - s.max(-1, keepdims=True))
+        return mm(p.astype(q.dtype), v) / p.sum(-1, keepdims=True)
+
+    want = attend(lambda a, b: a.astype(np.float64) @ b.astype(np.float64))
+
+    def misses(got):
+        return float((np.abs(got - want) - F32_TOL * (1 + np.abs(want))).max())
+
+    assert misses(attend(lambda a, b: _tc_matmul(a, b, "3xtf32"))) <= 0
+    assert misses(attend(lambda a, b: _tc_matmul(a, b, "1xtf32"))) > 0

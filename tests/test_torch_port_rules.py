@@ -135,12 +135,22 @@ def test_trace_needs_cuda_and_sums_busy_time(no_cuda):
     assert trace.kind_of("vectorized_elementwise_kernel") == "other"
 
 
+def test_trace_takes_a_dtype(no_cuda):
+    """--dtype float32 traces llama as chip_smoke.py serves it in f32 (the
+    mma route); it still needs a card, and refuses other types."""
+    from repro_torch.launch import trace
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trace.main(["--dtype", "float32"])
+    with pytest.raises(SystemExit):
+        trace.main(["--dtype", "float16"])
+
+
 @pytest.mark.parametrize("symbol", [
-    # the scalar route, as the profiler names it
-    "void (anonymous namespace)::flash_fwd_kernel<float, 64>(float const*, float const*, "
-    "float const*, float*, int, int, int, long long, long long, long long, long long, "
-    "long long, long long, long long, long long, long long, long long, long long, "
-    "long long, int, int, float, float)",
+    # the mma route, as the profiler names it
+    "void (anonymous namespace)::flash_fwd_mma_kernel<float, 64>((anonymous namespace)::Params)",
+    "_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_a939580c20flash_fwd_mma_kernelI13__nv_"
+    "bfloat16Li112EEEvNS_6ParamsE",
     # the wgmma route: its tensor-map arguments must not make it a matmul
     "void (anonymous namespace)::flash_fwd_wgmma_kernel<64>(CUtensorMap_st, CUtensorMap_st, "
     "CUtensorMap_st, __nv_bfloat16*, int, int, int, int, int, long long, long long, "
