@@ -7,21 +7,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. the card: nvidia-smi's name and power limit, torch's device name; TF32 off;
 2. build the CUDA kernels from the sources in this checkout (nvcc, sm_90a);
-3. hold both flash-attention routes (the wgmma kernel for bf16 at head_dim
-   64 / 128, the mma kernel for f32 and every other head_dim up to 256)
-   against their plain PyTorch version on the card at the test shapes
+3. hold the three flash-attention routes (the wgmma kernel for bf16 at
+   head_dim 64 / 128, the mma kernel for f32 and every other head_dim up to
+   256, the wide kernel above 256) against their plain PyTorch version on
+   the card at the test shapes
    (head_dim 112 and 120 included), strided views of a fused projection and
    the serving shape, each call counted on the route that the table names;
    then time both at the serving shape beside the plain version, the bound
    and, as a yardstick the port never calls,
    ``torch.nn.functional.scaled_dot_product_attention``; and the mma route
    in bf16 at the training slice's shape and at head_dim 120 and 112 beside
-   SDPA (printed only);
+   SDPA (printed only); the wide route at head_dim 512 beside its plain
+   version and SDPA;
 4. hold the SSD chunked-scan kernel (output and final state) against its
    plain version (the token-by-token recurrence) on the card at the test
    shapes, a ragged S, S < chunk and the serving shape, and again with a
    slow decay that carries the state across many chunks (the slice, 32
-   chunks, a chunk of 100, grids smaller and larger than the card); then
+   chunks, a chunk of 100, grids smaller and larger than the card), and at
+   the (P, N) the wrapper slices or pads, (128, 256) and (48, 96); then
    time it at the serving shape beside the plain version (no single
    PyTorch call computes it) and its bound, the faster of the f32 CUDA
    cores and the TF32 tensor cores at three products (3xTF32), or bytes;
@@ -35,8 +38,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
 6. the same for full-width mamba2-370m, with the SSD kernel's launches
    counted and the plain SSD scan as the comparison, a planted fault that
    the bf16 check must reject, and the checks repeated in f32;
-7. print one JSON line of per-kernel numbers;
-8. print the result line ``{"ok": true, "device": {...}}`` last.
+7. the collective path: the executor's selftest on the card; the four
+   fig_exec routes (8 ranks, 4096 f32 a shard) with their round and send
+   counts, bit for bit against the port's numpy round interpreter and
+   within 1e-5 of a plain sum; and the all-reduce of mamba2-370m's f32
+   gradient vector over a bidirectional ring of 8 ranks held in one tensor
+   on the card, bit for bit on a column sample, against ``x.sum(0)``, with
+   exact zeros off a subgroup of 5, timed beside ``x.sum(0)``;
+8. print one JSON line of per-kernel numbers;
+9. print the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of jax or of the JAX package ``repro``.
 """
@@ -133,6 +143,9 @@ CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
     )],
     (1, 200, 300, 4, 2, 20, "float32", dict(causal=True)),            # hd 20, T != S
     (1, 300, 200, 4, 1, 256, "bfloat16", dict(causal=True)),          # the widest hd
+    # head dims above 256: the wide route
+    *[(1, 300, 300, 4, 2, hd, dt, kw) for hd in (320, 512) for dt in ("float32", "bfloat16")
+      for kw in (dict(causal=True, window=96, softcap=20.0), dict(causal=True))],
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
      "float32", dict(causal=True)),                                   # the slice, f32
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
@@ -152,6 +165,9 @@ YARDSTICKS = {
     "zamba2-7b's head_dim": (SERVE_BATCH, SERVE_PROMPT, 32, 32, 112),
 }
 
+# the wide route, timed beside its plain version and SDPA (causal): B, S, H, KV, hd
+WIDE_SHAPE = (2, 1024, 8, 2, 512)
+
 SSD_SLICE = (SERVE_BATCH, SERVE_PROMPT, 32, 64, 128, 128)  # B, S, H, P, N, chunk
 SSD_CASES = [  # B, S, H, P, N, chunk, slow decay
     (1, 64, 2, 16, 8, 16, False),       # tests/test_kernels.py's shapes
@@ -170,7 +186,24 @@ SSD_CASES = [  # B, S, H, P, N, chunk, slow decay
     (2, 1000, 4, 64, 128, 100, True),   # chunk no multiple of 16, ragged
     (1, 256, 4, 64, 128, 128, True),    # fewer blocks than SMs
     (2, 2048, 32, 64, 128, 128, True),  # more blocks than SMs
+    # sizes the kernel is not built for: P and N sliced or padded, chunk cut
+    *[(1, 300, 4, P, N, chunk, slow) for P, N in ((128, 256), (48, 96))
+      for chunk, slow in ((128, False), (256, True))],
 ]
+
+# the collective phase: BENCH_synthesis.json's fig_exec rows
+# (benchmarks/exec_mesh.py's cases), tag -> (fabric, kind, request
+# keywords, rounds, sends), 8 ranks, EXEC_PAYLOAD f32 a shard
+FIG_EXEC = {
+    "ag_ring8": ("ring8", "all_gather", {"hierarchy": "never"}, 8, 56),
+    "rs_ring8": ("ring8", "reduce_scatter", {"hierarchy": "never"}, 8, 56),
+    "ar_hier8": ("grid23", "all_reduce", {"hierarchy": "always", "pipelined": True}, 18, 112),
+    "a2a_mp8": ("mp222", "all_to_all", {"hierarchy": "always"}, 27, 96),
+}
+EXEC_RANKS, EXEC_PAYLOAD = 8, 4096
+EXEC_TOL = 1e-5  # the conformance suite's tolerance for reductions
+SUBGROUP = (0, 2, 3, 5, 6)  # a strict subgroup of 5 of the 8 ranks
+SAMPLE_COLS = 4096  # columns of each chunk held bit for bit against numpy
 
 
 def fail(msg: str) -> None:
@@ -301,6 +334,191 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def exec_reference(kind: str, group, x):
+    """The conformance suite's plain numpy reference of a stacked
+    collective (tests/_exec_harness.py:reference): zeros off the group."""
+    import numpy as np
+
+    gl = list(group)
+    if kind == "all_gather":
+        out = np.zeros((x.shape[0], len(gl)) + x.shape[1:], x.dtype)
+        out[gl] = x[gl]
+    elif kind == "reduce_scatter":
+        out = np.zeros((x.shape[0],) + x.shape[2:], x.dtype)
+        for i, d in enumerate(gl):
+            out[d] = x[gl, i].sum(axis=0)
+    elif kind == "all_reduce":
+        out = np.zeros_like(x)
+        out[gl] = x[gl].sum(axis=0)
+    else:
+        out = np.zeros((x.shape[0], len(gl)) + x.shape[2:], x.dtype)
+        for i, d in enumerate(gl):
+            out[d] = x[gl, i]
+    return out
+
+
+def executor_bytes(plan, chunk_bytes: int) -> int:
+    """Bytes the stacked executor's rounds move: per send, the gather of the
+    sent chunk (read, write) and its write at the receiver (copy: read,
+    write; reduce: read, read, write); per non-receiver, the zeros written
+    to its trash slot."""
+    total = 0
+    for rt in plan.rounds:
+        dst = [d for _, d in rt.perm]
+        reduce = int(rt.is_reduce[dst].sum()) if dst else 0
+        total += (2 * len(dst) + 2 * (len(dst) - reduce) + 3 * reduce
+                  + int((~rt.is_recv).sum())) * chunk_bytes
+    return total
+
+
+def count_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return tree.numel()
+
+
+def collective_phase(torch, dev, get_config, LM) -> None:
+    """The executor's selftest, the fig_exec routes and the all-reduce of
+    mamba2-370m's gradient vector, on the stacked backend on the card."""
+    import numpy as np
+
+    from repro_torch.comms import executor, primitives, selftest
+    from repro_torch.core import CollectiveRequest
+    from repro_torch.launch import trace
+    from repro_torch.topology import ring
+    from repro_torch.topology.generators import grid_hypercube, multi_pod
+
+    phase("collectives")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    selftest.main([])
+
+    fabrics = {"ring8": ring(8, bidirectional=True), "grid23": grid_hypercube(2, 3),
+               "mp222": multi_pod(2, 2, 2, unit_links=True, dci_ports_per_pod=2)}
+    n = EXEC_RANKS
+    for tag, (fabric, kind, kw, rounds, sends) in FIG_EXEC.items():
+        topo = fabrics[fabric]
+        req = CollectiveRequest(kind, group=tuple(range(n)), **kw)
+        prog, plan = primitives.synthesize_program(topo, req)
+        if (prog.num_rounds, prog.num_sends) != (rounds, sends):
+            fail(f"{tag}: {prog.num_rounds} rounds and {prog.num_sends} sends, "
+                 f"want {rounds} and {sends} (BENCH_synthesis.json)")
+        rng = np.random.default_rng(42)
+        shape = {"all_gather": (n, EXEC_PAYLOAD),
+                 "all_reduce": (n, n * EXEC_PAYLOAD)}.get(kind, (n, n, EXEC_PAYLOAD))
+        x = rng.standard_normal(shape).astype(np.float32)
+        fn = getattr(primitives, f"pccl_{kind}")
+        xd = torch.from_numpy(x).to(dev)
+        got = fn(xd, topo, req).cpu().numpy()
+        interp = primitives.interpret_collective(kind, x, topo, req)
+        if not np.array_equal(got.view(np.uint32), interp.view(np.uint32)):
+            fail(f"{tag}: the card's result differs from the numpy round interpreter")
+        want = exec_reference(kind, range(n), x)
+        err = float(np.abs(got - want).max())
+        exact = kind in ("all_gather", "all_to_all")
+        if not (np.array_equal(got, want) if exact else
+                np.allclose(got, want, rtol=EXEC_TOL, atol=EXEC_TOL)):
+            fail(f"{tag}: the result misses the plain reference (max abs err {err:.3g})")
+        ms = statistics.median(time_ms(torch, lambda: fn(xd, topo, req), 20) for _ in range(3))
+        print(f"  {tag}: {prog.num_rounds} rounds, {prog.num_sends} sends, "
+              f"{plan.buffer_slots} slots a rank; bit-equal to the numpy interpreter; "
+              f"max abs err vs the plain reference {err:.3g} "
+              f"({'exact' if exact else f'tol {EXEC_TOL}'}); {ms:.4f} ms a call")
+
+    # the f32 gradient vector of an 8-rank data-parallel mamba2-370m step:
+    # every parameter and the loss, padded to a multiple of the ranks
+    cfg = get_config("mamba2-370m")
+    params = LM(cfg, device=dev).init(0)
+    nparams = count_params(params)
+    del params
+    D = -(-(nparams + 1) // n) * n
+    topo = fabrics["ring8"]
+    req = CollectiveRequest("all_reduce", group=tuple(range(n)))
+    prog, plan = primitives.synthesize_program(topo, req)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((n, D), generator=gen, device=dev)
+    print(f"  mamba2-370m: {nparams} parameters + the loss -> D = {D} f32 "
+          f"({D * 4 / 1e9:.3f} GB a rank, {n} ranks in one tensor)")
+
+    def check_all_reduce(x, group, label):
+        """Run once, then: a column sample of every chunk bit for bit
+        against the numpy interpreter, members within EXEC_TOL of the sum,
+        non-members exact zeros."""
+        sub_req = CollectiveRequest("all_reduce", group=tuple(group))
+        out = primitives.pccl_all_reduce(x, topo, sub_req)
+        L = x.shape[1] // len(group)
+        cols = np.sort(np.random.default_rng(2).choice(L, SAMPLE_COLS, replace=False))
+        idx = torch.from_numpy((np.arange(len(group))[:, None] * L + cols).reshape(-1)).to(dev)
+        x_s = x.index_select(1, idx).cpu().numpy()
+        got_s = out.index_select(1, idx).cpu().numpy()
+        interp = primitives.interpret_collective("all_reduce", x_s, topo, sub_req)
+        if not np.array_equal(got_s.view(np.uint32), interp.view(np.uint32)):
+            fail(f"{label}: the card's result differs from the numpy interpreter on "
+                 f"the column sample")
+        total = x[group[0]].clone()  # x[group].sum(0) without a copy of x[group]
+        for d in group[1:]:
+            total += x[d]
+        err = 0.0
+        for d in range(n):
+            if d in group:
+                diff = (out[d] - total).abs()
+                err = max(err, float(diff.max()))
+                if not bool((diff <= EXEC_TOL + EXEC_TOL * total.abs()).all()):
+                    fail(f"{label}: rank {d} misses x[group].sum(0) (max abs err {err:.3g})")
+            elif bool(out[d].view(torch.int32).any()):
+                fail(f"{label}: rank {d} is outside the group and was not left at zero")
+        print(f"  {label}: bit-equal to the numpy interpreter on {SAMPLE_COLS} columns of "
+              f"each of {len(group)} chunks; max abs err vs x[group].sum(0) {err:.3g} "
+              f"(tol {EXEC_TOL}); ranks outside the group exact zeros")
+        del out, total
+
+    check_all_reduce(x, tuple(range(n)), "all-reduce, 8 of 8 ranks")
+    # one call under the profiler: its kernels and where their time goes
+    # (trace.traced raises if the profiler sees no kernel on the card)
+    traced = trace.traced(lambda: primitives.pccl_all_reduce(x, topo, req), dev)
+    launches = traced["launches"]
+    print(f"  all-reduce traced: wall {traced['wall_us'] / 1e3:.3f} ms, device busy "
+          f"{traced['busy_us'] / 1e3:.3f} ms (idle {1 - traced['busy_us'] / traced['wall_us']:.1%}), "
+          f"{launches} kernels; by kernel:")
+    for name, us in sorted(traced["by_name"].items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {us / 1e3:9.3f} ms  {name[:110]}")
+    timed = {"pccl": lambda: primitives.pccl_all_reduce(x, topo, req),
+             "sum": lambda: x.sum(0)}
+    got = {name: [] for name in timed}
+    for _ in range(3):  # in turns
+        for name, fn in timed.items():
+            got[name].append(time_ms(torch, fn, 3))
+    got = {name: statistics.median(v) for name, v in got.items()}
+    chunk_bytes = D // n * 4
+    rounds_bytes = executor_bytes(plan, chunk_bytes)
+    # the call beside its rounds: zeros for the buffer, the input put in
+    # (read, write), the output gathered (read, write) and masked (read, write)
+    call_bytes = rounds_bytes + (n * plan.buffer_slots + 6 * n * n) * chunk_bytes
+    io_bytes = 2 * n * D * 4  # the function's bound: x read once, the output written once
+    print(f"  all-reduce over ring(8, bidirectional): {prog.num_rounds} rounds, "
+          f"{prog.num_sends} sends, {plan.buffer_slots} slots a rank, {launches} kernels "
+          f"a call")
+    print(f"  all-reduce: {got['pccl']:.3f} ms a call (median of 3 rounds of 3, CUDA "
+          f"events); x.sum(0) {got['sum']:.3f} ms; the rounds move {rounds_bytes / 1e9:.3f} GB "
+          f"({rounds_bytes / PEAK_BYTES * 1e3:.3f} ms at {PEAK_BYTES / 1e12:.2f} TB/s), the "
+          f"call {call_bytes / 1e9:.3f} GB ({call_bytes / PEAK_BYTES * 1e3:.3f} ms); bound "
+          f"{io_bytes / PEAK_BYTES * 1e3:.3f} ms by bytes ({io_bytes / 1e9:.3f} GB in and out); "
+          f"the call at {got['pccl'] / (io_bytes / PEAK_BYTES * 1e3):.2f}x its bound, "
+          f"{call_bytes / got['pccl'] / 1e9:.3f} TB/s of modelled traffic")
+    # a strict subgroup: the same memory, rows of a length the 5 chunks divide
+    D5 = D - D % len(SUBGROUP)
+    check_all_reduce(x.view(-1)[:n * D5].view(n, D5), SUBGROUP,
+                     f"all-reduce, subgroup {SUBGROUP} of 8 ranks")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"collectives: all_reduce_ms={got['pccl']:.3f} sum_ms={got['sum']:.3f} "
+          f"rounds_bytes={rounds_bytes} call_bytes={call_bytes} "
+          f"bound_ms={io_bytes / PEAK_BYTES * 1e3:.3f} launches={launches} "
+          f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
+    del x, timed
+    executor.clear_plan_cache()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -347,7 +565,8 @@ def main() -> int:
     # 3. both flash routes against their plain version ---------------------
     phase("kernel checks")
     gen = torch.Generator(device=dev).manual_seed(0)
-    routes = {"wgmma": fa.flash_attention_wgmma, "mma": fa.flash_attention_mma}
+    routes = {"wgmma": fa.flash_attention_wgmma, "mma": fa.flash_attention_mma,
+              "wide": fa.flash_attention_wide}
 
     def fused_qkv(B, S, H, KV, hd, dtype):
         qkv = torch.randn((B, S, (H + 2 * KV) * hd), generator=gen, device=dev).to(dtype)
@@ -464,6 +683,32 @@ def main() -> int:
               f"{flops / got['kernel'] / 1e9:.2f} TFLOP/s, "
               f"{got['kernel'] / bound_ms:.2f}x its bound")
         del q, k, v, qt, kt, vt, pair
+
+    # the wide route (head_dim above 256) beside its plain version and SDPA:
+    # f32 goes to the kernels line, bf16 is printed
+    wide = {}
+    for dt in ("float32", "bfloat16"):
+        (q, k, v), (qt, kt, vt) = attention_inputs(torch, gen, dev, WIDE_SHAPE, dt)
+        fns = {"kernel": lambda: fa.flash_attention_wide(q, k, v, causal=True),
+               "plain": lambda: flash_attention_ref(q, k, v, causal=True),
+               "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True)}
+        got = fns["kernel"]()
+        err, ok = compare(got, fns["plain"](), F32_TOL if dt == "float32" else BF16_TOL)
+        if not ok:
+            fail(f"the wide kernel disagrees with its plain version at {WIDE_SHAPE} {dt}")
+        torch.testing.assert_close(got.float(), fns["sdpa"]().transpose(1, 2).float(),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+        got = time_pair(fns, 5)
+        bound = attention_bound(q, k, v, True, 0)
+        print(f"  wide route: {WIDE_SHAPE} {dt} causal: kernel {got['kernel']:.4f} ms, plain "
+              f"{got['plain']:.4f} ms, sdpa {got['sdpa']:.4f} ms "
+              f"({got['kernel'] / got['sdpa']:.2f}x SDPA); max_abs_err {err:.3g}; bound "
+              f"{bound[0] * 1e3:.2f} us by {bound[1]} ({bound_terms(bound[4])}); kernel at "
+              f"{bound[2] / got['kernel'] / 1e9:.2f} TFLOP/s, {got['kernel'] / bound[0]:.2f}x "
+              f"its bound")
+        wide[dt] = dict(got, err=err, bound=bound)
+        del q, k, v, qt, kt, vt, fns
 
     # 4. the SSD kernel against its plain version ---------------------------
     phase("SSD kernel checks")
@@ -645,16 +890,19 @@ def main() -> int:
     flash, flash32 = check_serving(
         "llama3.2-1b",
         {fa.flash_attention: layers, fa.flash_attention_wgmma: layers,
-         fa.flash_attention_mma: 0},
+         fa.flash_attention_mma: 0, fa.flash_attention_wide: 0},
         dict(attention=flash_attention_ref), LOGITS_REL_TOL, f32_tol=LLAMA_F32_REL_TOL,
         want_f32={fa.flash_attention: layers, fa.flash_attention_wgmma: 0,
-                  fa.flash_attention_mma: layers})
+                  fa.flash_attention_mma: layers, fa.flash_attention_wide: 0})
     ssd_launches, _ = check_serving(
         "mamba2-370m", {ssd.ssd_scan: get_config("mamba2-370m").num_layers},
         dict(ssd_scan=ssd_scan_ref), SSM_BF16_REL_TOL, f32_tol=SSM_F32_REL_TOL,
         fault_kw=dict(ssd_scan=diagonal_dropped(ops.ssd_scan)))
 
-    # 7. per-kernel numbers -------------------------------------------------
+    # 7. the collective path -------------------------------------------------
+    collective_phase(torch, dev, get_config, LM)
+
+    # 8. per-kernel numbers -------------------------------------------------
     flash_source = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
         "name": "flash_attention_wgmma",
@@ -681,6 +929,18 @@ def main() -> int:
         "bound_by": bounds["float32"][1],
         "library_ms": times["sdpa_f32"],
     }, {
+        "name": "flash_attention_wide",
+        "route": "cuda",
+        "source": flash_source + "flash_attention_wide.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29",
+        "launches": flash32[fa.flash_attention_wide],
+        "max_abs_err": wide["float32"]["err"],
+        "ms": wide["float32"]["kernel"],
+        "plain_ms": wide["float32"]["plain"],
+        "bound_ms": wide["float32"]["bound"][0],
+        "bound_by": wide["float32"]["bound"][1],
+        "library_ms": wide["float32"]["sdpa"],
+    }, {
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -693,7 +953,7 @@ def main() -> int:
         "bound_by": ssd_bound_by,
         "library_ms": None,
     }]}))
-    # 8. result --------------------------------------------------------------
+    # 9. result --------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,4 +1,4 @@
-"""Wrappers of the two CUDA flash-attention forward kernels, and the table
+"""Wrappers of the three CUDA flash-attention forward kernels, and the table
 that routes a call to one of them.
 
 Both replace ``repro/kernels/flash_attention.py:flash_attention`` (Pallas):
@@ -7,15 +7,18 @@ Both replace ``repro/kernels/flash_attention.py:flash_attention`` (Pallas):
   products (wgmma), for bf16 at head_dim 64 and 128;
 - ``mma`` (``csrc/flash_attention.cu``): tensor-core products by mma.sync,
   f32 as three TF32 products (3xTF32, as one misses the f32 tolerance) and
-  bf16 as one, for every other head_dim up to ``MAX_HEAD_DIM``.
+  bf16 as one, for every other head_dim up to ``MAX_HEAD_DIM``;
+- ``wide`` (``csrc/flash_attention_wide.cu``): f32 FMAs, scores summed over
+  head_dim slices staged in shared memory, for every head_dim above
+  ``MAX_HEAD_DIM``, f32 and bf16 (the reference's kernel takes any).
 
 ``ROUTES`` picks the route from (dtype, head_dim); nothing is chosen by
 catching a failure, and a launch or build error raises. The wrappers take
 CUDA tensors only: they check them, allocate the output, launch on
 PyTorch's current stream and raise if the launch failed. Each route counts
 its own launches (``flash_attention_wgmma.launches``,
-``flash_attention_mma.launches``); ``flash_attention.launches`` is the
-total.
+``flash_attention_mma.launches``, ``flash_attention_wide.launches``);
+``flash_attention.launches`` is the total.
 """
 
 from __future__ import annotations
@@ -29,20 +32,34 @@ from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 256  # the widest padded width the mma kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = {
+
+
+class _RouteTable(dict):
+    """(dtype, head_dim) -> route: listed up to ``MAX_HEAD_DIM``; every
+    wider head_dim of a taken dtype is "wide"."""
+
+    def __missing__(self, key):
+        dtype, hd = key
+        if dtype in _DTYPES and isinstance(hd, int) and hd > MAX_HEAD_DIM:
+            return "wide"
+        raise KeyError(key)
+
+
+ROUTES = _RouteTable({
     (dtype, hd): "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "mma"
     for dtype in _DTYPES for hd in range(1, MAX_HEAD_DIM + 1)
-}
+})
 _fns: dict[str, tuple] = {}
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that takes (dtype, head_dim): "wgmma" or "mma"."""
+    """The kernel that takes (dtype, head_dim): "wgmma", "mma" or "wide"."""
     if dtype not in _DTYPES:
         raise TypeError(f"dtype {dtype} not in {list(_DTYPES)}")
-    if (dtype, head_dim) not in ROUTES:
-        raise ValueError(f"head_dim {head_dim} outside 1..{MAX_HEAD_DIM}")
-    return ROUTES[(dtype, head_dim)]
+    try:
+        return ROUTES[(dtype, head_dim)]
+    except KeyError:
+        raise ValueError(f"head_dim {head_dim} is not a positive integer") from None
 
 
 def _kernel(name: str, symbol: str, err_symbol: str):
@@ -122,12 +139,27 @@ def flash_attention_mma(q, k, v, *, causal=True, window=0, softcap=0.0):
     """The mma.sync route: f32 or bf16, any head_dim from 1 to
     ``MAX_HEAD_DIM``."""
     _check(q, k, v)
-    route(q.dtype, q.shape[-1])  # ValueError outside 1..MAX_HEAD_DIM
+    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {q.shape[-1]} outside 1..{MAX_HEAD_DIM}")
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     o, launched = _launch("flash_attention", "repro_flash_attention_fwd",
                           "repro_cuda_error_string", q, k, v, strides, causal,
                           window, softcap)
     flash_attention_mma.launches += int(launched)
+    return o
+
+
+def flash_attention_wide(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The route for head_dims above ``MAX_HEAD_DIM``: f32 or bf16."""
+    _check(q, k, v)
+    if route(q.dtype, q.shape[-1]) != "wide":
+        raise ValueError(f"the wide kernel takes head_dims above {MAX_HEAD_DIM}, "
+                         f"not {q.shape[-1]}")
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    o, launched = _launch("flash_attention_wide", "repro_flash_attention_wide_fwd",
+                          "repro_wide_cuda_error_string", q, k, v, strides, causal,
+                          window, softcap)
+    flash_attention_wide.launches += int(launched)
     return o
 
 
@@ -146,7 +178,8 @@ def flash_attention_wgmma(q, k, v, *, causal=True, window=0, softcap=0.0):
     return o
 
 
-_ROUTE_FNS = {"wgmma": flash_attention_wgmma, "mma": flash_attention_mma}
+_ROUTE_FNS = {"wgmma": flash_attention_wgmma, "mma": flash_attention_mma,
+              "wide": flash_attention_wide}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -165,3 +198,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention_mma.launches = 0
 flash_attention_wgmma.launches = 0
+flash_attention_wide.launches = 0

@@ -33,15 +33,15 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.serve import make_prompts, serve
 from repro_torch.models import LM
 
-_FLASH = re.compile(r"flash_fwd_(wgmma|mma)_kernel")
+_FLASH = re.compile(r"flash_fwd_(wgmma|mma|wide)_kernel")
 # the SSD scan's three passes (csrc/ssd_scan.cu)
 _SSD = re.compile(r"ssd_(chunk_state|state_pass|chunk_out)_kernel")
 _MATMUL = re.compile(r"gemm|gemv|xmma|cutlass|cublas|nvjet", re.I)
 
 
 def kind_of(kernel: str) -> str:
-    """The port's own kernels by symbol (both flash routes, the SSD scan's
-    passes), before the library products, whose names a kernel's template
+    """The port's own kernels by symbol (the three flash routes, the SSD
+    scan's passes), before the library products, whose names a kernel's template
     arguments may also contain."""
     if _FLASH.search(kernel):
         return "flash_attention"

@@ -78,19 +78,27 @@ def _qkv(device, dtype, B, S, T, H, KV, hd, seed=9):
     (4, 512, 8, 32, 8, 64, "bfloat16", dict(causal=True, window=4)),
     (3, 1000, 1000, 16, 4, 128, "bfloat16", dict(causal=True, softcap=20.0)),
     (4, 1024, 1024, 32, 8, 64, "bfloat16", dict(causal=True)),        # the slice
+    # head_dims above 256: the wide route
+    *[case for hd in (320, 512) for dt in ("float32", "bfloat16") for case in (
+        (1, 300, 300, 4, 2, hd, dt, dict(causal=True, window=96, softcap=20.0)),
+        (1, 96, 160, 4, 2, hd, dt, dict(causal=False)),             # T != S
+        (1, 64, 8, 2, 2, hd, dt, dict(causal=True, window=4)),       # empty rows
+    )],
+    (1, 40, 40, 2, 1, 257, "float32", dict(causal=True)),
 ])
 def test_kernel_matches_plain(cuda, B, S, T, H, KV, hd, dtype, kw):
     td = getattr(torch, dtype)
     q, k, v = _qkv(cuda, td, B, S, T, H, KV, hd)
     counters = (tfa.flash_attention, tfa.flash_attention_wgmma,
-                tfa.flash_attention_mma)
+                tfa.flash_attention_mma, tfa.flash_attention_wide)
     before = [c.launches for c in counters]
     got = tops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     route = tfa.route(td, hd)
-    assert route == ("wgmma" if dtype == "bfloat16" and hd in (64, 128) else "mma")
+    assert route == ("wide" if hd > 256 else
+                     "wgmma" if dtype == "bfloat16" and hd in (64, 128) else "mma")
     assert [c.launches - b for c, b in zip(counters, before)] == \
-        [1, int(route == "wgmma"), int(route == "mma")]
+        [1, int(route == "wgmma"), int(route == "mma"), int(route == "wide")]
     assert got.dtype == td
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     torch.testing.assert_close(got.float(), tref(q, k, v, **kw).float(),
@@ -162,13 +170,34 @@ def test_wgmma_kernel_refuses_strides_tma_cannot_take(cuda):
 
 
 def test_kernel_rejects_unsupported_head_dim(cuda):
-    """Every head_dim from 1 to 256 is taken; a wider one raises and
-    launches nothing."""
-    q, k, v = _qkv(cuda, torch.float32, 1, 16, 16, 2, 2, 300)
+    """Every head_dim from 1 up is taken; 0 raises and launches nothing, and
+    the mma route alone refuses one above 256."""
+    q, k, v = _qkv(cuda, torch.float32, 1, 16, 16, 2, 2, 0)
     before = tfa.flash_attention.launches
-    with pytest.raises(ValueError, match="outside 1..256"):
+    with pytest.raises(ValueError, match="head_dim 0"):
         tops.flash_attention(q, k, v)
     assert tfa.flash_attention.launches == before
+    q, k, v = _qkv(cuda, torch.float32, 1, 16, 16, 2, 2, 300)
+    with pytest.raises(ValueError, match="outside 1..256"):
+        tfa.flash_attention_mma(q, k, v)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
+def test_wide_kernel_reads_strided_layout(cuda, dtype, tol):
+    """q/k/v at head_dim 320 as views of one fused projection."""
+    hd = 320
+    rng = np.random.default_rng(15)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (2, 70, 6 * hd), dtype=np.float32)).to(cuda, getattr(torch, dtype))
+    q = qkv[..., :4 * hd].reshape(2, 70, 4, hd)
+    k = qkv[..., 4 * hd:5 * hd].reshape(2, 70, 1, hd)
+    v = qkv[..., 5 * hd:].reshape(2, 70, 1, hd)
+    before = tfa.flash_attention_wide.launches
+    got = tops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_wide.launches == before + 1
+    torch.testing.assert_close(got.float(), tref(q, k, v, causal=True).float(),
+                               rtol=tol, atol=tol)
 
 
 # ---------------------------------------------------------------------------
@@ -203,13 +232,18 @@ def _ssd_inputs(device, B, S, H, P, N, seed=11, slow=False):
     (2, 1000, 4, 64, 128, 100, True),   # chunk no multiple of 16, ragged
     (1, 256, 4, 64, 128, 128, True),    # fewer blocks than SMs
     (2, 2048, 32, 64, 128, 128, True),  # more blocks than SMs
+    # sizes the kernel is not built for: sliced and padded by the wrapper
+    *[(1, 300, 4, P, N, chunk, slow) for P, N in ((128, 256), (48, 96))
+      for chunk, slow in ((128, False), (256, True))],
+    (2, 100, 2, 8, 4, 40, True),
 ])
 def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, slow):
     xh, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, P, N, slow=slow)
     before = tssd.ssd_scan.launches
     got, state = tops.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, return_state=True)
     torch.cuda.synchronize()
-    assert tssd.ssd_scan.launches == before + 1
+    p_cuts, n_cuts, _ = tssd.slice_plan(P, N, chunk)
+    assert tssd.ssd_scan.launches == before + len(p_cuts) * len(n_cuts)
     want, want_state = ssd_scan_ref(xh, dt, A, Bm, Cm, return_state=True)
     torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
     torch.testing.assert_close(state, want_state, rtol=SSD_TOL, atol=SSD_TOL)
@@ -231,12 +265,43 @@ def test_ssd_kernel_reads_strided_layout(cuda):
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    """Any P, N and chunk are taken (sliced or padded); other types, a
+    tensor off the card and a chunk of 0 raise."""
     xh, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 16, 2, 16, 8)
     with pytest.raises(TypeError, match="float32"):
         tssd.ssd_scan(xh.bfloat16(), dt, A, Bm, Cm)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tssd.ssd_scan(xh, dt, A.cpu(), Bm, Cm)
-    with pytest.raises(ValueError, match="head_dim"):
-        tssd.ssd_scan(xh[..., :8], dt, A, Bm, Cm)
     with pytest.raises(ValueError, match="chunk"):
-        tssd.ssd_scan(xh, dt, A, Bm, Cm, chunk=256)
+        tssd.ssd_scan(xh, dt, A, Bm, Cm, chunk=0)
+    got = tssd.ssd_scan(xh[..., :8], dt, A, Bm, Cm, chunk=256)
+    torch.testing.assert_close(got, ssd_scan_ref(xh[..., :8], dt, A, Bm, Cm),
+                               rtol=SSD_TOL, atol=SSD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the collective executor's stacked backend
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["all_gather", "reduce_scatter", "all_reduce", "all_to_all"])
+@pytest.mark.parametrize("fabric", ["ring8", "mp222"])
+def test_stacked_collective_on_card_equals_cpu(cuda, fabric, kind):
+    """Every step of a round is an elementwise f32 copy or add in the
+    program's order, so the card gives the CPU's bits."""
+    from repro_torch.comms import primitives
+    from repro_torch.core import CollectiveRequest
+    from repro_torch.topology import ring
+    from repro_torch.topology.generators import multi_pod
+
+    topo = (ring(8, bidirectional=True) if fabric == "ring8" else
+            multi_pod(2, 2, 2, unit_links=True, dci_ports_per_pod=2))
+    req = CollectiveRequest(kind, group=tuple(range(8)),
+                            hierarchy="never" if fabric == "ring8" else "always")
+    rng = np.random.default_rng(16)
+    shape = {"all_gather": (8, 1000), "all_reduce": (8, 8 * 1000)}.get(kind, (8, 8, 1000))
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    fn = getattr(primitives, f"pccl_{kind}")
+    want = fn(x, topo, req)
+    got = fn(x.to(cuda), topo, req)
+    assert got.is_cuda
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))

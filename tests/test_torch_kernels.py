@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from _torch_cpu import one_torch_thread  # noqa: E402, F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -159,6 +161,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     (torch.bfloat16, 128, "wgmma"),  # chatglm3, internlm2, llava
     *[(dtype, hd, "mma") for dtype in (torch.float32, torch.bfloat16)
       for hd in (8, 20, 40, 112, 120, 200, 256)],  # 112: zamba2-7b, 120: h2o-danube
+    # above 256: the wide kernel, as the reference's kernel takes any head_dim
+    *[(dtype, hd, "wide") for dtype in (torch.float32, torch.bfloat16)
+      for hd in (257, 300, 320, 512, 4096)],
 ])
 def test_route_table(dtype, hd, want):
     assert tfa.route(dtype, hd) == want
@@ -166,10 +171,11 @@ def test_route_table(dtype, hd, want):
 
 
 @pytest.mark.parametrize("dtype,hd,exc,match", [
-    (torch.float32, 0, ValueError, "head_dim 0 outside 1..256"),
-    (torch.bfloat16, 257, ValueError, "head_dim 257 outside 1..256"),
-    (torch.float32, 300, ValueError, "head_dim 300 outside 1..256"),
+    (torch.float32, 0, ValueError, "head_dim 0 is not a positive integer"),
+    (torch.bfloat16, 0, ValueError, "head_dim 0 is not a positive integer"),
+    (torch.float32, -3, ValueError, "head_dim -3 is not a positive integer"),
     (torch.float16, 64, TypeError, "dtype"),
+    (torch.float16, 300, TypeError, "dtype"),
 ])
 def test_route_table_refuses(dtype, hd, exc, match):
     with pytest.raises(exc, match=match):
@@ -177,13 +183,14 @@ def test_route_table_refuses(dtype, hd, exc, match):
 
 
 @pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_wgmma",
-                                "flash_attention_mma"])
+                                "flash_attention_mma", "flash_attention_wide"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_wrappers_refuse_cpu_tensors(fn, dtype):
     q, k, v = (torch.from_numpy(a).to(dtype)
                for a in _qkv_np(8, 1, 16, 2, 2, 64))
     counts = {f: getattr(tfa, f).launches for f in
-              ("flash_attention", "flash_attention_wgmma", "flash_attention_mma")}
+              ("flash_attention", "flash_attention_wgmma", "flash_attention_mma",
+               "flash_attention_wide")}
     with pytest.raises(ValueError, match="CUDA"):
         getattr(tfa, fn)(q, k, v)
     assert counts == {f: getattr(tfa, f).launches for f in counts}

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from _torch_cpu import one_torch_thread  # noqa: E402, F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

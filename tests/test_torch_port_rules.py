@@ -38,6 +38,61 @@ def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "transformer.py", "ops.py", "serve.py", "ssm.py",
             "ssd_scan.py", "mamba2_370m.py"} <= names
+    rel = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
+    assert {f"core/{m}.py" for m in COPIED["core"]} <= rel
+    assert {f"topology/{m}.py" for m in COPIED["topology"]} <= rel
+    assert {"core/__init__.py", "topology/__init__.py", "comms/__init__.py",
+            "comms/executor.py", "comms/primitives.py", "comms/selftest.py"} <= rel
+
+
+# the planner modules the port copies from the reference, by package
+COPIED = {
+    "topology": ("topology", "generators"),
+    "core": ("errors", "conditions", "request", "algorithm", "ten", "pathfinding",
+             "registry", "serialize", "translate", "traffic", "hierarchy", "engine"),
+}
+FIX_BEGIN, FIX_END = "# >>> copy fix: _store_disk race", "# <<< copy fix"
+
+
+def _normalised(text: str) -> list[str]:
+    """Lines with the package name of import lines made the reference's."""
+    out = []
+    for line in text.splitlines():
+        stripped = line.lstrip()
+        if stripped.startswith(("from repro_torch", "import repro_torch")):
+            line = line.replace("repro_torch", "repro", 1)
+        out.append(line)
+    return out
+
+
+def _cut(lines: list[str], first: str, last: str) -> tuple[list[str], list[str]]:
+    """(lines without the span from the line holding ``first`` to the line
+    holding ``last``, both included; the span)."""
+    i = next(k for k, line in enumerate(lines) if first in line)
+    j = next(k for k, line in enumerate(lines) if k >= i and last in line)
+    return lines[:i] + lines[j + 1:], lines[i:j + 1]
+
+
+@pytest.mark.parametrize("rel", [f"{pkg}/{m}.py" for pkg, mods in COPIED.items()
+                                 for m in mods])
+def test_planner_copy_does_not_drift(rel):
+    """A copied module equals the reference's but for its import lines and
+    the one marked fix: the copy cannot drift silently."""
+    port = _normalised((ROOT / "src" / "repro_torch" / rel).read_text())
+    ref = (ROOT / "src" / "repro" / rel).read_text().splitlines()
+    if rel != "core/registry.py":
+        assert not any(FIX_BEGIN in line for line in port)
+        assert port == ref
+        return
+    port, fix = _cut(port, FIX_BEGIN, FIX_END)
+    # the fix replaces the reference's lines from the temporary name to the
+    # size taken after the rename
+    ref, replaced = _cut(ref, 'tmp = f"{path}.tmp.{os.getpid()}"',
+                         "self.stats.bytes_stored += os.path.getsize(path)")
+    assert port == ref
+    assert any("os.path.getsize(tmp)" in line for line in fix)
+    assert any("threading.get_ident()" in line for line in fix)
+    assert len(replaced) == 12
 
 
 @pytest.fixture
@@ -159,6 +214,8 @@ def test_trace_takes_a_dtype(no_cuda):
     "ILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiiiixxxiiff",
     # a CUTLASS-named symbol that carries the kernel as a template argument
     "void cutlass::device_kernel<flash_fwd_wgmma_kernel<64> >(cutlass::Params)",
+    # the wide route (head_dim above 256)
+    "void (anonymous namespace)::flash_fwd_wide_kernel<float>((anonymous namespace)::Params)",
 ])
 def test_trace_kind_of_flash_routes(symbol):
     from repro_torch.launch import trace

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from _torch_cpu import one_torch_thread  # noqa: E402, F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -247,6 +249,51 @@ def test_ssd_scan_checks_shapes_and_device():
         tops.ssd_scan(*(t.to("meta") for t in (xh, dt, A, Bm, Cm)))
     with pytest.raises(ValueError, match="CUDA tensors"):
         tssd.ssd_scan(xh, dt, A, Bm, Cm)
+
+
+@pytest.mark.parametrize("P,N,chunk,want", [
+    (64, 128, 128, ([(0, 64, 64)], [(0, 128, 128)], 128)),       # mamba2-370m: as built
+    (48, 96, 100, ([(0, 48, 64)], [(0, 96, 128)], 100)),         # padded
+    (128, 256, 256, ([(0, 64, 64), (64, 128, 64)],               # sliced, chunk cut
+                     [(0, 128, 128), (128, 256, 128)], 128)),
+    (8, 4, 1, ([(0, 8, 16)], [(0, 4, 8)], 1)),
+    (200, 130, 129, ([(0, 64, 64), (64, 128, 64), (128, 192, 64), (192, 200, 16)],
+                     [(0, 128, 128), (128, 130, 8)], 128)),
+])
+def test_ssd_slice_plan(P, N, chunk, want):
+    """Any P, N and chunk, cut or padded to the sizes the kernel is built
+    for: slices of at most 64 columns of x, 128 of the state, chunk <= 128."""
+    assert tssd.slice_plan(P, N, chunk) == want
+    for cuts, built in zip(want[:2], (tssd.HEAD_DIMS, tssd.STATE_SIZES)):
+        assert all(w in built and hi - lo <= w for lo, hi, w in cuts)
+
+
+@pytest.mark.parametrize("P,N,chunk", [(128, 256, 256), (48, 96, 128), (20, 5, 300),
+                                       (64, 128, 128)])
+def test_ssd_sliced_wrapper_is_exact_on_cpu(P, N, chunk):
+    """The card's wrapper at sizes the kernel is not built for: each launch
+    (here the plain scan on the CPU, checking that it gets built sizes) sees
+    a slice of x and of the state, zero-padded; the assembled y and final
+    state are the scan's at the asked sizes."""
+    xh, dt, A, Bm, Cm = (torch.from_numpy(a) for a in _ssd_inputs(21, 2, 40, 3, P, N))
+    launches = []
+
+    def launch(x, d, a, b, c, run_chunk, state_out):
+        assert x.shape[-1] in tssd.HEAD_DIMS and b.shape[-1] in tssd.STATE_SIZES
+        assert run_chunk <= tssd.MAX_CHUNK
+        launches.append(1)
+        y, st = tops.ssd_scan(x, d, a, b, c, chunk=run_chunk, return_state=True)
+        if state_out is not None:
+            state_out.copy_(st)
+        return y
+
+    state = torch.empty((2, 3, P, N))
+    y = tssd._sliced(xh, dt, A, Bm, Cm, chunk, state, launch)
+    want_y, want_state = tops.ssd_scan(xh, dt, A, Bm, Cm, return_state=True)
+    p_cuts, n_cuts, _ = tssd.slice_plan(P, N, chunk)
+    assert len(launches) == len(p_cuts) * len(n_cuts)
+    torch.testing.assert_close(y, want_y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(state, want_state, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
