@@ -17,8 +17,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and, as a yardstick the port never calls,
    ``torch.nn.functional.scaled_dot_product_attention``; and the mma route
    in bf16 at the training slice's shape and at head_dim 120 and 112 beside
-   SDPA (printed only); the wide route at head_dim 512 beside its plain
-   version and SDPA;
+   SDPA (printed only); the wide route at head_dim 512 and 1024 beside its
+   plain version and SDPA;
 4. hold the SSD chunked-scan kernel (output and final state) against its
    plain version (the token-by-token recurrence) on the card at the test
    shapes, a ragged S, S < chunk and the serving shape, and again with a
@@ -143,9 +143,17 @@ CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
     )],
     (1, 200, 300, 4, 2, 20, "float32", dict(causal=True)),            # hd 20, T != S
     (1, 300, 200, 4, 1, 256, "bfloat16", dict(causal=True)),          # the widest hd
-    # head dims above 256: the wide route
-    *[(1, 300, 300, 4, 2, hd, dt, kw) for hd in (320, 512) for dt in ("float32", "bfloat16")
+    # head dims above 256: the wide route (257: no multiple of 8; 1024 and
+    # 4096: two and eight column slices of the grid)
+    *[(1, 300, 300, 4, 2, hd, dt, kw) for hd in (257, 320, 384, 512)
+      for dt in ("float32", "bfloat16")
       for kw in (dict(causal=True, window=96, softcap=20.0), dict(causal=True))],
+    *[case for dt in ("float32", "bfloat16") for case in (
+        (1, 96, 160, 4, 2, 257, dt, dict(causal=False)),              # T != S
+        (1, 64, 8, 2, 2, 320, dt, dict(causal=True, window=4)),        # empty rows
+        (1, 200, 200, 4, 2, 1024, dt, dict(causal=True)),
+        (1, 64, 64, 2, 1, 4096, dt, dict(causal=True)),
+    )],
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
      "float32", dict(causal=True)),                                   # the slice, f32
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
@@ -156,7 +164,7 @@ FUSED_CASES = [  # B, S, H, KV, hd, dtype, kwargs
     (2, 130, 4, 1, 64, "bfloat16", dict(causal=True)),
     (2, 130, 4, 1, 32, "float32", dict(causal=True)),
     *[(2, 130, 4, 1, hd, dt, dict(causal=True))
-      for hd in (112, 120) for dt in ("float32", "bfloat16")],
+      for hd in (112, 120, 320, 512) for dt in ("float32", "bfloat16")],
 ]
 # the mma route in bf16, timed beside SDPA (causal): B, S, H, KV, hd
 YARDSTICKS = {
@@ -165,8 +173,10 @@ YARDSTICKS = {
     "zamba2-7b's head_dim": (SERVE_BATCH, SERVE_PROMPT, 32, 32, 112),
 }
 
-# the wide route, timed beside its plain version and SDPA (causal): B, S, H, KV, hd
+# the wide route, timed beside its plain version and SDPA (causal): B, S, H,
+# KV, hd; the first goes to the kernels line
 WIDE_SHAPE = (2, 1024, 8, 2, 512)
+WIDE_SHAPES = (WIDE_SHAPE, (*WIDE_SHAPE[:4], 1024))
 
 SSD_SLICE = (SERVE_BATCH, SERVE_PROMPT, 32, 64, 128, 128)  # B, S, H, P, N, chunk
 SSD_CASES = [  # B, S, H, P, N, chunk, slow decay
@@ -685,30 +695,32 @@ def main() -> int:
         del q, k, v, qt, kt, vt, pair
 
     # the wide route (head_dim above 256) beside its plain version and SDPA:
-    # f32 goes to the kernels line, bf16 is printed
+    # f32 at WIDE_SHAPE goes to the kernels line, the rest is printed
     wide = {}
-    for dt in ("float32", "bfloat16"):
-        (q, k, v), (qt, kt, vt) = attention_inputs(torch, gen, dev, WIDE_SHAPE, dt)
-        fns = {"kernel": lambda: fa.flash_attention_wide(q, k, v, causal=True),
-               "plain": lambda: flash_attention_ref(q, k, v, causal=True),
-               "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True, enable_gqa=True)}
-        got = fns["kernel"]()
-        err, ok = compare(got, fns["plain"](), F32_TOL if dt == "float32" else BF16_TOL)
-        if not ok:
-            fail(f"the wide kernel disagrees with its plain version at {WIDE_SHAPE} {dt}")
-        torch.testing.assert_close(got.float(), fns["sdpa"]().transpose(1, 2).float(),
-                                   rtol=BF16_TOL, atol=BF16_TOL)
-        got = time_pair(fns, 5)
-        bound = attention_bound(q, k, v, True, 0)
-        print(f"  wide route: {WIDE_SHAPE} {dt} causal: kernel {got['kernel']:.4f} ms, plain "
-              f"{got['plain']:.4f} ms, sdpa {got['sdpa']:.4f} ms "
-              f"({got['kernel'] / got['sdpa']:.2f}x SDPA); max_abs_err {err:.3g}; bound "
-              f"{bound[0] * 1e3:.2f} us by {bound[1]} ({bound_terms(bound[4])}); kernel at "
-              f"{bound[2] / got['kernel'] / 1e9:.2f} TFLOP/s, {got['kernel'] / bound[0]:.2f}x "
-              f"its bound")
-        wide[dt] = dict(got, err=err, bound=bound)
-        del q, k, v, qt, kt, vt, fns
+    for shape in WIDE_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            (q, k, v), (qt, kt, vt) = attention_inputs(torch, gen, dev, shape, dt)
+            fns = {"kernel": lambda: fa.flash_attention_wide(q, k, v, causal=True),
+                   "plain": lambda: flash_attention_ref(q, k, v, causal=True),
+                   "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True)}
+            got = fns["kernel"]()
+            err, ok = compare(got, fns["plain"](), F32_TOL if dt == "float32" else BF16_TOL)
+            if not ok:
+                fail(f"the wide kernel disagrees with its plain version at {shape} {dt}")
+            torch.testing.assert_close(got.float(), fns["sdpa"]().transpose(1, 2).float(),
+                                       rtol=BF16_TOL, atol=BF16_TOL)
+            got = time_pair(fns, 20)
+            bound = attention_bound(q, k, v, True, 0)
+            print(f"  wide route: {shape} {dt} causal: kernel {got['kernel']:.4f} ms, plain "
+                  f"{got['plain']:.4f} ms, sdpa {got['sdpa']:.4f} ms "
+                  f"({got['kernel'] / got['sdpa']:.2f}x SDPA); max_abs_err {err:.3g}; bound "
+                  f"{bound[0] * 1e3:.2f} us by {bound[1]} ({bound_terms(bound[4])}); kernel "
+                  f"at {bound[2] / got['kernel'] / 1e9:.2f} TFLOP/s, "
+                  f"{got['kernel'] / bound[0]:.2f}x its bound")
+            if shape == WIDE_SHAPE:
+                wide[dt] = dict(got, err=err, bound=bound)
+            del q, k, v, qt, kt, vt, fns
 
     # 4. the SSD kernel against its plain version ---------------------------
     phase("SSD kernel checks")

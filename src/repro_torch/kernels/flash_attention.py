@@ -8,9 +8,12 @@ Both replace ``repro/kernels/flash_attention.py:flash_attention`` (Pallas):
 - ``mma`` (``csrc/flash_attention.cu``): tensor-core products by mma.sync,
   f32 as three TF32 products (3xTF32, as one misses the f32 tolerance) and
   bf16 as one, for every other head_dim up to ``MAX_HEAD_DIM``;
-- ``wide`` (``csrc/flash_attention_wide.cu``): f32 FMAs, scores summed over
-  head_dim slices staged in shared memory, for every head_dim above
-  ``MAX_HEAD_DIM``, f32 and bf16 (the reference's kernel takes any).
+- ``wide`` (``csrc/flash_attention_wide.cu``): tensor-core products by
+  mma.sync as the ``mma`` route makes them, for every head_dim above
+  ``MAX_HEAD_DIM``, f32 and bf16 (the reference's kernel takes any): two
+  groups of 4 warps split a block's 512 output columns and Q K^T's
+  contraction between them, Q and K stream through a cp.async ring of
+  head_dim slices, wider head dims split over the grid.
 
 ``ROUTES`` picks the route from (dtype, head_dim); nothing is chosen by
 catching a failure, and a launch or build error raises. The wrappers take

@@ -85,6 +85,16 @@ def _qkv(device, dtype, B, S, T, H, KV, hd, seed=9):
         (1, 64, 8, 2, 2, hd, dt, dict(causal=True, window=4)),       # empty rows
     )],
     (1, 40, 40, 2, 1, 257, "float32", dict(causal=True)),
+    # padded widths (257: no multiple of 8), more than 512 columns (two and
+    # eight column slices of the grid), each in f32 and bf16
+    *[case for dt in ("float32", "bfloat16") for case in (
+        *[case for hd in (257, 384) for case in (
+            (1, 300, 300, 4, 2, hd, dt, dict(causal=True, window=96, softcap=20.0)),
+            (1, 96, 160, 4, 2, hd, dt, dict(causal=False)),         # T != S
+        )],
+        (1, 200, 200, 4, 2, 1024, dt, dict(causal=True)),
+        (1, 64, 64, 2, 1, 4096, dt, dict(causal=True)),
+    )],
 ])
 def test_kernel_matches_plain(cuda, B, S, T, H, KV, hd, dtype, kw):
     td = getattr(torch, dtype)
@@ -182,20 +192,24 @@ def test_kernel_rejects_unsupported_head_dim(cuda):
         tfa.flash_attention_mma(q, k, v)
 
 
+@pytest.mark.parametrize("hd", [320, 512])
 @pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
-def test_wide_kernel_reads_strided_layout(cuda, dtype, tol):
-    """q/k/v at head_dim 320 as views of one fused projection."""
-    hd = 320
+def test_wide_kernel_reads_strided_layout(cuda, dtype, tol, hd):
+    """q/k/v at head_dims 320 and 512 as views of one fused projection,
+    one launch on the wide route and none on the others."""
     rng = np.random.default_rng(15)
     qkv = torch.from_numpy(rng.standard_normal(
         (2, 70, 6 * hd), dtype=np.float32)).to(cuda, getattr(torch, dtype))
     q = qkv[..., :4 * hd].reshape(2, 70, 4, hd)
     k = qkv[..., 4 * hd:5 * hd].reshape(2, 70, 1, hd)
     v = qkv[..., 5 * hd:].reshape(2, 70, 1, hd)
-    before = tfa.flash_attention_wide.launches
+    assert not q.is_contiguous()
+    counters = (tfa.flash_attention_wgmma, tfa.flash_attention_mma,
+                tfa.flash_attention_wide)
+    before = [c.launches for c in counters]
     got = tops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert tfa.flash_attention_wide.launches == before + 1
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 0, 1]
     torch.testing.assert_close(got.float(), tref(q, k, v, causal=True).float(),
                                rtol=tol, atol=tol)
 

@@ -95,6 +95,20 @@ def test_head_dims_of_the_mma_route(B, S, H, KV, hd, T, kw, dtype, tol):
     _check(9, B, S, H, KV, hd, tol=tol, dtype=dtype, T=T, **kw)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
+@pytest.mark.parametrize("hd", [257, 320, 512])
+@pytest.mark.parametrize("B,S,H,KV,T,kw", [
+    (1, 128, 2, 2, None, dict(causal=True)),                           # MHA
+    (1, 128, 4, 2, None, dict(causal=True, window=96, softcap=20.0)),  # GQA
+    (1, 96, 4, 2, 128, dict(causal=False)),                            # T != S
+])
+def test_head_dims_of_the_wide_route(B, S, H, KV, T, kw, hd, dtype, tol):
+    """Head dims above 256, which only the wide route takes on the card
+    (257 pads to no multiple of 8), held against the Pallas kernel and the
+    oracle."""
+    _check(12, B, S, H, KV, hd, tol=tol, dtype=dtype, T=T, **kw)
+
+
 def test_block_shape_independence():
     """The port has no block shape; it matches the Pallas kernel at two."""
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv_np(4, 1, 256, 2, 2, 32))
@@ -120,6 +134,14 @@ def test_fully_masked_rows_are_zero():
     """A query that sees no key (its window lies past a short T) gives 0."""
     q, k, v = (torch.from_numpy(a) for a in _qkv_np(6, 1, 64, 2, 2, 16, T=8))
     out = tref(q, k, v, causal=True, window=4)
+    assert torch.all(out[:, 11:] == 0) and torch.all(torch.isfinite(out))
+    assert torch.all(out[:, :11].abs().sum(-1) > 0)
+
+
+def test_fully_masked_rows_are_zero_at_a_wide_head_dim():
+    """The same at head_dim 320, the wide route's: rows 11.. see no key."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv_np(13, 1, 64, 2, 2, 320, T=8))
+    out = tops.flash_attention(q, k, v, causal=True, window=4)
     assert torch.all(out[:, 11:] == 0) and torch.all(torch.isfinite(out))
     assert torch.all(out[:, :11].abs().sum(-1) > 0)
 
