@@ -28,25 +28,39 @@ Phases, in order; any failure exits non-zero and prints no result line:
    time it at the serving shape beside the plain version (no single
    PyTorch call computes it) and its bound, the faster of the f32 CUDA
    cores and the TF32 tensor cores at three products (3xTF32), or bytes;
-5. serve full-width llama3.2-1b (bf16, seeded random weights): 4 prompts of
+5. hold the flash-attention backward kernel against its plain version on
+   the card (tests/test_kernels.py's grid at S = 192: MHA, GQA, MQA, causal
+   on and off, windows 32 and 96, softcap 20; f32 and bf16 at head_dim 32,
+   64 and 128; and the edges), then time it at llama3.2-1b's training shape
+   beside the plain version, its bound and, as a yardstick the port never
+   calls, the backward of ``scaled_dot_product_attention``;
+6. serve full-width llama3.2-1b (bf16, seeded random weights): 4 prompts of
    1024 tokens, one-pass prefill, 32 greedy decode steps, with each flash
    route's launches counted over that run (all 16 on the wgmma route); then
    check the prefill against the same forward with the plain attention, the
    cache against a prefill one token longer; serve and check the same model
    in f32 (all 16 launches on the mma route), and the reduced model on
    the card against the CPU;
-6. the same for full-width mamba2-370m, with the SSD kernel's launches
+7. the same for full-width mamba2-370m, with the SSD kernel's launches
    counted and the plain SSD scan as the comparison, a planted fault that
    the bf16 check must reject, and the checks repeated in f32;
-7. the collective path: the executor's selftest on the card; the four
+8. train full-width llama3.2-1b on the card (bf16 compute, f32 master
+   params and AdamW state, 4 x 1024 tokens a step): the first step's loss
+   and gradient norm beside the same step through the plain attention
+   forward and backward, then three timed steps with each flash kernel's
+   launches counted over them;
+9. the data-parallel step of train_lm's 100m model with 8 ranks stacked on
+   the card, PCCL beside the built-in reduction: the ``PCCL_CONFORMANCE``
+   line, every rank's params equal bit for bit after each step;
+10. the collective path: the executor's selftest on the card; the four
    fig_exec routes (8 ranks, 4096 f32 a shard) with their round and send
    counts, bit for bit against the port's numpy round interpreter and
    within 1e-5 of a plain sum; and the all-reduce of mamba2-370m's f32
    gradient vector over a bidirectional ring of 8 ranks held in one tensor
    on the card, bit for bit on a column sample, against ``x.sum(0)``, with
    exact zeros off a subgroup of 5, timed beside ``x.sum(0)``;
-8. print one JSON line of per-kernel numbers;
-9. print the result line ``{"ok": true, "device": {...}}`` last.
+11. print one JSON line of per-kernel numbers;
+12. print the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of jax or of the JAX package ``repro``.
 """
@@ -55,6 +69,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -201,6 +216,38 @@ SSD_CASES = [  # B, S, H, P, N, chunk, slow decay
       for chunk, slow in ((128, False), (256, True))],
 ]
 
+# the backward kernel against its plain version: B, S, T, H, KV, hd, dtype,
+# kwargs; the last is llama3.2-1b's training shape, where it is timed
+TRAIN_SHAPE = SLICE_SHAPE  # B, S, H, KV, hd: 4 sequences of 1024 tokens a step
+BWD_CASES = [
+    *[case for hd in (32, 64, 128) for dt in ("float32", "bfloat16") for case in (
+        (1, 192, 192, 4, 4, hd, dt, dict(causal=True)),               # MHA
+        (1, 192, 192, 4, 4, hd, dt, dict(causal=False)),
+        (2, 192, 192, 4, 2, hd, dt, dict(causal=True)),               # GQA
+        (2, 192, 192, 4, 2, hd, dt, dict(causal=False)),
+        (1, 192, 192, 8, 1, hd, dt, dict(causal=True)),               # MQA
+        (1, 192, 192, 8, 1, hd, dt, dict(causal=False)),
+        (1, 192, 192, 4, 2, hd, dt, dict(causal=True, window=32)),
+        (1, 192, 192, 4, 2, hd, dt, dict(causal=True, window=96)),
+        (1, 192, 192, 4, 2, hd, dt, dict(causal=True, softcap=20.0)),
+    )],
+    (1, 96, 160, 4, 2, 64, "float32", dict(causal=False)),            # T != S
+    (1, 64, 8, 2, 2, 32, "bfloat16", dict(causal=True, window=4)),    # empty rows
+    (1, 300, 200, 4, 2, 20, "float32", dict(causal=True)),            # hd padded to 32
+    (1, 130, 130, 4, 2, 100, "bfloat16", dict(causal=True, window=50, softcap=20.0)),
+    (TRAIN_SHAPE[0], TRAIN_SHAPE[1], TRAIN_SHAPE[1], *TRAIN_SHAPE[2:], "bfloat16",
+     dict(causal=True)),
+]
+TRAIN_STEPS = 3  # timed, after one warm-up step
+# the first step's loss through the kernels against the same step through
+# the plain attention, relative: bf16 rounds at other places in the two
+TRAIN_LOSS_REL_TOL = 1e-3
+# the data-parallel step: train_lm's model, ranks stacked on the card,
+# steps, global batch and sequence; the limits of the conformance line
+# that tests/test_exec_conformance.py holds examples/train_lm.py to
+DP_MODEL, DP_RANKS, DP_STEPS, DP_BATCH, DP_SEQ = "100m", 8, 3, 8, 256
+DP_LOSS_TOL, DP_PARAM_TOL = 1e-4, 1e-3
+
 # the collective phase: BENCH_synthesis.json's fig_exec rows
 # (benchmarks/exec_mesh.py's cases), tag -> (fabric, kind, request
 # keywords, rounds, sends), 8 ranks, EXEC_PAYLOAD f32 a shard
@@ -235,19 +282,14 @@ def visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
     return total
 
 
-def attention_bound(q, k, v, causal, window):
-    """(bound_ms, bound_by, flops, bytes, terms): the larger of bytes over
-    HBM bandwidth (each input read once, the output written once) and the
-    two products' FLOPs over the peak rate of the inputs' type. f32 takes
-    the faster of two routes that keep f32 accuracy, as ``ssd_bound`` does:
-    the f32 CUDA cores, or the TF32 tensor cores at three products each
-    (3xTF32; one TF32 product misses the f32 tolerance). ``terms`` holds
-    each time in ms."""
-    B, S, H, hd = q.shape
-    T = k.shape[1]
-    flops = 4 * B * H * hd * visible_pairs(S, T, causal, window)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    if q.dtype.is_floating_point and q.element_size() == 4:
+def roofline(flops: float, nbytes: int, f32: bool):
+    """(bound_ms, bound_by, flops, bytes, terms): the larger of ``nbytes``
+    over HBM bandwidth and ``flops`` over the peak rate of the inputs' type.
+    f32 takes the faster of two routes that keep f32 accuracy, as
+    ``ssd_bound`` does: the f32 CUDA cores, or the TF32 tensor cores at three
+    products each (3xTF32; one TF32 product misses the f32 tolerance).
+    ``terms`` holds each time in ms."""
+    if f32:
         terms = {"f32_ms": flops / PEAK_FLOPS["float32"] * 1e3,
                  "3xtf32_ms": 3 * flops / PEAK_FLOPS["tf32"] * 1e3}
     else:
@@ -256,6 +298,28 @@ def attention_bound(q, k, v, causal, window):
     terms["bytes_ms"] = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, terms["bytes_ms"]),
             "operations" if t_ops >= terms["bytes_ms"] else "bytes", flops, nbytes, terms)
+
+
+def attention_bound(q, k, v, causal, window):
+    """The forward's bound (``roofline``): its two products over the visible
+    (q, k) pairs; q, k and v read once, the output written once."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    flops = 4 * B * H * hd * visible_pairs(S, T, causal, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return roofline(flops, nbytes, q.element_size() == 4)
+
+
+def attention_bwd_bound(q, k, causal, window):
+    """The backward's bound (``roofline``): its five products (dV = P^T dO,
+    dP = dO V^T, S = Q K^T recomputed, dQ = dS K, dK = dS^T Q), 2.5x the
+    forward's, over the visible pairs; q, k, v, o and dO read once, dq, dk
+    and dv written once."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    flops = 2.5 * 4 * B * H * hd * visible_pairs(S, T, causal, window)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    return roofline(flops, nbytes, q.element_size() == 4)
 
 
 def bound_terms(terms: dict) -> str:
@@ -529,6 +593,221 @@ def collective_phase(torch, dev, get_config, LM) -> None:
     torch.cuda.empty_cache()
 
 
+def flash_counters(fa) -> tuple:
+    """Every flash kernel's launch counter: the routed forward's total, each
+    forward route's, and the backward's."""
+    return (fa.flash_attention, fa.flash_attention_wgmma, fa.flash_attention_mma,
+            fa.flash_attention_wide, fa.flash_attention_bwd)
+
+
+def backward_phase(torch, dev, gen, fa, ops, flash_attention_ref,
+                   flash_attention_bwd_ref) -> dict:
+    """The backward kernel against its plain version at ``BWD_CASES``, then
+    timed at the training shape beside the plain version, its bound and
+    SDPA's backward. Returns the kernels-line numbers."""
+    phase("flash backward kernel checks")
+    got_err = None
+    for B, S, T, H, KV, hd, dt, kw in BWD_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dtype)
+        do = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
+        o = flash_attention_ref(q, k, v, **kw)
+        before = fa.flash_attention_bwd.launches
+        got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        if fa.flash_attention_bwd.launches != before + 1:
+            fail("the backward wrapper did not count its launch")
+        want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+        tol = F32_TOL if dt == "float32" else BF16_TOL
+        checked = [compare(g, w, tol) for g, w in zip(got, want)]
+        ok = all(c[1] for c in checked) and all(bool(torch.isfinite(g).all()) for g in got)
+        print(f"  B={B} S={S} T={T} H={H} KV={KV} hd={hd} {dt} {kw}: max_abs_err dq/dk/dv "
+              f"{' / '.join(f'{c[0]:.3g}' for c in checked)} (tol {tol}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the backward kernel disagrees with its plain version at "
+                 f"{(B, S, T, H, KV, hd, dt, kw)}")
+        if (B, S, H, KV, hd) == TRAIN_SHAPE and dt == "bfloat16":
+            got_err = max(c[0] for c in checked)
+
+    (q, k, v), (qt, kt, vt) = attention_inputs(torch, gen, dev, TRAIN_SHAPE, "bfloat16")
+    o = ops.flash_attention(q, k, v, causal=True)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    for g, w in zip(ops.flash_attention_bwd(q, k, v, o, do, causal=True),
+                    torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)):
+        torch.testing.assert_close(g.float(), w.transpose(1, 2).float(),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+    fns = {"kernel": (lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=True), 20),
+           "plain": (lambda: flash_attention_bwd_ref(q, k, v, o, do, causal=True), 3),
+           "sdpa_bwd": (lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                    retain_graph=True), 20)}
+    times = {name: [] for name in fns}
+    for _ in range(3):  # in turns
+        for name, (fn, reps) in fns.items():
+            times[name].append(time_ms(torch, fn, reps))
+    times = {name: statistics.median(vals) for name, vals in times.items()}
+    bound = attention_bwd_bound(q, k, True, 0)
+    print(f"  training shape {TRAIN_SHAPE} bfloat16 causal: kernel {times['kernel']:.4f} ms, "
+          f"plain {times['plain']:.4f} ms, sdpa backward {times['sdpa_bwd']:.4f} ms "
+          f"({times['kernel'] / times['sdpa_bwd']:.2f}x); bound {bound[0] * 1e3:.2f} us by "
+          f"{bound[1]} ({bound[2] / 1e9:.2f} GFLOP, {bound[3] / 1e6:.1f} MB: "
+          f"{bound_terms(bound[4])}); kernel at {bound[2] / times['kernel'] / 1e9:.2f} "
+          f"TFLOP/s of the backward's products, {times['kernel'] / bound[0]:.2f}x its bound")
+    return dict(err=got_err, ms=times["kernel"], plain_ms=times["plain"],
+                library_ms=times["sdpa_bwd"], bound=bound)
+
+
+def training_phase(torch, dev, get_config, LM, fa, flash_attention_ref,
+                   flash_attention_bwd_ref) -> dict:
+    """Full-width llama3.2-1b training steps on the card: bf16 compute, f32
+    master params and AdamW state, remat per block. The first step (the
+    warm-up) beside the same step through the plain attention; then
+    ``TRAIN_STEPS`` timed steps with the flash launches counted over them.
+    Returns the counts."""
+    from repro_torch.bridge import named_leaves
+    from repro_torch.data.pipeline import _batch_for_step
+    from repro_torch.launch import trace
+    from repro_torch.launch.train_lm import DATA_SEED, loss_and_grads
+    from repro_torch.optim import adamw_init, adamw_update, cosine_schedule, global_norm
+
+    phase("train llama3.2-1b")
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    B, S = TRAIN_SHAPE[:2]
+    lm = LM(cfg, device=dev, remat=True)
+    params = lm.init(0, param_dtype=torch.float32)
+    for _, t in named_leaves(params):
+        t.requires_grad_(True)
+    print(f"{cfg.name}: {count_params(params)} params (f32 master weights), compute "
+          f"{cfg.dtype}, {cfg.num_layers} layers, batch {B} x {S} tokens, remat per block")
+    batches = [{key: torch.from_numpy(val).to(dev, torch.int64) for key, val in
+                _batch_for_step(DATA_SEED, step, B, S, cfg.vocab_size).items()}
+               for step in range(1 + TRAIN_STEPS)]
+
+    plain = LM(cfg, device=dev, remat=True, attention=flash_attention_ref,
+               attention_bwd=flash_attention_bwd_ref)
+    plain_loss, grads = loss_and_grads(plain, params, batches[0])
+    plain_loss, plain_gnorm = float(plain_loss), float(global_norm(grads))
+    del grads
+    opt = adamw_init(params)
+    lr = cosine_schedule(3e-4, warmup=20, total=100)
+    loss, grads = loss_and_grads(lm, params, batches[0])
+    loss, gnorm = float(loss), float(global_norm(grads))
+    adamw_update(params, grads, opt, lr=lr)
+    del grads
+    rel_loss = abs(loss - plain_loss) / abs(plain_loss)
+    rel_gnorm = abs(gnorm - plain_gnorm) / plain_gnorm
+    print(f"  first step, kernels vs plain attention: loss {loss:.6f} vs {plain_loss:.6f} "
+          f"(rel {rel_loss:.3g}, tol {TRAIN_LOSS_REL_TOL}); grad norm {gnorm:.6f} vs "
+          f"{plain_gnorm:.6f} (rel {rel_gnorm:.3g})")
+    if not (rel_loss <= TRAIN_LOSS_REL_TOL and finite(loss, gnorm)):
+        fail("the first training step's loss disagrees with the plain attention's")
+
+    counters = flash_counters(fa)
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, losses, gnorms = [], [], []
+    for step in range(1, 1 + TRAIN_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(lm, params, batches[step])
+        _, _, metrics = adamw_update(params, grads, opt, lr=lr)
+        del grads
+        torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = {counter.__name__: counter.launches for counter in counters}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  steps {list(range(1, 1 + TRAIN_STEPS))}: loss "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; grad norm "
+          f"{', '.join(f'{x:.6f}' for x in gnorms)}; ms {', '.join(f'{x:.3f}' for x in step_ms)}")
+    ms = statistics.median(step_ms)
+    print(f"train llama3.2-1b: step_ms={ms:.3f} tok_per_s={B * S / ms * 1e3:.1f} "
+          f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) " +
+          " ".join(f"{name}_launches_per_step={n / TRAIN_STEPS:g}"
+                   for name, n in launches.items()))
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L * TRAIN_STEPS, "flash_attention_wgmma": 2 * L * TRAIN_STEPS,
+            "flash_attention_mma": 0, "flash_attention_wide": 0,
+            "flash_attention_bwd": L * TRAIN_STEPS}
+    if launches != want:
+        fail(f"flash launches over {TRAIN_STEPS} training steps {launches}, want {want} (the "
+             f"forward once a layer and again in remat's recompute, the backward once)")
+    if not finite(*losses, *gnorms):
+        fail("a training step's loss or gradient norm is not finite")
+
+    def one_step():
+        _, grads = loss_and_grads(lm, params, batches[-1])
+        adamw_update(params, grads, opt, lr=lr)
+
+    # one more step under the profiler: where a step's time goes
+    trace.print_phase("train llama3.2-1b, one step traced", trace.traced(one_step, dev), 1, 8)
+    del lm, plain, params, opt, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def finite(*values) -> bool:
+    return all(math.isfinite(x) for x in values)
+
+
+def dp_phase(torch, dev, fa) -> None:
+    """train_lm's data-parallel step with ``DP_RANKS`` ranks stacked on the
+    card, PCCL beside the built-in reduction from the same params on the
+    same batches. The trainer checks each step that every rank's all-reduced
+    vector and params are equal bit for bit, and raises if not."""
+    from repro_torch.data.pipeline import _batch_for_step
+    from repro_torch.launch import trace, train_lm
+
+    phase(f"data-parallel step, {DP_RANKS} ranks stacked")
+    torch.cuda.empty_cache()
+    cfg = train_lm.model_config(DP_MODEL)
+    counters = flash_counters(fa)
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = train_lm.train(cfg, steps=DP_STEPS, batch=DP_BATCH, seq=DP_SEQ, dp=DP_RANKS,
+                         compare=True, device=dev)
+    launches = {counter.__name__: counter.launches for counter in counters}
+    peak = torch.cuda.max_memory_allocated(dev)
+    for name in train_lm.COLLECTIVES:
+        run = out[name]
+        if not (run["trainer"].replicas_equal() and finite(*run["loss"])):
+            fail(f"{name}: the ranks' params differ or a loss is not finite")
+        ms = statistics.median(run["step_ms"][1:])
+        print(f"dp {name}: model {DP_MODEL} ({cfg.param_count()} params), {DP_RANKS} ranks "
+              f"stacked, global batch {DP_BATCH} x {DP_SEQ}: step_ms "
+              f"{', '.join(f'{x:.3f}' for x in run['step_ms'])} (median after the first "
+              f"{ms:.3f}, {DP_BATCH * DP_SEQ / ms * 1e3:.1f} tok/s); ranks' params equal bit "
+              f"for bit after every step")
+    print(f"dp: max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) " +
+          " ".join(f"{name}_launches={n}" for name, n in launches.items()))
+    layers = cfg.num_layers * DP_RANKS * DP_STEPS * len(train_lm.COLLECTIVES)
+    if launches["flash_attention_wgmma"] != 2 * layers or launches["flash_attention_bwd"] != layers:
+        fail(f"flash launches in the data-parallel runs {launches}: want the wgmma forward "
+             f"{2 * layers} times and the backward {layers}")
+    if not (out["max_loss_diff"] < DP_LOSS_TOL and out["max_param_diff"] < DP_PARAM_TOL):
+        fail(f"PCCL and the built-in all-reduce diverge beyond {DP_LOSS_TOL} (loss) or "
+             f"{DP_PARAM_TOL} (params)")
+    # one more PCCL step under the profiler: where a step's time goes
+    batch = {key: torch.from_numpy(val).to(dev, torch.int64) for key, val in
+             _batch_for_step(train_lm.DATA_SEED, DP_STEPS, DP_BATCH, DP_SEQ,
+                             cfg.vocab_size).items()}
+    trainer = out["pccl"]["trainer"]
+    trace.print_phase(f"dp pccl, {DP_RANKS} ranks stacked, one step traced",
+                      trace.traced(lambda: trainer.step(batch), dev), 1, 8)
+    del out, trainer
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -543,7 +822,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref, ssd_scan_ref
     from repro_torch.launch.serve import make_prompts, report, serve
     from repro_torch.models import LM
 
@@ -766,7 +1045,10 @@ def main() -> int:
         fail(f"the SSD kernel reads {ssd_times['ms']:.4f} ms, below its "
              f"{ssd_bound_ms:.4f} ms bound: the timing or the bound is wrong")
 
-    # 5. and 6. serve each model through its kernel -------------------------
+    # 5. the backward kernel against its plain version -----------------------
+    bwd = backward_phase(torch, dev, gen, fa, ops, flash_attention_ref, flash_attention_bwd_ref)
+
+    # 6. and 7. serve each model through its kernel -------------------------
     def diagonal_dropped(scan):
         """``scan`` with a planted fault, an off-by-one causal mask: y_i
         leaves out its own position's term (C_i . B_i) dt_i x_i."""
@@ -911,10 +1193,15 @@ def main() -> int:
         dict(ssd_scan=ssd_scan_ref), SSM_BF16_REL_TOL, f32_tol=SSM_F32_REL_TOL,
         fault_kw=dict(ssd_scan=diagonal_dropped(ops.ssd_scan)))
 
-    # 7. the collective path -------------------------------------------------
+    # 8. train full-width llama3.2-1b; 9. the data-parallel step ------------
+    train_launches = training_phase(torch, dev, get_config, LM, fa, flash_attention_ref,
+                                    flash_attention_bwd_ref)
+    dp_phase(torch, dev, fa)
+
+    # 10. the collective path -------------------------------------------------
     collective_phase(torch, dev, get_config, LM)
 
-    # 8. per-kernel numbers -------------------------------------------------
+    # 11. per-kernel numbers ------------------------------------------------
     flash_source = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
         "name": "flash_attention_wgmma",
@@ -953,6 +1240,18 @@ def main() -> int:
         "bound_by": wide["float32"]["bound"][1],
         "library_ms": wide["float32"]["sdpa"],
     }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": flash_source + "flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:227",
+        "launches": train_launches["flash_attention_bwd"],
+        "max_abs_err": bwd["err"],
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound"][0],
+        "bound_by": bwd["bound"][1],
+        "library_ms": bwd["library_ms"],
+    }, {
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -965,7 +1264,7 @@ def main() -> int:
         "bound_by": ssd_bound_by,
         "library_ms": None,
     }]}))
-    # 9. result --------------------------------------------------------------
+    # 12. result -------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -3,10 +3,11 @@ group-aware collective synthesis, the validation oracle, the algorithm
 registry and the translation to rounds of sends.
 
 The modules here are copies of the reference's: they differ from it only in
-their import lines and in one marked fix (``registry._store_disk``), and
-``tests/test_torch_port_rules.py`` holds them to that. ``repair``,
-``planservice``, ``synthesizer``, ``simulator`` and ``baselines`` are not
-copied yet; asking for one of their names raises ``NotImplementedError``.
+their import lines and in marked fixes (``registry._store_disk``; the
+repair entry of ``planservice``, which raises until ``repair`` is copied),
+and ``tests/test_torch_port_rules.py`` holds them to that. ``repair``,
+``synthesizer``, ``simulator`` and ``baselines`` are not copied yet; asking
+for one of their names raises ``NotImplementedError``.
 """
 
 from repro_torch.core.algorithm import (
@@ -34,6 +35,7 @@ from repro_torch.core.conditions import (
 from repro_torch.core.engine import PhasePlan, PhaseSpec, SynthesisEngine
 from repro_torch.core.errors import FabricDegradedError, PCCLError
 from repro_torch.core.hierarchy import HierarchicalSynthesizer, HierarchyError
+from repro_torch.core.planservice import PlanService
 from repro_torch.core.request import (
     CollectiveRequest,
     PCCLDeprecationWarning,
@@ -65,7 +67,6 @@ from repro_torch.core.serialize import (
 # names of the reference's core that live in modules not copied yet
 _NOT_YET_PORTED = {
     "repair": ("DamageReport", "DegradationEvent", "PlanRepairer", "RepairResult"),
-    "planservice": ("PlanService",),
     "synthesizer": ("order_conditions", "synthesize", "synthesize_all_gather",
                     "synthesize_all_reduce", "synthesize_all_to_all",
                     "synthesize_joint", "synthesize_reduce",
@@ -98,6 +99,7 @@ __all__ = [
     "PhaseSpec",
     "HierarchicalSynthesizer",
     "HierarchyError",
+    "PlanService",
     "PCCLError",
     "FabricDegradedError",
     "CollectiveRequest",

@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "flash_attention_wgmma", "flash_attention_wide", "ssd_scan")
+SOURCES = ("flash_attention", "flash_attention_wgmma", "flash_attention_wide",
+           "flash_attention_bwd", "ssd_scan")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,5 @@
-"""Wrappers of the three CUDA flash-attention forward kernels, and the table
-that routes a call to one of them.
+"""Wrappers of the three CUDA flash-attention forward kernels, the table
+that routes a call to one of them, and the wrapper of the backward kernel.
 
 Both replace ``repro/kernels/flash_attention.py:flash_attention`` (Pallas):
 
@@ -22,6 +22,13 @@ PyTorch's current stream and raise if the launch failed. Each route counts
 its own launches (``flash_attention_wgmma.launches``,
 ``flash_attention_mma.launches``, ``flash_attention_wide.launches``);
 ``flash_attention.launches`` is the total.
+
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) computes dq, dk
+and dv from q, k, v, the forward's output and its cotangent, f32 or bf16 at
+every head_dim from 1 to ``BWD_MAX_HEAD_DIM``, whichever route ran the
+forward. It replaces the reference's jnp VJP of its flash core
+(``repro/models/attention.py:_flash_bwd_vjp``); the Pallas kernel has none.
+Its three passes count as one launch of ``flash_attention_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 256  # the widest padded width the mma kernel is built for
+BWD_MAX_HEAD_DIM = 128  # the widest padded width the backward kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -65,17 +73,22 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
         raise ValueError(f"head_dim {head_dim} is not a positive integer") from None
 
 
-def _kernel(name: str, symbol: str, err_symbol: str):
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+# q, k, v, o, dtype, B, S, T, H, KV, hd, strides, causal, window, softcap, scale, stream
+_FWD_ARGS = [_p, _p, _p, _p, *[_i] * 7, _STRIDES, _i, _i, _f, _f, _p]
+# q, k, v, o, dout, dq, dk, dv, lse, delta, then as the forward's from dtype on
+_BWD_ARGS = [*[_p] * 10, *[_i] * 7, _STRIDES, _i, _i, _f, _f, _p]
+
+
+def _kernel(name: str, symbol: str, err_symbol: str, argtypes=_FWD_ARGS):
     if name not in _fns:
         lib = build.load(name)
         fn = getattr(lib, symbol)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                       ctypes.POINTER(ctypes.c_longlong), i, i,
-                       ctypes.c_float, ctypes.c_float, p]
-        fn.restype = i
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
         err_str = getattr(lib, err_symbol)
-        err_str.argtypes = [i]
+        err_str.argtypes = [ctypes.c_int]
         err_str.restype = ctypes.c_char_p
         _fns[name] = (fn, err_str)
     return _fns[name]
@@ -198,7 +211,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o
 
 
+def _check_bwd(q, k, v, o, dout) -> None:
+    hd = q.shape[-1]
+    if not 1 <= hd <= BWD_MAX_HEAD_DIM:
+        raise ValueError(f"the backward kernel takes head_dim 1..{BWD_MAX_HEAD_DIM}, "
+                         f"not {hd}")
+    _check(q, k, v)
+    B, _, H, _ = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} does not fit k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    for name, t in (("o", o), ("dout", dout)):
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"{name} must be like q ({tuple(q.shape)}, {q.dtype}, "
+                             f"{q.device}); got {tuple(t.shape)}, {t.dtype}, {t.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head_dim must be contiguous")
+
+
+def flash_attention_bwd(q, k, v, o, dout, *, causal=True, window=0, softcap=0.0):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` = o for the cotangent
+    ``dout`` of o, on the card, in q's dtype: f32 or bf16 at head_dim 1 to
+    ``BWD_MAX_HEAD_DIM`` (else ValueError; nothing goes to plain torch)."""
+    _check_bwd(q, k, v, o, dout)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    st = (ctypes.c_longlong * 24)(*[s for t in (q, k, v, o, dout, dq, dk, dv)
+                                    for s in t.stride()[:3]])
+    fn, err_str = _kernel("flash_attention_bwd", "repro_flash_attention_bwd",
+                          "repro_bwd_cuda_error_string", _BWD_ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in (q, k, v, o, dout, dq, dk, dv, lse, delta)),
+                 _DTYPES[q.dtype], B, S, T, H, KV, hd, st, int(causal), int(window),
+                 float(softcap), 1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"{err_str(err).decode()} ({err})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0
 flash_attention_mma.launches = 0
 flash_attention_wgmma.launches = 0
 flash_attention_wide.launches = 0

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
+from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref, ssd_scan_ref
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -36,6 +36,22 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     raise ValueError(f"no flash_attention for device {q.device}")
+
+
+def flash_attention_bwd(q, k, v, o, dout, *, causal=True, window=0, softcap=0.0):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` = o for the cotangent
+    ``dout`` of o, in the inputs' dtypes."""
+    _check_qkv(q, k, v)
+    if o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dout {tuple(dout.shape)} must be "
+                         f"shaped as q {tuple(q.shape)}")
+    if q.device.type == "cuda":
+        return _fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window,
+                                       softcap=softcap)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, dout, causal=causal, window=window,
+                                       softcap=softcap)
+    raise ValueError(f"no flash_attention_bwd for device {q.device}")
 
 
 def _check_ssd(xh, dt, A, Bm, Cm) -> None:

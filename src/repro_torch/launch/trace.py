@@ -34,17 +34,21 @@ from repro_torch.launch.serve import make_prompts, serve
 from repro_torch.models import LM
 
 _FLASH = re.compile(r"flash_fwd_(wgmma|mma|wide)_kernel")
+# the flash backward's three passes (csrc/flash_attention_bwd.cu)
+_FLASH_BWD = re.compile(r"flash_bwd_(lse|dkdv|dq)_kernel")
 # the SSD scan's three passes (csrc/ssd_scan.cu)
 _SSD = re.compile(r"ssd_(chunk_state|state_pass|chunk_out)_kernel")
 _MATMUL = re.compile(r"gemm|gemv|xmma|cutlass|cublas|nvjet", re.I)
 
 
 def kind_of(kernel: str) -> str:
-    """The port's own kernels by symbol (the three flash routes, the SSD
-    scan's passes), before the library products, whose names a kernel's template
-    arguments may also contain."""
+    """The port's own kernels by symbol (the three flash routes, the flash
+    backward's passes, the SSD scan's passes), before the library products,
+    whose names a kernel's template arguments may also contain."""
     if _FLASH.search(kernel):
         return "flash_attention"
+    if _FLASH_BWD.search(kernel):
+        return "flash_attention_bwd"
     if _SSD.search(kernel):
         return "ssd_scan"
     return "matmul" if _MATMUL.search(kernel) else "other"

@@ -1,5 +1,7 @@
 """GQA attention, ported from ``repro/models/attention.py``: prefill through
-the flash-attention kernel, and decode against a KV cache in plain torch."""
+the flash-attention kernel, training through the forward and backward
+flash kernels in one autograd function, and decode against a KV cache in
+plain torch."""
 
 from __future__ import annotations
 
@@ -94,6 +96,65 @@ def attention_prefill(
     out = attention(q, k, v, causal=causal, window=window, softcap=softcap)
     out = out.reshape(B, S, num_heads * head_dim) @ p["wo"].to(x.dtype)
     return out, k, v
+
+
+class _FlashAttention(torch.autograd.Function):
+    """o = fwd(q, k, v) with the gradient of bwd(q, k, v, o, do): the flash
+    kernels on the card, their plain versions on the CPU (``kernels/ops``).
+    Saves q, k, v and o; the backward recomputes the probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, fwd, bwd):
+        o = fwd(q, k, v, causal=causal, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = dict(causal=causal, window=window, softcap=softcap)
+        ctx.bwd = bwd
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, o, do.contiguous(), **ctx.mask)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_train(q, k, v, *, causal=True, window=0, softcap=0.0,
+                          attention=kops.flash_attention,
+                          attention_bwd=kops.flash_attention_bwd):
+    """Differentiable attention [B,S,H,hd] x [B,T,KV,hd]^2 -> [B,S,H,hd]
+    through ``attention`` forward and ``attention_bwd`` backward."""
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, attention,
+                                 attention_bwd)
+
+
+def attention_train(
+    p: Params,
+    x: torch.Tensor,  # [B, S, d]
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    rotary_pct: float = 1.0,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    attention=kops.flash_attention,
+    attention_bwd=kops.flash_attention_bwd,
+) -> torch.Tensor:
+    """Training attention at positions 0..S-1: out [B,S,d], differentiable.
+    The reference's train path (``attend`` up to S = 2048, its blockwise
+    custom VJP beyond) becomes one autograd function around the flash
+    kernels at every S. ``attention`` / ``attention_bwd`` swap the kernels
+    for the plain versions in comparisons."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, torch.arange(S, device=x.device), num_heads=num_heads,
+                   num_kv_heads=num_kv_heads, head_dim=head_dim,
+                   rope_theta=rope_theta, rotary_pct=rotary_pct)
+    out = flash_attention_train(q, k, v, causal=causal, window=window,
+                                softcap=softcap, attention=attention,
+                                attention_bwd=attention_bwd)
+    return out.reshape(B, S, num_heads * head_dim) @ p["wo"].to(x.dtype)
 
 
 def attention_decode(

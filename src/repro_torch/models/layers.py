@@ -48,6 +48,17 @@ def layer(tree: Params, i: int) -> Params:
     return tree[i]
 
 
+def unstack(tree: Params, n: int) -> list[Params]:
+    """The ``n`` layers of a stacked ``[L, ...]`` tree as views, by one
+    ``unbind`` a leaf: its backward writes every layer's gradient into one
+    stacked tensor, where ``layer(tree, i)`` per layer would add ``n``
+    stack-sized ones."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def linear_init(gen: torch.Generator, d_in: int, d_out: int) -> Params:
     return {"w": _init(gen, (d_in, d_out))}
 
@@ -146,3 +157,18 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def unembed_separate(p: Params, x: torch.Tensor) -> torch.Tensor:
     return _f32_logits(x, p["w"])
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy of f32 ``logits`` [..., vocab]; labels < 0
+    are masked (the reference's ``softmax_xent``)."""
+    mask = (labels >= 0).to(torch.float32)
+    labels = labels.clamp_min(0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)

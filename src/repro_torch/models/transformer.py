@@ -1,8 +1,10 @@
 """The LM of the dense family (GQA + SwiGLU, e.g. llama3.2-1b) and of the
 ssm family (a Mamba2/SSD stack, e.g. mamba2-370m), ported from
-``repro/models/transformer.py`` for serving:
+``repro/models/transformer.py`` for serving, and the dense family's loss
+for training:
 
   * init(seed)                                -> params (stacked [L, ...])
+  * loss(params, batch)                       -> (scalar loss, metrics)
   * forward_logits(params, tokens)            -> [B, S, vocab] f32
   * prefill(params, tokens, max_seq=...)      -> (last logits [B, vocab], cache)
   * decode_init(batch, max_seq)               -> KV cache or SSM cache
@@ -11,6 +13,7 @@ ssm family (a Mamba2/SSD stack, e.g. mamba2-370m), ported from
 The layer stack is a Python loop over the stacked parameters (the
 reference's ``lax.scan``). Prefill attention goes through the
 flash-attention kernel and the prefill SSD scan through the SSD kernel;
+the loss's attention through the forward and backward flash kernels;
 decode is plain torch, as in the reference. Other families raise
 ``NotImplementedError``.
 """
@@ -18,6 +21,7 @@ decode is plain torch, as in the reference. Other families raise
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
@@ -33,10 +37,12 @@ from repro_torch.models.layers import (
     linear_init,
     rms_norm,
     rms_norm_init,
+    softmax_xent,
     swiglu,
     swiglu_init,
     unembed,
     unembed_separate,
+    unstack,
 )
 
 
@@ -45,10 +51,15 @@ FAMILIES = ("dense", "ssm")
 
 class LM:
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 attention=kops.flash_attention, ssd_scan=kops.ssd_scan):
+                 attention=kops.flash_attention,
+                 attention_bwd=kops.flash_attention_bwd,
+                 ssd_scan=kops.ssd_scan, remat: bool = False):
         """``device``: 'cuda' (the default; raises without a card) or 'cpu'.
-        ``attention`` and ``ssd_scan``: the prefill attention and SSD scan;
-        the kernels unless a comparison swaps in the plain versions."""
+        ``attention``, ``attention_bwd`` and ``ssd_scan``: the attention
+        forward and backward and the SSD scan; the kernels unless a
+        comparison swaps in the plain versions. ``remat``: the loss
+        recomputes each block's activations in the backward
+        (``torch.utils.checkpoint``), as the reference's ``remat``."""
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not yet ported ({', '.join(FAMILIES)} only)")
@@ -56,15 +67,19 @@ class LM:
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         self.attention = attention
+        self.attention_bwd = attention_bwd
         self.ssd_scan = ssd_scan
+        self.remat = remat
 
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
-    def init(self, seed: int = 0) -> Params:
+    def init(self, seed: int = 0, param_dtype: torch.dtype | None = None) -> Params:
         """Seeded random params with the reference's distributions (not its
-        bits: torch and jax.random differ). Weights are stored in the
-        config dtype, the leaves of ``layers.F32_LEAVES`` in f32."""
+        bits: torch and jax.random differ). Weights are stored in
+        ``param_dtype`` (f32 master weights for training), by default in the
+        config dtype; the leaves of ``layers.F32_LEAVES`` in f32 either way.
+        Every use casts a weight to the compute dtype, as the reference does."""
         c, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         L = c.num_layers
@@ -92,7 +107,36 @@ class LM:
         }
         if not c.tie_embeddings:
             params["unembed"] = linear_init(gen, c.d_model, c.vocab_size)
-        return cast_params(params, self.dtype)
+        return cast_params(params, param_dtype or self.dtype)
+
+    # ------------------------------------------------------------------
+    # loss (train)
+    # ------------------------------------------------------------------
+    def _block_train(self, lp: Params, h: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        h = h + attn.attention_train(
+            lp["attn"], rms_norm(lp["ln1"], h, c.norm_eps),
+            attention=self.attention, attention_bwd=self.attention_bwd,
+            **self._attn_kwargs())
+        return h + swiglu(lp["mlp"], rms_norm(lp["ln2"], h, c.norm_eps))
+
+    def loss(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch: tokens [B,S], labels [B,S] (labels < 0 are masked). The
+        mean token cross-entropy through the training attention, and the
+        reference's metrics (``moe_aux`` is 0 in the dense family)."""
+        c = self.cfg
+        if c.family != "dense":
+            raise NotImplementedError(
+                f"loss of the {c.family!r} family is not yet ported (dense only)")
+        h = embed(params["embed"], batch["tokens"], self.dtype)
+        for lp in unstack(params["layers"], c.num_layers):
+            if self.remat:
+                h = checkpoint(self._block_train, lp, h, use_reentrant=False)
+            else:
+                h = self._block_train(lp, h)
+        xent = softmax_xent(self._logits(params, h), batch["labels"])
+        aux = torch.zeros((), dtype=torch.float32, device=xent.device)
+        return xent + 0.01 * aux, {"xent": xent, "moe_aux": aux}
 
     # ------------------------------------------------------------------
     # forward / prefill

@@ -1,0 +1,11 @@
+from repro_torch.optim.adamw import (
+    AdamWState,
+    adamw_init,
+    adamw_update,
+    clip_by_global_norm,
+    cosine_schedule,
+    global_norm,
+)
+
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm",
+           "cosine_schedule", "global_norm"]

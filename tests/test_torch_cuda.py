@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref as tref  # noqa: E402
 from repro_torch.kernels.ref import ssd_scan_ref  # noqa: E402
 
@@ -319,3 +320,84 @@ def test_stacked_collective_on_card_equals_cpu(cuda, fabric, kind):
     got = fn(x.to(cuda), topo, req)
     assert got.is_cuda
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+# the backward kernel: the case grid of tests/test_kernels.py at the widths
+# the training path uses (hd 32, 64, 128), both types, and the edges
+BWD_CASES = [
+    *[case for hd in (32, 64, 128) for dt in ("float32", "bfloat16") for case in (
+        (1, 192, 192, 4, 4, hd, dt, dict(causal=True)),               # MHA, S=192
+        (2, 192, 192, 4, 2, hd, dt, dict(causal=False)),              # GQA
+        (1, 192, 192, 8, 1, hd, dt, dict(causal=True)),               # MQA
+        (1, 192, 192, 4, 2, hd, dt, dict(causal=True, window=32)),
+        (1, 192, 192, 4, 2, hd, dt, dict(causal=True, window=96)),
+        (1, 192, 192, 4, 2, hd, dt, dict(causal=True, softcap=20.0)),
+    )],
+    (1, 96, 160, 4, 2, 64, "float32", dict(causal=False)),            # T != S
+    (1, 64, 8, 2, 2, 32, "bfloat16", dict(causal=True, window=4)),    # empty rows
+    (1, 300, 200, 4, 2, 20, "float32", dict(causal=True)),            # hd padded to 32
+    (1, 130, 130, 4, 2, 100, "bfloat16", dict(causal=True, window=50, softcap=20.0)),
+    (4, 1024, 1024, 32, 8, 64, "bfloat16", dict(causal=True)),        # llama's training shape
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,dtype,kw", BWD_CASES)
+def test_backward_kernel_matches_plain(cuda, B, S, T, H, KV, hd, dtype, kw):
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(cuda, dt, B, S, T, H, KV, hd, seed=11)
+    o = tref(q, k, v, **kw)
+    do = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        q.shape, dtype=np.float32)).to(cuda, dt)
+    before = tfa.flash_attention_bwd.launches
+    got = tops.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == before + 1
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for g, w in zip(got, flash_attention_bwd_ref(q, k, v, o, do, **kw)):
+        assert g.dtype == dt and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+def test_backward_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 16, 16, 2, 1, 256)
+    with pytest.raises(ValueError, match="head_dim 1..128"):
+        tops.flash_attention_bwd(q, k, v, q, q)
+    q, k, v = _qkv(cuda, torch.float32, 1, 16, 16, 2, 1, 64)
+    with pytest.raises(ValueError, match="must be like q"):
+        tfa.flash_attention_bwd(q, k, v, q.bfloat16(), q)
+
+
+def test_training_step_through_both_kernels(cuda):
+    """One loss and backward of a reduced bf16 model on the card: the forward
+    and backward kernels both launch, and the gradients match the same step
+    through the plain versions."""
+    from repro_torch.bridge import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config("llama3.2-1b").reduced(num_layers=2, head_dim=64, d_model=256)
+    params = LM(cfg, device=cuda).init(0, param_dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 128)))
+    batch = {"tokens": tokens.to(cuda), "labels": tokens.roll(-1, 1).to(cuda)}
+    grads = {}
+    for name, kw in (("kernel", {}), ("plain", dict(attention=tref,
+                                                    attention_bwd=flash_attention_bwd_ref))):
+        leaves = [t.detach().clone().requires_grad_(True) for _, t in named_leaves(params)]
+        tree = dict(zip([p for p, _ in named_leaves(params)], leaves))
+        fwd, bwd = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+        loss, _ = LM(cfg, device=cuda, remat=True, **kw).loss(_tree(tree), batch)
+        grads[name] = torch.autograd.grad(loss, leaves)
+        launched = (tfa.flash_attention.launches - fwd, tfa.flash_attention_bwd.launches - bwd)
+        assert launched == ((4, 2) if name == "kernel" else (0, 0))
+    for g, w in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(g, w, rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def _tree(flat: dict) -> dict:
+    out: dict = {}
+    for path, t in flat.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t
+    return out

@@ -43,15 +43,32 @@ def test_scan_covers_the_package():
     assert {f"topology/{m}.py" for m in COPIED["topology"]} <= rel
     assert {"core/__init__.py", "topology/__init__.py", "comms/__init__.py",
             "comms/executor.py", "comms/primitives.py", "comms/selftest.py"} <= rel
+    assert {"launch/sharding.py", "launch/train_lm.py", "optim/adamw.py",
+            "data/pipeline.py", "kernels/flash_attention.py"} <= rel
 
 
 # the planner modules the port copies from the reference, by package
 COPIED = {
     "topology": ("topology", "generators"),
     "core": ("errors", "conditions", "request", "algorithm", "ten", "pathfinding",
-             "registry", "serialize", "translate", "traffic", "hierarchy", "engine"),
+             "registry", "serialize", "translate", "traffic", "hierarchy", "engine",
+             "planservice"),
 }
-FIX_BEGIN, FIX_END = "# >>> copy fix: _store_disk race", "# <<< copy fix"
+FIX_BEGIN, FIX_END = "# >>> copy fix: ", "# <<< copy fix"
+# the marked fixes of the copy: module -> (its marker, the first and last
+# reference lines it replaces, how many they are, lines the fix must hold)
+FIXES = {
+    "core/registry.py": (
+        "# >>> copy fix: _store_disk race",
+        'tmp = f"{path}.tmp.{os.getpid()}"',
+        "self.stats.bytes_stored += os.path.getsize(path)", 12,
+        ("os.path.getsize(tmp)", "threading.get_ident()")),
+    # planservice: the repair entry raises until core/repair.py is copied
+    "core/planservice.py": (
+        "# >>> copy fix: repair not yet copied",
+        "from repro.core.repair import PlanRepairer", "            return rp", 11,
+        ("raise NotImplementedError(",)),
+}
 
 
 def _normalised(text: str) -> list[str]:
@@ -77,22 +94,35 @@ def _cut(lines: list[str], first: str, last: str) -> tuple[list[str], list[str]]
                                  for m in mods])
 def test_planner_copy_does_not_drift(rel):
     """A copied module equals the reference's but for its import lines and
-    the one marked fix: the copy cannot drift silently."""
+    its marked fix, if it has one: the copy cannot drift silently."""
     port = _normalised((ROOT / "src" / "repro_torch" / rel).read_text())
     ref = (ROOT / "src" / "repro" / rel).read_text().splitlines()
-    if rel != "core/registry.py":
+    if rel not in FIXES:
         assert not any(FIX_BEGIN in line for line in port)
         assert port == ref
         return
-    port, fix = _cut(port, FIX_BEGIN, FIX_END)
-    # the fix replaces the reference's lines from the temporary name to the
-    # size taken after the rename
-    ref, replaced = _cut(ref, 'tmp = f"{path}.tmp.{os.getpid()}"',
-                         "self.stats.bytes_stored += os.path.getsize(path)")
+    marker, first, last, n_replaced, must_hold = FIXES[rel]
+    port, fix = _cut(port, marker, FIX_END)
+    assert not any(FIX_BEGIN in line for line in port), "one marked fix a module"
+    ref, replaced = _cut(ref, first, last)
     assert port == ref
-    assert any("os.path.getsize(tmp)" in line for line in fix)
-    assert any("threading.get_ident()" in line for line in fix)
-    assert len(replaced) == 12
+    assert len(replaced) == n_replaced
+    for text in must_hold:
+        assert any(text in line for line in fix)
+
+
+def test_sharding_planner_copy_does_not_drift():
+    """``MeshCollectivePlanner`` in the port's ``launch/sharding.py`` is the
+    reference's class, its section rule and title included, to the end of
+    the reference's module, but for its import lines."""
+    port = _normalised((ROOT / "src/repro_torch/launch/sharding.py").read_text())
+    ref = (ROOT / "src/repro/launch/sharding.py").read_text().splitlines()
+    start = ref.index("class MeshCollectivePlanner:") - 4
+    assert ref[start].startswith("# ----")
+    i = port.index(ref[start + 1]) - 1
+    assert port[i:] == ref[start:]
+    assert not any("jax" in line for line in port[:i] if line.lstrip().startswith(
+        ("import", "from")))
 
 
 @pytest.fixture
@@ -238,3 +268,17 @@ def test_trace_kind_of_ssd_passes(symbol):
     from repro_torch.launch import trace
 
     assert trace.kind_of(symbol) == "ssd_scan"
+
+
+@pytest.mark.parametrize("symbol", [
+    # each pass of the flash backward, as the profiler names it
+    "void (anonymous namespace)::flash_bwd_lse_kernel<__nv_bfloat16, 64>((anonymous namespace)"
+    "::Params)",
+    "void (anonymous namespace)::flash_bwd_dkdv_kernel<float, 128>((anonymous namespace)::Params)",
+    "_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_ae30f0d019flash_bwd_dq_kernelI13__nv_"
+    "bfloat16Li128EEEvNS_6ParamsE",
+])
+def test_trace_kind_of_flash_backward_passes(symbol):
+    from repro_torch.launch import trace
+
+    assert trace.kind_of(symbol) == "flash_attention_bwd"
