@@ -31,9 +31,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
 5. hold the flash-attention backward kernel against its plain version on
    the card (tests/test_kernels.py's grid at S = 192: MHA, GQA, MQA, causal
    on and off, windows 32 and 96, softcap 20; f32 and bf16 at head_dim 32,
-   64 and 128; and the edges), then time it at llama3.2-1b's training shape
-   beside the plain version, its bound and, as a yardstick the port never
-   calls, the backward of ``scaled_dot_product_attention``;
+   64 and 128; and the edges), check that two calls at llama3.2-1b's
+   training shape give the same bits, then time it there beside the plain
+   version, its bound and, as a yardstick the port never calls, the backward
+   of ``scaled_dot_product_attention``, with its device time by pass; and in
+   f32 beside SDPA's f32 backward and its bound (printed only);
 6. serve full-width llama3.2-1b (bf16, seeded random weights): 4 prompts of
    1024 tokens, one-pass prefill, 32 greedy decode steps, with each flash
    route's launches counted over that run (all 16 on the wgmma route); then
@@ -70,6 +72,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -263,6 +266,30 @@ SUBGROUP = (0, 2, 3, 5, 6)  # a strict subgroup of 5 of the 8 ranks
 SAMPLE_COLS = 4096  # columns of each chunk held bit for bit against numpy
 
 
+# ptxas -v lines: the entry a block of lines is about, its registers and spills
+PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+PTXAS_REGS = re.compile(r"Used (\d+) registers")
+BWD_SYMBOL = re.compile(r"flash_bwd_(lse|dkdv|dq)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def bwd_ptxas(log: str) -> list[str]:
+    """One line per instance of the backward's passes in nvcc's ``-Xptxas
+    -v`` output: pass, type, padded head_dim, registers, spill bytes."""
+    rows, entry, spill = [], None, ("?", "?")
+    for line in log.splitlines():
+        if m := PTXAS_ENTRY.search(line):
+            entry, spill = BWD_SYMBOL.search(m[1]), ("?", "?")
+        elif m := PTXAS_SPILL.search(line):
+            spill = (m[1], m[2])
+        elif (m := PTXAS_REGS.search(line)) and entry:
+            dtype = "f32" if entry[2] == "f" else "bf16"
+            rows.append(f"flash_bwd_{entry[1]}_kernel {dtype} hd {entry[3]}: {m[1]} registers, "
+                        f"spill stores {spill[0]} B, loads {spill[1]} B")
+            entry = None
+    return sorted(rows)
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
@@ -387,6 +414,15 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_pair(torch, fns: dict, reps: int) -> dict:
+    """Median ms of each function over three rounds in turns."""
+    got = {name: [] for name in fns}
+    for _ in range(3):
+        for name, fn in fns.items():
+            got[name].append(time_ms(torch, fn, reps))
+    return {name: statistics.median(vals) for name, vals in got.items()}
 
 
 def compare(got, want, tol: float) -> tuple[float, bool]:
@@ -605,6 +641,8 @@ def backward_phase(torch, dev, gen, fa, ops, flash_attention_ref,
     """The backward kernel against its plain version at ``BWD_CASES``, then
     timed at the training shape beside the plain version, its bound and
     SDPA's backward. Returns the kernels-line numbers."""
+    from repro_torch.launch import trace
+
     phase("flash backward kernel checks")
     got_err = None
     for B, S, T, H, KV, hd, dt, kw in BWD_CASES:
@@ -639,10 +677,16 @@ def backward_phase(torch, dev, gen, fa, ops, flash_attention_ref,
     ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                           enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
-    for g, w in zip(ops.flash_attention_bwd(q, k, v, o, do, causal=True),
-                    torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)):
+    first = ops.flash_attention_bwd(q, k, v, o, do, causal=True)
+    for g, w in zip(first, torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)):
         torch.testing.assert_close(g.float(), w.transpose(1, 2).float(),
                                    rtol=BF16_TOL, atol=BF16_TOL)
+    # no atomics, every sum in a fixed order: a second call gives the same bits
+    if not all(torch.equal(a, b) for a, b in
+               zip(first, ops.flash_attention_bwd(q, k, v, o, do, causal=True))):
+        fail("two backward calls at the training shape gave different dq, dk or dv")
+    print(f"  training shape {TRAIN_SHAPE} bfloat16 causal: two calls bit-equal (dq, dk, dv)")
+    del first
     fns = {"kernel": (lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=True), 20),
            "plain": (lambda: flash_attention_bwd_ref(q, k, v, o, do, causal=True), 3),
            "sdpa_bwd": (lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
@@ -659,6 +703,36 @@ def backward_phase(torch, dev, gen, fa, ops, flash_attention_ref,
           f"{bound[1]} ({bound[2] / 1e9:.2f} GFLOP, {bound[3] / 1e6:.1f} MB: "
           f"{bound_terms(bound[4])}); kernel at {bound[2] / times['kernel'] / 1e9:.2f} "
           f"TFLOP/s of the backward's products, {times['kernel'] / bound[0]:.2f}x its bound")
+    # device time of each pass, from the profiler's kernel records
+    calls, run = 5, fns["kernel"][0]
+    by_name = trace.traced(lambda: [run() for _ in range(calls)], dev)["by_name"]
+    passes = {m[1]: us / calls / 1e3 for name, us in by_name.items()
+              if (m := re.search(r"flash_bwd_(lse|dkdv|dq)_kernel", name))}
+    print(f"  training shape bfloat16, device time by pass (profiler, {calls} calls): " +
+          ", ".join(f"{name} {ms:.4f} ms" for name, ms in passes.items()))
+    del q, k, v, o, do, qt, kt, vt, ot, dot, fns, run
+
+    # the same in f32 (the mma forward, 3xTF32 in the backward): printed, not
+    # in the kernels line (the training path runs bf16)
+    (q, k, v), (qt, kt, vt) = attention_inputs(torch, gen, dev, TRAIN_SHAPE, "float32")
+    o = ops.flash_attention(q, k, v, causal=True)
+    do = torch.randn(q.shape, generator=gen, device=dev)
+    qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    diff = max(float((g - w.transpose(1, 2)).abs().max()) for g, w in zip(
+        ops.flash_attention_bwd(q, k, v, o, do, causal=True),
+        torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)))
+    f32 = time_pair(torch, {
+        "kernel": lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=True),
+        "sdpa_bwd": lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)},
+        10)
+    bound32 = attention_bwd_bound(q, k, True, 0)
+    print(f"  training shape {TRAIN_SHAPE} float32 causal: kernel {f32['kernel']:.4f} ms, sdpa "
+          f"backward {f32['sdpa_bwd']:.4f} ms ({f32['kernel'] / f32['sdpa_bwd']:.2f}x; max "
+          f"abs diff {diff:.3g}); bound {bound32[0] * 1e3:.2f} us by {bound32[1]} "
+          f"({bound_terms(bound32[4])}); kernel {f32['kernel'] / bound32[0]:.2f}x its bound")
     return dict(err=got_err, ms=times["kernel"], plain_ms=times["plain"],
                 library_ms=times["sdpa_bwd"], bound=bound)
 
@@ -847,9 +921,13 @@ def main() -> int:
     logs = build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
+        if name == "flash_attention_bwd":  # by pass, type and head_dim below
+            continue
         for line in log.splitlines():
             if any(key in line for key in ("registers", "spill", "(C75")):
                 print(f"  {name}: {line.strip()}")
+    for row in bwd_ptxas(logs["flash_attention_bwd"]):
+        print(f"  ptxas, backward: {row}")
 
     # 3. both flash routes against their plain version ---------------------
     phase("kernel checks")
@@ -942,14 +1020,6 @@ def main() -> int:
     # peak memory while serving counts the model alone (fn: the last closure)
     del timed, slice_in, fn
 
-    def time_pair(fns: dict, reps: int) -> dict:
-        """Median ms of each function over three rounds in turns."""
-        got = {name: [] for name in fns}
-        for _ in range(3):
-            for name, fn in fns.items():
-                got[name].append(time_ms(torch, fn, reps))
-        return {name: statistics.median(vals) for name, vals in got.items()}
-
     # the wgmma route at head_dim 128 (chatglm3, internlm2, llava), the same
     # B, S, H, KV, and the mma route in bf16 at the yardstick shapes, beside
     # SDPA: printed, not in the kernels line (no path here runs them)
@@ -964,7 +1034,7 @@ def main() -> int:
         torch.testing.assert_close(pair["kernel"]().float(),
                                    pair["sdpa"]().transpose(1, 2).float(),
                                    rtol=BF16_TOL, atol=BF16_TOL)
-        got = time_pair(pair, 100)
+        got = time_pair(torch, pair, 100)
         bound_ms, bound_by, flops, nbytes, terms = attention_bound(q, k, v, True, 0)
         print(f"  {label}: {shape} bfloat16 causal: kernel {got['kernel']:.4f} ms, sdpa "
               f"{got['sdpa']:.4f} ms ({got['kernel'] / got['sdpa']:.2f}x); bound "
@@ -989,7 +1059,7 @@ def main() -> int:
                 fail(f"the wide kernel disagrees with its plain version at {shape} {dt}")
             torch.testing.assert_close(got.float(), fns["sdpa"]().transpose(1, 2).float(),
                                        rtol=BF16_TOL, atol=BF16_TOL)
-            got = time_pair(fns, 20)
+            got = time_pair(torch, fns, 20)
             bound = attention_bound(q, k, v, True, 0)
             print(f"  wide route: {shape} {dt} causal: kernel {got['kernel']:.4f} ms, plain "
                   f"{got['plain']:.4f} ms, sdpa {got['sdpa']:.4f} ms "

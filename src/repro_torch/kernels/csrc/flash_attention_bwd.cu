@@ -1,6 +1,6 @@
-// Flash attention backward (sm_90a): dQ, dK and dV of the forward that the
-// three flash routes compute, from q, k, v, the forward's output o and its
-// cotangent dO. CUDA C++ behind a C interface.
+// Flash attention backward on the tensor cores by mma.sync (sm_90a): dQ, dK
+// and dV of the forward that the three flash routes compute, from q, k, v,
+// the forward's output o and its cotangent dO. CUDA C++ behind a C interface.
 //
 // Replaces the backward that the reference trains through: the jnp custom
 // VJP `_flash_bwd_vjp` (repro/models/attention.py:227) of its blockwise
@@ -17,33 +17,64 @@
 // What bounds it, at llama3.2-1b's training shape (B=4, S=T=1024, H=32,
 // KV=8, hd=64, causal, bf16): the five products of the backward over the
 // visible (q, k) pairs, 2.5 x the forward's 17.20 GFLOP = 43.0 GFLOP, take
-// 0.0435 ms at the bf16 tensor-core rate; its 117 MB of inputs and outputs
-// 0.035 ms at 3.35 TB/s. This kernel is the simple one that is right first:
-// every product is f32 FMAs on the CUDA cores (67 TFLOP/s, where one TF32
-// product would miss the f32 tolerance of 2e-5), and it recomputes the
-// scores three times and dP twice, 8 products in all (68.8 GFLOP at that
-// shape), in exchange for no atomics and a result that does not depend on
-// the order blocks run in.
+// 0.0435 ms at the bf16 tensor-core rate; its 83.9 MB of inputs and outputs
+// 0.025 ms at 3.35 TB/s. This design runs 8 products (68.8 GFLOP at that
+// shape, a little more with the masked halves of the diagonal tiles): the
+// scores once more for the lse, and S and dP in both the dK/dV and the dQ
+// pass, in exchange for no atomics and a result that does not depend on the
+// order blocks run in (two calls give the same bits). What it pays on top,
+// as measured there: the lse pass, about a sixth of the time, exists because
+// the forward kernels do not write the lse; and every pass runs its
+// mma.sync products well below the rate independent mma.sync chains reach:
+// a warp's step is one dependent chain (products, then P and dS, then the
+// next products) with two or three warps a scheduler to hide it. The
+// exponentials cost no measurable time.
 //
-// Design: three passes, each a grid of independent blocks of 256 threads
-// over 64 x 64 tiles staged in shared memory as f32.
-//  1. lse: a block per (b, h, 64-row q tile) walks the key tiles it can see
-//     and keeps the running max and sum of each row (the forward does not
-//     write its log-sum-exp), and D = rowsum(dO o); both f32 [B, H, S].
-//  2. dK, dV: a block per (b, kv head, 64-key tile) holds K and V, walks the
-//     group's query heads and the q tiles that can see the key tile, and
-//     accumulates dK and dV in registers: P and dS of a (q tile, key tile)
-//     pair go through shared memory from the threads that computed them to
-//     the threads that own the key rows.
-//  3. dQ: a block per (b, h, q tile) holds Q and dO and walks the key tiles
-//     it can see, accumulating dQ in registers.
-// Whole tiles above the causal diagonal or outside the window are skipped,
-// as in the forward; the cut tiles are masked element by element. Blocks are
-// ordered longest walk first. A thread computes a 4 x 4 block of a score
-// tile (rows ty + 16 i, keys tx + 16 j) from 16-byte row loads; with rows
-// padded to a stride of 4 mod 32 floats, the 8 threads of a quarter warp
-// read 8 different bank groups. head_dim is padded with zero columns to a
-// built width of 32, 64 or 128, so every hd from 1 to 128 is taken.
+// Design: three passes, each a grid of independent blocks of 4 warps; every
+// product is an mma.sync (bf16: m16n8k16 with f32 accumulators; f32: three
+// TF32 m16n8k8 products, 3xTF32, since one misses the f32 tolerance of
+// 2e-5, as the forward's `mma` route). Each maps onto one of the forward's
+// two fragment patterns (csrc/flash_attention.cu): "Q K^T", a contraction
+// over hd of two row-major tiles, and "P V", a contraction over the columns
+// of an accumulator, which becomes the A fragment directly, with the rows of
+// a row-major tile (bf16: read by ldmatrix.trans).
+//  1. lse and D: a block per (b, h, 64-row q tile), a warp per 16 rows,
+//     walks the key tiles it can see: S = Q K^T, online max and sum of 2^x
+//     per row; lse is written in the exponent's units (log2, scale folded
+//     in), as f32 [B, H, S] scratch (the forward kernels do not write it).
+//     D = rowsum(dO o) in the same pass.
+//  2. dK, dV: a block per (b, kv head, 64-key tile), a warp per 16 keys,
+//     walks the group's query heads and the q tiles that see the key tile:
+//     S^T = K Q^T and dP^T = V dO^T ("Q K^T" with K or V in Q's place, keys
+//     as rows), P^T and dS^T elementwise in registers, then dV += P^T dO and
+//     dK += dS^T Q ("P V" with dO and Q in V's place). dK and dV stay in
+//     registers for the whole walk.
+//  3. dQ: a block per (b, h, 64-row q tile), a warp per 16 rows, walks the
+//     key tiles it can see: S = Q K^T, dP = dO V^T, dQ += dS K ("P V" with K
+//     in V's place); dQ in registers.
+// The tiles a walk streams (K in pass 1; Q, dO and their rows of lse and D
+// in pass 2; K and V in pass 3) go through a ring of two stages by cp.async
+// in their storage type, the next tile in flight while the current one is
+// used; one barrier a step. Tiles wholly above the causal diagonal or
+// outside the window are never loaded; only the tiles that the diagonal,
+// the window edge or the ends of S and T cut are masked. Blocks are ordered
+// longest walk first. In bf16, P and dS are rounded to bf16 before the
+// products that consume them, as the forward rounds P; up to hd 64 a warp
+// keeps the A fragments of its rows of the block's own tile (Q; K and V;
+// Q and dO) in registers for the whole walk.
+//
+// Tile sizes (`Tile`): pass 2 steps over 64 q rows, 32 at hd 128, where dK
+// and dV of a warp's 16 keys are 128 f32 registers a thread; pass 3 over 64
+// keys, 32 at hd 128. In f32, each step's products sum in accumulators of
+// their own before they join dK, dV or dQ: summed straight into a whole
+// walk's accumulator, the tensor cores' additions drift past 2e-5. head_dim
+// is padded with zero columns to a built width of 32, 64 or 128, so every
+// hd from 1 to 128 is taken. Shared-memory
+// rows: bf16 an odd multiple of 16 bytes (ldmatrix, plain and transposed,
+// without bank conflicts); f32 4 mod 32 floats, where both patterns read
+// 16 bytes a lane without conflicts: "Q K^T" maps the contraction so that
+// lane t reads columns 8t..8t+7 of a 32-column block, "P V" reads rows 2t
+// and 2t + 1 (t = lane % 4).
 //
 // C interface (bound with ctypes): repro_flash_attention_bwd returns the
 // cudaError_t of the first launch that failed (0 on success).
@@ -58,26 +89,38 @@
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int BQ = 64;        // q rows a tile
-constexpr int BK = 64;        // keys a tile
-constexpr int LDP = BK + 4;   // row stride of a P or dS tile in floats
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = 32 * NWARPS;
+constexpr int BQ = 16 * NWARPS;  // q rows a block of passes 1 and 3: 16 a warp
+constexpr int BK = 16 * NWARPS;  // keys a block of pass 2: 16 a warp
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The tile shapes of one (type, padded head_dim). LD: shared-memory row
+// stride in elements; BK1, BQ2, BK3: the rows a step of pass 1, 2, 3 streams.
+template <typename T, int HD>
+struct Tile {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int LD = F32 ? HD + 4 : HD + 8;
+  // bf16 up to hd 64: a warp keeps the A fragments of the block's own tile
+  // (Q in pass 1, K and V in pass 2, Q and dO in pass 3) in registers for
+  // the whole walk
+  static constexpr bool AREG = !F32 && HD <= 64;
+  static constexpr int BK1 = 64;
+  static constexpr int BQ2 = HD <= 64 ? 64 : 32;
+  static constexpr int BK3 = HD <= 64 ? 64 : 32;
+};
 
 // element-stride slots of Params::st: (batch, seq, head) of each tensor
 enum { SQ = 0, SK = 3, SV = 6, SO = 9, SDO = 12, SDQ = 15, SDK = 18, SDV = 21 };
 
-template <int HD>
-struct Shape {
-  static constexpr int LD = HD + 4;    // row stride of a [64][HD] tile in floats
-  static constexpr int DPT = HD / 16;  // head columns a thread accumulates
-};
-
 struct Params {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
-  float *lse, *delta;  // [B, H, S]
-  int B, S, Tk, H, KV, group, hd, nq, nk, causal, window;
-  float softcap, scale;
+  float *lse, *delta;  // [B, H, S]; lse in the exponent's units (log2)
+  int B, S, Tk, H, KV, group, hd, nq, nk, causal, window, vec;
+  // mult: exponent units per (capped) score; cap_in: raw score to tanh's argument
+  float softcap, scale, mult, cap_in;
   long long st[24];
 };
 
@@ -90,62 +133,349 @@ __device__ __forceinline__ T from_f(float x) {
   else return __float2bfloat16(x);
 }
 
-// Rows [0, 64) x columns [0, HD) of s (row stride LD) as f32 from g (row
-// stride rs elements); rows >= nv and columns >= hd are zero.
+// The dot product of two 16-byte chunks of T.
+template <typename T>
+__device__ __forceinline__ float dot16(const float4 a, const float4 b) {
+  if constexpr (std::is_same<T, float>::value) {
+    return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
+  } else {
+    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 u = __bfloat1622float2(x[i]), v = __bfloat1622float2(y[i]);
+      acc = fmaf(u.x, v.x, fmaf(u.y, v.y, acc));
+    }
+    return acc;
+  }
+}
+
+// ---- 3xTF32 mma (f32) ---------------------------------------------------------
+
+struct FragA { uint32_t hi[4], lo[4]; };
+struct FragB { uint32_t hi[2], lo[2]; };
+
+// v = hi + lo: hi is v rounded to TF32 (to nearest, ties away from zero, in
+// two integer operations), lo = v - hi is exact in f32 and the mma reads its
+// top 10 mantissa bits.
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// A (16 x 8, row): a0 (g, k0), a1 (g + 8, k0), a2 (g, k1), a3 (g + 8, k1)
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2, float a3) {
+  FragA f;
+  split(a0, f.hi[0], f.lo[0]);
+  split(a1, f.hi[1], f.lo[1]);
+  split(a2, f.hi[2], f.lo[2]);
+  split(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B (8 x 8, col): b0 (k0, n = g), b1 (k1, n = g)
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split(b0, f.hi[0], f.lo[0]);
+  split(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D (16 x 8): d0, d1 (g, 2t + {0, 1}), d2, d3 (g + 8, 2t + {0, 1})
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// ---- bf16 mma ---------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the MUFU unit (relative error ~2^-22; subnormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- loads ------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* s, const void* g, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(s)), "l"(g), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* s, const void* g, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(s)), "l"(g), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Rows [0, nrows) x columns [0, HD) of s (row stride ld) from g (row
+// stride gs); rows >= nv and columns >= hd are zero. vec: 16-byte copies
+// (hd and every row address a multiple of 16 bytes), else element copies
+// (cp.async of 4 bytes for f32, plain stores for bf16).
 template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* s, const T* g, long long rs, int nv, int hd) {
-  constexpr int LD = Shape<HD>::LD;
-  for (int i = threadIdx.x; i < 64 * HD; i += NTHREADS) {
-    const int r = i / HD, c = i % HD;
-    s[r * LD + c] = r < nv && c < hd ? to_f(g[r * rs + c]) : 0.f;
+__device__ __forceinline__ void load_tile(T* s, int ld, const T* g, long long gs,
+                                          int nrows, int nv, int hd, bool vec) {
+  if (vec) {
+    constexpr int V = 16 / sizeof(T);
+    constexpr int CH = HD / V;
+    for (int i = threadIdx.x; i < nrows * CH; i += NTHREADS) {
+      const int r = i / CH, c = (i % CH) * V;
+      const bool ok = r < nv && c < hd;
+      cp_async16(s + r * ld + c, ok ? g + r * gs + c : g, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * HD; i += NTHREADS) {
+      const int r = i / HD, c = i % HD;
+      const bool ok = r < nv && c < hd;
+      if constexpr (std::is_same<T, float>::value)
+        cp_async4(s + r * ld + c, ok ? g + r * gs + c : g, ok);
+      else
+        s[r * ld + c] = ok ? g[r * gs + c] : __float2bfloat16(0.f);
+    }
   }
 }
 
-// acc[i][j] = sum over d of a[ty + 16 i][d] b[tx + 16 j][d]: a thread's 4 x 4
-// block of a 64 x 64 product of two row-major tiles.
-template <int HD>
-__device__ __forceinline__ void tile_product(float (&acc)[4][4], const float* a, const float* b,
-                                             int ty, int tx) {
-  constexpr int LD = Shape<HD>::LD;
+// The two-stage ring a walk of n steps streams its tiles through: step i's
+// copies go to stage i & 1 as one cp.async group, started a step ahead.
+// ring_start starts step 0 (after the block's own tiles, which join its
+// group); ring_wait, before step i, waits for step i's group and passes one
+// barrier (every thread is then past step i - 1, so its stage is free),
+// then starts step i + 1's copies into that stage.
+template <typename Load>
+__device__ __forceinline__ void ring_start(int n, Load&& load) {
+  if (n > 0) load(0);
+  cp_async_commit();
+}
+
+template <typename Load>
+__device__ __forceinline__ void ring_wait(int i, int n, Load&& load) {
+  cp_async_wait<0>();
+  __syncthreads();
+  if (i + 1 < n) {
+    load(i + 1);
+    cp_async_commit();
+  }
+}
+
+// ---- the two product patterns of one warp -----------------------------------
+
+// "Q K^T": acc[j] (16 x 8) = A B^T over HD columns, A the warp's 16 rows at
+// a, B rows 8j..8j+7 at b, both row-major with row stride Tile::LD. f32:
+// over each 32-column block, k-step s maps k = t to column 8t + 2s and
+// k = t + 4 to column 8t + 2s + 1, so one 16-byte load serves two k-steps.
+template <typename T, int HD, int NT>
+__device__ __forceinline__ void mma_qk(float (&acc)[NT][4], const T* a, const T* b, int lane) {
+  constexpr int LD = Tile<T, HD>::LD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < HD; d += 4) {
-    float4 x[4], y[4];
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  if constexpr (std::is_same<T, float>::value) {
+    const int g = lane >> 2, t = lane & 3;
+    const float* aw = a + g * LD + 8 * t;
+    const float* bw = b + g * LD + 8 * t;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * LD + d);
+    for (int c = 0; c < HD / 32; ++c)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * LD + d);
+      for (int h = 0; h < 2; ++h) {
+        const int col = 32 * c + 4 * h;
+        const float4 x0 = *reinterpret_cast<const float4*>(aw + col);
+        const float4 x1 = *reinterpret_cast<const float4*>(aw + 8 * LD + col);
+        const FragA a0 = frag_a(x0.x, x1.x, x0.y, x1.y);
+        const FragA a1 = frag_a(x0.z, x1.z, x0.w, x1.w);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
-        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
-        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
-        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+        for (int j = 0; j < NT; ++j) {
+          const float4 y = *reinterpret_cast<const float4*>(bw + 8 * j * LD + col);
+          mma3(acc[j], a0, frag_b(y.x, y.y));
+          mma3(acc[j], a1, frag_b(y.z, y.w));
+        }
       }
+  } else {
+    const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+    const uint32_t aa = smem_addr(a + (lr + 8 * l8) * LD + 8 * l16);
+    const uint32_t ba = smem_addr(b + (lr + 8 * l16) * LD + 8 * l8);
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) {
+      uint32_t af[4];
+      ldsm_x4(af, aa + 32 * c);
+#pragma unroll
+      for (int jj = 0; jj < NT / 2; ++jj) {
+        uint32_t bf[4];
+        ldsm_x4(bf, ba + 2 * (16 * jj * LD + 16 * c));
+        mma_bf16(acc[2 * jj], af, bf[0], bf[1]);
+        mma_bf16(acc[2 * jj + 1], af, bf[2], bf[3]);
+      }
+    }
   }
 }
 
-// The score of a raw product s: scaled, then softcapped; t = tanh(.) for
-// the cap's derivative.
-__device__ __forceinline__ float score(const Params& p, float s, float& t) {
-  float x = s * p.scale;
-  if (p.softcap > 0.f) {
-    t = tanhf(x / p.softcap);
-    x = p.softcap * t;
-  }
-  return x;
+// bf16 "Q K^T" with A's fragments already in registers (a tile that a
+// block keeps for its whole walk): af from a_frags.
+template <int HD>
+__device__ __forceinline__ void a_frags(uint32_t (&af)[HD / 16][4], const __nv_bfloat16* a,
+                                        int lane) {
+  constexpr int LD = Tile<__nv_bfloat16, HD>::LD;
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  const uint32_t aa = smem_addr(a + (lr + 8 * l8) * LD + 8 * l16);
+#pragma unroll
+  for (int c = 0; c < HD / 16; ++c) ldsm_x4(af[c], aa + 32 * c);
 }
+
+template <int HD, int NT>
+__device__ __forceinline__ void mma_qk_frags(float (&acc)[NT][4], const uint32_t (&af)[HD / 16][4],
+                                             const __nv_bfloat16* b, int lane) {
+  constexpr int LD = Tile<__nv_bfloat16, HD>::LD;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  const uint32_t ba = smem_addr(b + (lr + 8 * l16) * LD + 8 * l8);
+#pragma unroll
+  for (int c = 0; c < HD / 16; ++c)
+#pragma unroll
+    for (int jj = 0; jj < NT / 2; ++jj) {
+      uint32_t bf[4];
+      ldsm_x4(bf, ba + 2 * (16 * jj * LD + 16 * c));
+      mma_bf16(acc[2 * jj], af[c], bf[0], bf[1]);
+      mma_bf16(acc[2 * jj + 1], af[c], bf[2], bf[3]);
+    }
+}
+
+// "P V": acc (16 x HD) += P B, P in mma_qk's accumulator layout (16 x 8 NT),
+// B [8 NT rows][HD] at b, contracted over P's columns and B's rows. P's
+// accumulator is the A fragment (f32: k = t and t + 4 mapped to columns 2t
+// and 2t + 1 of each 8-column tile; bf16: rounded to bf16 and packed); f32
+// output columns of n-tile 4m + i are 32m + 4n' + i (n' the mma's column),
+// so one 16-byte load of a B row serves four n-tiles (see out_col).
+template <typename T, int HD, int NT>
+__device__ __forceinline__ void mma_pv(float (&acc)[HD / 8][4], const float (&p)[NT][4],
+                                       const T* b, int lane) {
+  constexpr int LD = Tile<T, HD>::LD;
+  if constexpr (std::is_same<T, float>::value) {
+    const int g = lane >> 2, t = lane & 3;
+    const float* bw = b + 2 * t * LD + 4 * g;
+#pragma unroll
+    for (int m = 0; m < HD / 32; ++m) {
+      // this call's sum in accumulators of its own, added to acc after
+      float part[4][4] = {};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const FragA a = frag_a(p[j][0], p[j][2], p[j][1], p[j][3]);
+        const float* b0 = bw + 8 * j * LD + 32 * m;
+        const float4 x = *reinterpret_cast<const float4*>(b0);
+        const float4 y = *reinterpret_cast<const float4*>(b0 + LD);
+        mma3(part[0], a, frag_b(x.x, y.x));
+        mma3(part[1], a, frag_b(x.y, y.y));
+        mma3(part[2], a, frag_b(x.z, y.z));
+        mma3(part[3], a, frag_b(x.w, y.w));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * m + i][e] += part[i][e];
+    }
+  } else {
+    const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+    const uint32_t ba = smem_addr(b + (lr + 8 * l8) * LD + 8 * l16);
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      const uint32_t a[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
+                             pack_bf16(p[2 * j][2], p[2 * j][3]),
+                             pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
+                             pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
+#pragma unroll
+      for (int n = 0; n < HD / 16; ++n) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, ba + 2 * (16 * j * LD + 16 * n));
+        mma_bf16(acc[2 * n], a, bf[0], bf[1]);
+        mma_bf16(acc[2 * n + 1], a, bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// The head column of element e of n-tile n of an mma_pv accumulator.
+template <typename T>
+__device__ __forceinline__ int out_col(int n, int e, int t) {
+  if constexpr (std::is_same<T, float>::value) return 32 * (n >> 2) + 4 * (2 * t + (e & 1)) + (n & 3);
+  else return 8 * n + 2 * t + (e & 1);
+}
+
+// Rows r0 and r0 + 8 of an mma_pv accumulator to g (row stride gs): rows
+// >= nv and columns >= hd are not written.
+template <typename T, int HD>
+__device__ __forceinline__ void store_acc(T* g, long long gs, const float (&acc)[HD / 8][4],
+                                          int r0, int nv, int hd, int t) {
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e >> 1), d = out_col<T>(n, e, t);
+      if (r < nv && d < hd) g[r * gs + d] = from_f<T>(acc[n][e]);
+    }
+}
+
+// ---- masks and scores ---------------------------------------------------------
 
 __device__ __forceinline__ bool visible(const Params& p, int r, int c) {
   return r < p.S && c < p.Tk && (!p.causal || c <= r) && (p.window <= 0 || c > r - p.window);
 }
 
-// Keys [lo, hi] that q rows [q0, q0 + 64) can see (lo > hi: none).
+// Whether a tile of q rows [q0, q0 + nr) x keys [k0, k0 + nc) has a pair
+// that the masks or the ends of S and T hide.
+__device__ __forceinline__ bool edge_tile(const Params& p, int q0, int nr, int k0, int nc) {
+  return q0 + nr > p.S || k0 + nc > p.Tk || (p.causal && k0 + nc - 1 > q0) ||
+         (p.window > 0 && k0 < q0 + nr - p.window);
+}
+
+// Keys [lo, hi] that q rows [q0, q0 + BQ) can see (lo > hi: none).
 __device__ __forceinline__ void key_range(const Params& p, int q0, int& lo, int& hi) {
   lo = 0;
   hi = p.Tk - 1;
@@ -153,133 +483,127 @@ __device__ __forceinline__ void key_range(const Params& p, int q0, int& lo, int&
   if (p.window > 0) lo = max(0, q0 - p.window + 1);
 }
 
-// P and dS of a thread's 4 x 4 block: s = Q K^T, dp = dO V^T of q rows
-// q0 + rr, keys k0 + cc; lse and D of the tile's rows in shared memory.
-__device__ __forceinline__ void probs_and_dscores(const Params& p, float (&s)[4][4],
-                                                  float (&dp)[4][4], const float* sl,
-                                                  const float* sd, int q0, int k0, int ty,
-                                                  int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int rr = ty + 16 * i, cc = tx + 16 * j;
-      float t = 0.f;
-      const float x = score(p, s[i][j], t);
-      // a row with no visible key has lse = +inf, so its p is 0
-      const float pr = visible(p, q0 + rr, k0 + cc) ? expf(x - sl[rr]) : 0.f;
-      float ds = pr * (dp[i][j] - sd[rr]);
-      if (p.softcap > 0.f) ds *= 1.f - t * t;
-      s[i][j] = pr;
-      dp[i][j] = ds * p.scale;
-    }
-}
-
-template <int N>
-__device__ __forceinline__ void load_row(float (&x)[N], const float* s) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int u = 0; u < N; u += 4) {
-      const float4 y = *reinterpret_cast<const float4*>(s + u);
-      x[u] = y.x; x[u + 1] = y.y; x[u + 2] = y.z; x[u + 3] = y.w;
-    }
-  } else {
-#pragma unroll
-    for (int u = 0; u < N; u += 2) {
-      const float2 y = *reinterpret_cast<const float2*>(s + u);
-      x[u] = y.x; x[u + 1] = y.y;
-    }
+// P and dS of one score: raw s = q.k, dp = dO.v, lse2 and d of its row.
+// Returns p; ds comes back scaled by 1 / sqrt(hd).
+__device__ __forceinline__ float prob_and_dscore(const Params& p, float s, float dp,
+                                                 float lse2, float d, bool ok, float& ds) {
+  float th = 0.f;
+  if (p.softcap > 0.f) {
+    th = tanhf(s * p.cap_in);
+    s = p.softcap * th;
   }
+  const float pr = ex2(fmaf(s, p.mult, -lse2));
+  ds = ok ? pr * (dp - d) * ((1.f - th * th) * p.scale) : 0.f;
+  return ok ? pr : 0.f;
 }
 
 // ---- pass 1: lse and D --------------------------------------------------------
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_lse_kernel(const Params p) {
-  constexpr int LD = Shape<HD>::LD;
+  using L = Tile<T, HD>;
+  constexpr int LD = L::LD, BK1 = L::BK1, NT = BK1 / 8;
   extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
-  float* sk = sq + BQ * LD;
+  T* sq = reinterpret_cast<T*>(smem4);
+  T* sk = sq + BQ * LD;  // + stage * BK1 * LD
 
   const int nbh = p.B * p.H;
   const int rank = blockIdx.x / nbh, bh = blockIdx.x - rank * nbh;
   const int b = bh / p.H, h = bh - b * p.H;
   const int q0 = (p.nq - 1 - rank) * BQ;  // the last q tiles (longest causal walk) first
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
 
-  {  // D = rowsum(dO o): 4 threads a row
-    const int r = tid >> 2, part = tid & 3, qpos = q0 + r;
+  const T* kb = static_cast<const T*>(p.k) + b * p.st[SK] + (h / p.group) * p.st[SK + 2];
+  int k_lo, k_hi;
+  key_range(p, q0, k_lo, k_hi);
+  const int kt0 = k_lo / BK1;
+  const int ntiles = k_lo <= k_hi ? k_hi / BK1 - kt0 + 1 : 0;
+  auto load_k = [&](int i) {
+    const int k0 = (kt0 + i) * BK1;
+    load_tile<T, HD>(sk + (i & 1) * BK1 * LD, LD, kb + k0 * p.st[SK + 1], p.st[SK + 1], BK1,
+                     p.Tk - k0, p.hd, p.vec);
+  };
+  load_tile<T, HD>(sq, LD, static_cast<const T*>(p.q) + b * p.st[SQ] + h * p.st[SQ + 2] +
+                               q0 * p.st[SQ + 1], p.st[SQ + 1], BQ, p.S - q0, p.hd, p.vec);
+  ring_start(ntiles, load_k);
+
+  {  // D = rowsum(dO o) while the tiles are in flight: two threads a row
+    const int r = threadIdx.x >> 1, part = threadIdx.x & 1, qpos = q0 + r;
     float acc = 0.f;
     if (qpos < p.S) {
       const T* orow = static_cast<const T*>(p.o) + b * p.st[SO] + qpos * p.st[SO + 1] +
                       h * p.st[SO + 2];
       const T* drow = static_cast<const T*>(p.dout) + b * p.st[SDO] + qpos * p.st[SDO + 1] +
                       h * p.st[SDO + 2];
-      for (int c = part; c < p.hd; c += 4) acc = fmaf(to_f(drow[c]), to_f(orow[c]), acc);
+      if (p.vec) {  // 16-byte loads, the row's two threads on alternate ones
+#pragma unroll 4
+        for (int c = part * (16 / int(sizeof(T))); c < p.hd; c += 32 / int(sizeof(T)))
+          acc += dot16<T>(*reinterpret_cast<const float4*>(drow + c),
+                          *reinterpret_cast<const float4*>(orow + c));
+      } else {
+#pragma unroll 8
+        for (int c = part; c < p.hd; c += 2) acc = fmaf(to_f(drow[c]), to_f(orow[c]), acc);
+      }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     if (part == 0 && qpos < p.S) p.delta[(long long)bh * p.S + qpos] = acc;
   }
 
-  const T* qb = static_cast<const T*>(p.q) + b * p.st[SQ] + h * p.st[SQ + 2];
-  const T* kb = static_cast<const T*>(p.k) + b * p.st[SK] + (h / p.group) * p.st[SK + 2];
-  load_tile<T, HD>(sq, qb + q0 * p.st[SQ + 1], p.st[SQ + 1], p.S - q0, p.hd);
-
-  int k_lo, k_hi;
-  key_range(p, q0, k_lo, k_hi);
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
-  const int kt_end = k_lo <= k_hi ? k_hi / BK : -1;
-  for (int kt = k_lo / BK; kt <= kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous key tile is consumed (and Q is staged)
-    load_tile<T, HD>(sk, kb + k0 * p.st[SK + 1], p.st[SK + 1], p.Tk - k0, p.hd);
-    __syncthreads();
-    float s[4][4];
-    tile_product<HD>(s, sq, sk, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float t;
-        const float x = score(p, s[i][j], t);
-        s[i][j] = visible(p, q0 + ty + 16 * i, k0 + tx + 16 * j) ? x : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 16 threads of a row are 16 consecutive lanes
-#pragma unroll
-      for (int w = 1; w < 16; w *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      float sum = 0.f;
-      if (mx != -INFINITY) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - mx);
-      }
-#pragma unroll
-      for (int w = 1; w < 16; w *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      if (mx != -INFINITY) {
-        l[i] = l[i] * expf(m[i] - mx) + sum;  // exp(-inf) = 0 for the first visible key
-        m[i] = mx;
-      }
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};  // l: this lane's part
+  uint32_t qf[HD / 16][4];  // AREG: Q's A fragments
+  const bool capped = p.softcap > 0.f;
+  const int qa = q0 + 16 * warp + g;  // this lane's rows: qa, qa + 8
+  for (int i = 0; i < ntiles; ++i) {
+    ring_wait(i, ntiles, load_k);
+    float s[NT][4];
+    if constexpr (!L::AREG) {
+      mma_qk<T, HD, NT>(s, sq + 16 * warp * LD, sk + (i & 1) * BK1 * LD, lane);
+    } else {
+      if (i == 0) a_frags<HD>(qf, sq + 16 * warp * LD, lane);
+      mma_qk_frags<HD, NT>(s, qf, sk + (i & 1) * BK1 * LD, lane);
     }
-  }
-  if (tx == 0) {
+    const int k0 = (kt0 + i) * BK1;
+    const bool edge = edge_tile(p, q0, BQ, k0, BK1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      if (qpos < p.S) p.lse[(long long)bh * p.S + qpos] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (capped) s[j][e] = p.softcap * tanhf(s[j][e] * p.cap_in);
+        if (edge && !visible(p, qa + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1)))
+          s[j][e] = NEG_INF;
+      }
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
     }
+    float mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with no visible key so far: every p and the correction are 0
+      mc[r] = mx[r] > 0.5f * NEG_INF ? mx[r] * p.mult : __int_as_float(0x7f800000);
+      l_run[r] *= ex2(m_run[r] * p.mult - mc[r]);
+      m_run[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l_run[e >> 1] += ex2(fmaf(s[j][e], p.mult, -mc[e >> 1]));
   }
-}
-
-// Stage rows q0.. of lse and D of (b, h) (lse = +inf, D = 0 past S).
-__device__ __forceinline__ void load_rows(const Params& p, float* sl, float* sd, long long bh, int q0) {
-  if (threadIdx.x < BQ) {
-    const int qpos = q0 + threadIdx.x;
-    sl[threadIdx.x] = qpos < p.S ? p.lse[bh * p.S + qpos] : INFINITY;
-    sd[threadIdx.x] = qpos < p.S ? p.delta[bh * p.S + qpos] : 0.f;
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int qpos = qa + 8 * r;
+    if (t == 0 && qpos < p.S)
+      p.lse[(long long)bh * p.S + qpos] =
+          l > 0.f ? m_run[r] * p.mult + log2f(l) : __int_as_float(0x7f800000);
   }
 }
 
@@ -287,190 +611,207 @@ __device__ __forceinline__ void load_rows(const Params& p, float* sl, float* sd,
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkdv_kernel(const Params p) {
-  constexpr int LD = Shape<HD>::LD, DPT = Shape<HD>::DPT;
+  using L = Tile<T, HD>;
+  constexpr int LD = L::LD, BQ2 = L::BQ2, NT = BQ2 / 8;
   extern __shared__ float4 smem4[];
-  float* sk = reinterpret_cast<float*>(smem4);
-  float* sv = sk + BK * LD;
-  float* sq = sv + BK * LD;
-  float* sdo = sq + BQ * LD;
-  float* sp = sdo + BQ * LD;
-  float* sds = sp + BQ * LDP;
-  float* sl = sds + BQ * LDP;
-  float* sd = sl + BQ;
+  T* sk = reinterpret_cast<T*>(smem4);
+  T* sv = sk + BK * LD;
+  T* sq = sv + BK * LD;         // + stage * BQ2 * LD
+  T* sdo = sq + 2 * BQ2 * LD;   // + stage * BQ2 * LD
+  float* srow = reinterpret_cast<float*>(sdo + 2 * BQ2 * LD);  // + stage * 2 BQ2: lse, D
 
   const int nbk = p.B * p.KV;
   const int kt = blockIdx.x / nbk, bk = blockIdx.x - kt * nbk;  // key tile 0 (longest walk) first
   const int b = bk / p.KV, kvh = bk - b * p.KV;
   const int k0 = kt * BK;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int cx = tid & 15, dx = tid >> 4;  // accumulation: keys 4 cx + j, columns DPT dx + u
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
 
-  load_tile<T, HD>(sk, static_cast<const T*>(p.k) + b * p.st[SK] + kvh * p.st[SK + 2] +
-                           k0 * p.st[SK + 1], p.st[SK + 1], p.Tk - k0, p.hd);
-  load_tile<T, HD>(sv, static_cast<const T*>(p.v) + b * p.st[SV] + kvh * p.st[SV + 2] +
-                           k0 * p.st[SV + 1], p.st[SV + 1], p.Tk - k0, p.hd);
+  load_tile<T, HD>(sk, LD, static_cast<const T*>(p.k) + b * p.st[SK] + kvh * p.st[SK + 2] +
+                               k0 * p.st[SK + 1], p.st[SK + 1], BK, p.Tk - k0, p.hd, p.vec);
+  load_tile<T, HD>(sv, LD, static_cast<const T*>(p.v) + b * p.st[SV] + kvh * p.st[SV + 2] +
+                               k0 * p.st[SV + 1], p.st[SV + 1], BK, p.Tk - k0, p.hd, p.vec);
 
-  // q rows that can see a key of [k0, k0 + BK)
+  // q rows that can see a key of [k0, k0 + BK), in q tiles of BQ2; the walk
+  // goes over the group's heads, each over those q tiles
   const int r_lo = p.causal ? k0 : 0;
   int r_hi = p.S - 1;
   if (p.window > 0) r_hi = min(r_hi, k0 + BK - 1 + p.window - 1);
-  const int qt_end = r_lo <= r_hi ? r_hi / BQ : -1;
+  const int qt0 = r_lo / BQ2;
+  const int nqt = r_lo <= r_hi ? r_hi / BQ2 - qt0 + 1 : 0;
+  const int nsteps = p.group * nqt;
+  auto load_q = [&](int i) {
+    const int h = kvh * p.group + i / nqt, q0 = (qt0 + i % nqt) * BQ2, stage = i & 1;
+    load_tile<T, HD>(sq + stage * BQ2 * LD, LD, static_cast<const T*>(p.q) + b * p.st[SQ] +
+                         h * p.st[SQ + 2] + q0 * p.st[SQ + 1], p.st[SQ + 1], BQ2, p.S - q0,
+                     p.hd, p.vec);
+    load_tile<T, HD>(sdo + stage * BQ2 * LD, LD, static_cast<const T*>(p.dout) +
+                         b * p.st[SDO] + h * p.st[SDO + 2] + q0 * p.st[SDO + 1],
+                     p.st[SDO + 1], BQ2, p.S - q0, p.hd, p.vec);
+    const int r = threadIdx.x % BQ2, which = threadIdx.x / BQ2;  // 0: lse, 1: D
+    if (which < 2) {
+      const float* src = (which == 0 ? p.lse : p.delta) + (long long)(b * p.H + h) * p.S + q0 + r;
+      cp_async4(srow + stage * 2 * BQ2 + which * BQ2 + r, q0 + r < p.S ? src : p.lse,
+                q0 + r < p.S);
+    }
+  };
+  ring_start(nsteps, load_q);
 
-  float adk[4][DPT], adv[4][DPT];
+  float adk[HD / 8][4], adv[HD / 8][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
-    for (int u = 0; u < DPT; ++u) { adk[j][u] = 0.f; adv[j][u] = 0.f; }
+    for (int e = 0; e < 4; ++e) { adk[n][e] = 0.f; adv[n][e] = 0.f; }
+  const int ka = k0 + 16 * warp + g;  // this lane's keys: ka, ka + 8
+  uint32_t kf[HD / 16][4], vf[HD / 16][4];  // AREG: K's and V's A fragments
 
-  for (int hh = 0; hh < p.group; ++hh) {
-    const int h = kvh * p.group + hh;
-    const long long bh = (long long)b * p.H + h;
-    const T* qb = static_cast<const T*>(p.q) + b * p.st[SQ] + h * p.st[SQ + 2];
-    const T* db = static_cast<const T*>(p.dout) + b * p.st[SDO] + h * p.st[SDO + 2];
-    for (int qt = r_lo / BQ; qt <= qt_end; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the previous q tile is consumed (and K, V are staged)
-      load_tile<T, HD>(sq, qb + q0 * p.st[SQ + 1], p.st[SQ + 1], p.S - q0, p.hd);
-      load_tile<T, HD>(sdo, db + q0 * p.st[SDO + 1], p.st[SDO + 1], p.S - q0, p.hd);
-      load_rows(p, sl, sd, bh, q0);
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_product<HD>(s, sq, sk, ty, tx);
-      tile_product<HD>(dp, sdo, sv, ty, tx);
-      probs_and_dscores(p, s, dp, sl, sd, q0, k0, ty, tx);
+  for (int i = 0; i < nsteps; ++i) {
+    ring_wait(i, nsteps, load_q);
+    const int stage = i & 1, q0 = (qt0 + i % nqt) * BQ2;
+    const T* tq = sq + stage * BQ2 * LD;
+    const T* tdo = sdo + stage * BQ2 * LD;
+    const float* sl = srow + stage * 2 * BQ2;
+    const float* sd = sl + BQ2;
+    float sT[NT][4], dpT[NT][4];  // S^T, dP^T: keys ka, ka + 8 x q rows 8j + 2t + {0, 1}
+    if constexpr (!L::AREG) {
+      mma_qk<T, HD, NT>(dpT, sv + 16 * warp * LD, tdo, lane);
+      mma_qk<T, HD, NT>(sT, sk + 16 * warp * LD, tq, lane);
+    } else {  // the warp's rows of K and V, in registers from the first step on
+      if (i == 0) {
+        a_frags<HD>(kf, sk + 16 * warp * LD, lane);
+        a_frags<HD>(vf, sv + 16 * warp * LD, lane);
+      }
+      mma_qk_frags<HD, NT>(dpT, vf, tdo, lane);
+      mma_qk_frags<HD, NT>(sT, kf, tq, lane);
+    }
+    const bool edge = edge_tile(p, q0, BQ2, k0, BK);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(sd + 8 * j + 2 * t);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sp[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
-          sds[(ty + 16 * i) * LDP + tx + 16 * j] = dp[i][j];
-        }
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q over the tile's 64 q rows
-#pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
-        const float4 pv = *reinterpret_cast<const float4*>(sp + r * LDP + 4 * cx);
-        const float4 dsv = *reinterpret_cast<const float4*>(sds + r * LDP + 4 * cx);
-        const float pj[4] = {pv.x, pv.y, pv.z, pv.w}, dsj[4] = {dsv.x, dsv.y, dsv.z, dsv.w};
-        float dov[DPT], qv[DPT];
-        load_row(dov, sdo + r * LD + DPT * dx);
-        load_row(qv, sq + r * LD + DPT * dx);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int u = 0; u < DPT; ++u) {
-            adv[j][u] = fmaf(pj[j], dov[u], adv[j][u]);
-            adk[j][u] = fmaf(dsj[j], qv[u], adk[j][u]);
-          }
+      for (int e = 0; e < 4; ++e) {
+        const int c = e & 1;
+        const bool ok = !edge || visible(p, q0 + 8 * j + 2 * t + c, ka + 8 * (e >> 1));
+        float ds;
+        sT[j][e] = prob_and_dscore(p, sT[j][e], dpT[j][e], c ? l2.y : l2.x,
+                                    c ? d2.y : d2.x, ok, ds);
+        dpT[j][e] = ds;
       }
     }
+    mma_pv<T, HD, NT>(adv, sT, tdo, lane);
+    mma_pv<T, HD, NT>(adk, dpT, tq, lane);
   }
+  cp_async_wait<0>();
 
-  T* dkb = static_cast<T*>(p.dk) + b * p.st[SDK] + kvh * p.st[SDK + 2];
-  T* dvb = static_cast<T*>(p.dv) + b * p.st[SDV] + kvh * p.st[SDV + 2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int kpos = k0 + 4 * cx + j;
-    if (kpos >= p.Tk) continue;
-#pragma unroll
-    for (int u = 0; u < DPT; ++u) {
-      const int d = DPT * dx + u;
-      if (d < p.hd) {
-        dkb[kpos * p.st[SDK + 1] + d] = from_f<T>(adk[j][u]);
-        dvb[kpos * p.st[SDV + 1] + d] = from_f<T>(adv[j][u]);
-      }
-    }
-  }
+  const int r0 = 16 * warp + g, nv = p.Tk - k0;
+  store_acc<T, HD>(static_cast<T*>(p.dk) + b * p.st[SDK] + kvh * p.st[SDK + 2] +
+                       k0 * p.st[SDK + 1], p.st[SDK + 1], adk, r0, nv, p.hd, t);
+  store_acc<T, HD>(static_cast<T*>(p.dv) + b * p.st[SDV] + kvh * p.st[SDV + 2] +
+                       k0 * p.st[SDV + 1], p.st[SDV + 1], adv, r0, nv, p.hd, t);
 }
 
 // ---- pass 3: dQ -----------------------------------------------------------------
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Params p) {
-  constexpr int LD = Shape<HD>::LD, DPT = Shape<HD>::DPT;
+  using L = Tile<T, HD>;
+  constexpr int LD = L::LD, BK3 = L::BK3, NT = BK3 / 8;
   extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
-  float* sdo = sq + BQ * LD;
-  float* sk = sdo + BQ * LD;
-  float* sv = sk + BK * LD;
-  float* sds = sv + BK * LD;
-  float* sl = sds + BQ * LDP;
-  float* sd = sl + BQ;
+  T* sq = reinterpret_cast<T*>(smem4);
+  T* sdo = sq + BQ * LD;
+  T* sk = sdo + BQ * LD;         // + stage * BK3 * LD
+  T* sv = sk + 2 * BK3 * LD;     // + stage * BK3 * LD
 
   const int nbh = p.B * p.H;
   const int rank = blockIdx.x / nbh, bh = blockIdx.x - rank * nbh;
   const int b = bh / p.H, h = bh - b * p.H;
   const int q0 = (p.nq - 1 - rank) * BQ;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int rx = tid & 15, dx = tid >> 4;  // accumulation: rows rx + 16 i, columns DPT dx + u
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
 
-  load_tile<T, HD>(sq, static_cast<const T*>(p.q) + b * p.st[SQ] + h * p.st[SQ + 2] +
-                           q0 * p.st[SQ + 1], p.st[SQ + 1], p.S - q0, p.hd);
-  load_tile<T, HD>(sdo, static_cast<const T*>(p.dout) + b * p.st[SDO] + h * p.st[SDO + 2] +
-                            q0 * p.st[SDO + 1], p.st[SDO + 1], p.S - q0, p.hd);
-  load_rows(p, sl, sd, bh, q0);
   const T* kb = static_cast<const T*>(p.k) + b * p.st[SK] + (h / p.group) * p.st[SK + 2];
   const T* vb = static_cast<const T*>(p.v) + b * p.st[SV] + (h / p.group) * p.st[SV + 2];
-
   int k_lo, k_hi;
   key_range(p, q0, k_lo, k_hi);
-  float adq[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int u = 0; u < DPT; ++u) adq[i][u] = 0.f;
+  const int kt0 = k_lo / BK3;
+  const int ntiles = k_lo <= k_hi ? k_hi / BK3 - kt0 + 1 : 0;
+  auto load_kv = [&](int i) {
+    const int k0 = (kt0 + i) * BK3, stage = i & 1;
+    load_tile<T, HD>(sk + stage * BK3 * LD, LD, kb + k0 * p.st[SK + 1], p.st[SK + 1], BK3,
+                     p.Tk - k0, p.hd, p.vec);
+    load_tile<T, HD>(sv + stage * BK3 * LD, LD, vb + k0 * p.st[SV + 1], p.st[SV + 1], BK3,
+                     p.Tk - k0, p.hd, p.vec);
+  };
+  load_tile<T, HD>(sq, LD, static_cast<const T*>(p.q) + b * p.st[SQ] + h * p.st[SQ + 2] +
+                               q0 * p.st[SQ + 1], p.st[SQ + 1], BQ, p.S - q0, p.hd, p.vec);
+  load_tile<T, HD>(sdo, LD, static_cast<const T*>(p.dout) + b * p.st[SDO] +
+                                h * p.st[SDO + 2] + q0 * p.st[SDO + 1], p.st[SDO + 1], BQ,
+                   p.S - q0, p.hd, p.vec);
+  ring_start(ntiles, load_kv);
 
-  const int kt_end = k_lo <= k_hi ? k_hi / BK : -1;
-  for (int kt = k_lo / BK; kt <= kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous key tile is consumed (and Q, dO are staged)
-    load_tile<T, HD>(sk, kb + k0 * p.st[SK + 1], p.st[SK + 1], p.Tk - k0, p.hd);
-    load_tile<T, HD>(sv, vb + k0 * p.st[SV + 1], p.st[SV + 1], p.Tk - k0, p.hd);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_product<HD>(s, sq, sk, ty, tx);
-    tile_product<HD>(dp, sdo, sv, ty, tx);
-    probs_and_dscores(p, s, dp, sl, sd, q0, k0, ty, tx);
+  const int qa = q0 + 16 * warp + g;  // this lane's rows: qa, qa + 8
+  float lse2[2], dd[2];               // a row past S has lse = +inf, so its p is 0
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const bool in = qa + 8 * r < p.S;
+    const long long at = (long long)bh * p.S + qa + 8 * r;
+    lse2[r] = in ? p.lse[at] : __int_as_float(0x7f800000);
+    dd[r] = in ? p.delta[at] : 0.f;
+  }
+  float adq[HD / 8][4];
+  uint32_t qf[HD / 16][4], df[HD / 16][4];  // AREG: Q's and dO's A fragments
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sds[(ty + 16 * i) * LDP + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-    // dQ += dS K over the tile's 64 keys
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float dsv[4][4];
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 y = *reinterpret_cast<const float4*>(sds + (rx + 16 * i) * LDP + c);
-        dsv[i][0] = y.x; dsv[i][1] = y.y; dsv[i][2] = y.z; dsv[i][3] = y.w;
+    for (int e = 0; e < 4; ++e) adq[n][e] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    ring_wait(i, ntiles, load_kv);
+    const int stage = i & 1, k0 = (kt0 + i) * BK3;
+    const T* tk = sk + stage * BK3 * LD;
+    float s[NT][4], dp[NT][4];  // rows qa, qa + 8 x keys 8j + 2t + {0, 1}
+    if constexpr (!L::AREG) {
+      mma_qk<T, HD, NT>(s, sq + 16 * warp * LD, tk, lane);
+      mma_qk<T, HD, NT>(dp, sdo + 16 * warp * LD, sv + stage * BK3 * LD, lane);
+    } else {  // the warp's rows of Q and dO, in registers from the first step on
+      if (i == 0) {
+        a_frags<HD>(qf, sq + 16 * warp * LD, lane);
+        a_frags<HD>(df, sdo + 16 * warp * LD, lane);
       }
+      mma_qk_frags<HD, NT>(s, qf, tk, lane);
+      mma_qk_frags<HD, NT>(dp, df, sv + stage * BK3 * LD, lane);
+    }
+    const bool edge = edge_tile(p, q0, BQ, k0, BK3);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float kv[DPT];
-        load_row(kv, sk + (c + e) * LD + DPT * dx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int u = 0; u < DPT; ++u) adq[i][u] = fmaf(dsv[i][e], kv[u], adq[i][u]);
+        const int r = e >> 1;
+        const bool ok = !edge || visible(p, qa + 8 * r, k0 + 8 * j + 2 * t + (e & 1));
+        float ds;
+        prob_and_dscore(p, s[j][e], dp[j][e], lse2[r], dd[r], ok, ds);
+        dp[j][e] = ds;
       }
-    }
+    mma_pv<T, HD, NT>(adq, dp, tk, lane);
   }
+  cp_async_wait<0>();
 
-  T* dqb = static_cast<T*>(p.dq) + b * p.st[SDQ] + h * p.st[SDQ + 2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + rx + 16 * i;
-    if (qpos >= p.S) continue;
-#pragma unroll
-    for (int u = 0; u < DPT; ++u) {
-      const int d = DPT * dx + u;
-      if (d < p.hd) dqb[qpos * p.st[SDQ + 1] + d] = from_f<T>(adq[i][u]);
-    }
-  }
+  store_acc<T, HD>(static_cast<T*>(p.dq) + b * p.st[SDQ] + h * p.st[SDQ + 2] +
+                       q0 * p.st[SDQ + 1], p.st[SDQ + 1], adq, 16 * warp + g, p.S - q0, p.hd, t);
 }
 
 // ---- host -------------------------------------------------------------------
+
+// Whether a [B, L, N, hd] view can be read in 16-byte rows: the base and
+// every stride of a dim longer than 1 a multiple of 16 bytes.
+bool rows16(const void* ptr, int esize, const long long* st, int n0, int n1, int n2) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  const int n[3] = {n0, n1, n2};
+  for (int i = 0; i < 3; ++i)
+    if (n[i] > 1 && (st[i] * esize) % 16) return false;
+  return true;
+}
 
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
@@ -479,10 +820,11 @@ cudaError_t prepare(K kernel, size_t smem) {
 
 template <typename T, int HD>
 cudaError_t launch(Params p, cudaStream_t stream) {
-  constexpr int LD = Shape<HD>::LD;
-  constexpr size_t smem1 = sizeof(float) * size_t(BQ + BK) * LD;
-  constexpr size_t smem2 = sizeof(float) * (size_t(2 * BK + 2 * BQ) * LD + 2 * BQ * LDP + 2 * BQ);
-  constexpr size_t smem3 = sizeof(float) * (size_t(2 * BQ + 2 * BK) * LD + BQ * LDP + 2 * BQ);
+  using L = Tile<T, HD>;
+  constexpr size_t smem1 = sizeof(T) * size_t(BQ + 2 * L::BK1) * L::LD;
+  constexpr size_t smem2 = sizeof(T) * size_t(2 * BK + 4 * L::BQ2) * L::LD +
+                           sizeof(float) * 4 * L::BQ2;
+  constexpr size_t smem3 = sizeof(T) * size_t(2 * BQ + 4 * L::BK3) * L::LD;
   cudaError_t err;
   if ((err = prepare(flash_bwd_lse_kernel<T, HD>, smem1)) != cudaSuccess) return err;
   if ((err = prepare(flash_bwd_dkdv_kernel<T, HD>, smem2)) != cudaSuccess) return err;
@@ -523,6 +865,7 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const
                               float softcap, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Tk <= 0 || KV <= 0 || H % KV != 0 || (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
+  const int esize = dtype == 0 ? 4 : 2;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
   p.dq = dq; p.dk = dk; p.dv = dv;
@@ -530,6 +873,11 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const
   p.B = B; p.S = S; p.Tk = Tk; p.H = H; p.KV = KV; p.group = H / KV; p.hd = hd;
   p.nq = 0; p.nk = 0; p.causal = causal; p.window = window;
   p.softcap = softcap; p.scale = scale;
+  p.mult = softcap > 0.f ? LOG2E : scale * LOG2E;
+  p.cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  p.vec = (hd * esize) % 16 == 0 && rows16(q, esize, strides, B, S, H) &&
+          rows16(k, esize, strides + 3, B, Tk, KV) && rows16(v, esize, strides + 6, B, Tk, KV) &&
+          rows16(o, esize, strides + 9, B, S, H) && rows16(dout, esize, strides + 12, B, S, H);
   for (int i = 0; i < 24; ++i) p.st[i] = strides[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return int(dtype == 0 ? dispatch_hd<float>(p, st) : dispatch_hd<__nv_bfloat16>(p, st));

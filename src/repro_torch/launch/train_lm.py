@@ -111,19 +111,23 @@ class GradientMean:
     """The mean over dp ranks of a flattened gradient vector: ``[dp, n]``
     stacked (every rank's row) or ``[n]`` (this rank's, under
     ``DistBackend``); padded to a multiple of dp for the all-reduce
-    (train_lm.py:94-100)."""
+    (train_lm.py:94-100). At dp=1 there is no collective, no plan and no
+    ring: the vector is the mean as it is, as the reference's dp=1 step
+    (train_lm.py:177-183) takes its gradient."""
 
     def __init__(self, dp: int, collectives: str, backend=STACKED):
         if collectives not in COLLECTIVES:
             raise ValueError(f"collectives {collectives!r} not in {COLLECTIVES}")
         self.dp, self.collectives, self.backend = dp, collectives, backend
-        if collectives == "pccl":
+        if collectives == "pccl" and dp > 1:
             self.topo = ring(dp, bidirectional=True)
             self.program = PlanService().program(self.topo, {"data": dp},
                                                  "all_reduce", "data")
             self.req = CollectiveRequest("all_reduce", group=tuple(range(dp)))
 
     def __call__(self, vec: torch.Tensor) -> torch.Tensor:
+        if self.dp == 1:
+            return vec
         pad = (-vec.shape[-1]) % self.dp
         if pad:
             vec = F.pad(vec, (0, pad))

@@ -358,6 +358,21 @@ def test_backward_kernel_matches_plain(cuda, B, S, T, H, KV, hd, dtype, kw):
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernel_is_deterministic(cuda, dtype):
+    """Two calls on the same GQA causal inputs give the same bits: no
+    atomics, and every sum runs in a fixed order whatever order the blocks
+    run in (the DP ranks' params stay equal bit for bit on it)."""
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(cuda, dt, 2, 300, 300, 8, 2, 64, seed=13)
+    o = tref(q, k, v, causal=True)
+    do = torch.randn_like(q)
+    first = tops.flash_attention_bwd(q, k, v, o, do, causal=True)
+    second = tops.flash_attention_bwd(q, k, v, o, do, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_backward_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, torch.bfloat16, 1, 16, 16, 2, 1, 256)
     with pytest.raises(ValueError, match="head_dim 1..128"):

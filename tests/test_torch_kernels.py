@@ -19,6 +19,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.ref import flash_attention_ref as jref  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref as tref  # noqa: E402
 
 F32_TOL = 2e-5
@@ -294,3 +295,81 @@ def test_attention_precision_needs_3xtf32():
 
     assert misses(attend(lambda a, b: _tc_matmul(a, b, "3xtf32"))) <= 0
     assert misses(attend(lambda a, b: _tc_matmul(a, b, "1xtf32"))) > 0
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel's rounding points (no card needed)
+# ---------------------------------------------------------------------------
+
+def _bf16_round(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _bwd_dense(q, k, v, o, do, mm, operand, *, causal=True, softcap=0.0):
+    """dq, dk, dv of one batch row [S, H, hd] (k, v [T, KV, hd]) by the
+    backward kernel's five products, each through ``mm``; P and dS pass
+    through ``operand`` before the products that consume them (dV = P^T dO,
+    dK = dS^T Q, dQ = dS K), the way the kernel rounds them."""
+    S, H, hd = q.shape
+    T, KV = k.shape[:2]
+    group, scale = H // KV, 1 / np.sqrt(hd)
+    visible = np.tril(np.ones((S, T), bool)) if causal else np.ones((S, T), bool)
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+    for h in range(H):
+        kh, vh, qh, doh = k[:, h // group], v[:, h // group], q[:, h], do[:, h]
+        s = mm(qh, kh.T) * scale
+        th = np.tanh(s / softcap) if softcap > 0 else np.zeros_like(s)
+        if softcap > 0:
+            s = softcap * th
+        s = np.where(visible, s, -np.inf)
+        p = np.exp(s - s.max(-1, keepdims=True))
+        p = p / p.sum(-1, keepdims=True)
+        delta = (doh * o[:, h]).sum(-1, keepdims=True)
+        ds = p * (mm(doh, vh.T) - delta) * (1 - th * th) * scale
+        dv[:, h // group] += mm(operand(p).T, doh)
+        dk[:, h // group] += mm(operand(ds).T, qh)
+        dq[:, h] = mm(operand(ds), kh)
+    return dq, dk, dv
+
+
+BWD_ROUNDING_CASES = [
+    ("bfloat16", dict(causal=True)),
+    ("bfloat16", dict(causal=True, softcap=20.0)),
+    ("float32", dict(causal=True)),
+]
+
+
+@pytest.mark.parametrize("dtype,kw", BWD_ROUNDING_CASES,
+                         ids=["bf16-causal", "bf16-softcap20", "f32-causal"])
+def test_backward_bf16_operand_rounding_within_tolerance(dtype, kw):
+    """At (1, 256, 4, 2, 64), a reduced llama3.2-1b training shape, the
+    backward kernel's rounding points hold the kernel tolerances. bf16: the
+    products in f32 on the bf16 inputs, P and dS rounded to bf16 before the
+    products that consume them (the tensor cores' operands), stay within
+    2e-2 of ``flash_attention_bwd_ref``. f32: every product split in three
+    (3xTF32) stays within 2e-5 of a float64 oracle; one TF32 product per
+    GEMM does not, so the f32 kernel splits them all."""
+    q, k, v = (a[0] for a in _qkv_np(5, 1, 256, 4, 2, 64))
+    do = np.random.default_rng(6).standard_normal(q.shape, dtype=np.float32)
+    if dtype == "bfloat16":
+        tq, tk, tv, tdo = (torch.from_numpy(a)[None].bfloat16() for a in (q, k, v, do))
+        to = tref(tq, tk, tv, **kw)
+        want = flash_attention_bwd_ref(tq, tk, tv, to, tdo, **kw)
+        got = _bwd_dense(*(x[0].float().numpy() for x in (tq, tk, tv, to, tdo)),
+                         lambda a, b: a @ b, _bf16_round, **kw)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(_bf16_round(g), _np(w[0]), rtol=BF16_TOL,
+                                       atol=BF16_TOL, err_msg=name)
+        return
+    o = _np(tref(*(torch.from_numpy(a)[None] for a in (q, k, v)), **kw)[0])
+    want = _bwd_dense(*(a.astype(np.float64) for a in (q, k, v, o, do)),
+                      lambda a, b: a @ b, lambda a: a, **kw)
+
+    def misses(scheme):
+        got = _bwd_dense(q, k, v, o, do, lambda a, b: _tc_matmul(a, b, scheme),
+                         lambda a: a.astype(np.float32), **kw)
+        return max(float((np.abs(g - w) - F32_TOL * (1 + np.abs(w))).max())
+                   for g, w in zip(got, want))
+
+    assert misses("3xtf32") <= 0
+    assert misses("1xtf32") > 0

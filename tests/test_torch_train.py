@@ -465,3 +465,19 @@ def test_train_lm_main_needs_cuda_unless_cpu(monkeypatch, capsys):
         train_lm.main(["--model", "tiny", "--steps", "1"])
     with pytest.raises(ValueError, match="not divisible"):
         train_lm.train(_f32_tiny(), steps=1, batch=6, seq=8, dp=4, device="cpu")
+
+
+def test_train_lm_dp1_default_flags(capsys):
+    """dp=1 under the default flags (``--collectives pccl``) takes a plain
+    step with no collective, as the reference does: no ring, no plan, the
+    gradient as it is. ``--compare-collectives`` at dp=1 still raises."""
+    assert train_lm.main(["--model", "tiny", "--steps", "2", "--batch", "2",
+                          "--seq", "32", "--device", "cpu"]) == 0
+    assert "done: 2 steps" in capsys.readouterr().out
+    mean = train_lm.GradientMean(1, "pccl")
+    assert not hasattr(mean, "program") and not hasattr(mean, "topo")
+    vec = torch.arange(5, dtype=torch.float32)[None]
+    assert mean(vec) is vec
+    with pytest.raises(ValueError, match="needs --dp > 1"):
+        train_lm.main(["--model", "tiny", "--steps", "1", "--batch", "2", "--seq", "16",
+                       "--device", "cpu", "--compare-collectives"])
