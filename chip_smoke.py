@@ -11,8 +11,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    head_dim 64 / 128, the mma kernel for f32 and every other head_dim up to
    256, the wide kernel above 256) against their plain PyTorch version on
    the card at the test shapes
-   (head_dim 112 and 120 included), strided views of a fused projection and
-   the serving shape, each call counted on the route that the table names;
+   (head_dim 112 and 120 included), strided views of a fused projection,
+   the serving shape and the served shapes of chatglm3-6b (16 query heads
+   a KV head) and zamba2-7b (MHA at hd 112), each call counted on the
+   route that the table names;
    then time both at the serving shape beside the plain version, the bound
    and, as a yardstick the port never calls,
    ``torch.nn.functional.scaled_dot_product_attention``; and the mma route
@@ -24,10 +26,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    shapes, a ragged S, S < chunk and the serving shape, and again with a
    slow decay that carries the state across many chunks (the slice, 32
    chunks, a chunk of 100, grids smaller and larger than the card), and at
-   the (P, N) the wrapper slices or pads, (128, 256) and (48, 96); then
-   time it at the serving shape beside the plain version (no single
-   PyTorch call computes it) and its bound, the faster of the f32 CUDA
-   cores and the TF32 tensor cores at three products (3xTF32), or bytes;
+   the (P, N) the wrapper slices or pads, (128, 256) and (48, 96), and at
+   zamba2-7b's (112 heads, state 64); then time it at the serving shape
+   beside the plain version (no single PyTorch call computes it) and its
+   bound, the faster of the f32 CUDA cores and the TF32 tensor cores at
+   three products (3xTF32), or bytes; and at zamba2-7b's shape (printed);
 5. hold the flash-attention backward kernel against its plain version on
    the card (tests/test_kernels.py's grid at S = 192: MHA, GQA, MQA, causal
    on and off, windows 32 and 96, softcap 20; f32 and bf16 at head_dim 32,
@@ -45,7 +48,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the card against the CPU;
 7. the same for full-width mamba2-370m, with the SSD kernel's launches
    counted and the plain SSD scan as the comparison, a planted fault that
-   the bf16 check must reject, and the checks repeated in f32;
+   the bf16 check must reject, and the checks repeated in f32; then for
+   zamba2-7b (the hybrid: 81 Mamba blocks, the shared attention block
+   after every 6 of them, 13 calls of the mma route and 81 of the SSD
+   kernel a prefill; plain attention and plain scan together as the
+   comparison, the same planted fault), chatglm3-6b and internlm2-20b
+   (the wgmma route at hd 128) and h2o-danube-3-4b (the mma route at hd
+   120, and a 6144-token prompt on which its 4096-token window binds, with
+   the window left out as a planted fault), each at full width and depth
+   in bf16 and again in f32 (internlm2-20b's f32 at 24 of its 48 layers:
+   all 48 do not fit the card in f32);
 8. train full-width llama3.2-1b on the card (bf16 compute, f32 master
    params and AdamW state, 4 x 1024 tokens a step): the first step's loss
    and gradient norm beside the same step through the plain attention
@@ -116,6 +128,19 @@ SSD_TOL = 1e-4
 # by ~exp(-0.7) a token, so the SSD kernel checks above hold the carry.
 SSM_BF16_REL_TOL = 0.3
 SSM_F32_REL_TOL = 1e-3
+# zamba2-7b (81 Mamba blocks and 13 calls of the shared attention block):
+# the same reasoning and limits as mamba2's, with the same planted fault
+HYBRID_BF16_REL_TOL = SSM_BF16_REL_TOL
+HYBRID_F32_REL_TOL = SSM_F32_REL_TOL
+# the reduced hybrid checked card against CPU: a tail group like zamba2-7b's
+# 81 = 13 x 6 + 3 (2 groups of 3 Mamba blocks, then 1)
+HYBRID_TAIL = dict(num_layers=7, hybrid_attn_period=3)
+# internlm2-20b's f32 weights (79.4 GB at 48 layers) do not fit the card:
+# its f32 repeat keeps the full width and this many layers
+INTERNLM2_F32_LAYERS = 24
+# h2o-danube-3-4b's window (4096) binds only past 4096 tokens: one prompt
+# this long is checked with the window left out as the planted fault
+WINDOW_PROMPT = 6144
 
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
 SLICE_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 32, 8, 64)  # B, S, H, KV, hd
@@ -172,6 +197,11 @@ CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
         (1, 200, 200, 4, 2, 1024, dt, dict(causal=True)),
         (1, 64, 64, 2, 1, 4096, dt, dict(causal=True)),
     )],
+    # served shapes no row above reaches: chatglm3-6b's 16 query heads a KV
+    # head (wgmma in bf16, mma in f32), zamba2-7b's MHA at hd 112 (mma)
+    (4, 1024, 1024, 32, 2, 128, "bfloat16", dict(causal=True)),
+    (4, 1024, 1024, 32, 2, 128, "float32", dict(causal=True)),
+    (4, 1024, 1024, 32, 32, 112, "bfloat16", dict(causal=True)),
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
      "float32", dict(causal=True)),                                   # the slice, f32
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
@@ -197,6 +227,7 @@ WIDE_SHAPE = (2, 1024, 8, 2, 512)
 WIDE_SHAPES = (WIDE_SHAPE, (*WIDE_SHAPE[:4], 1024))
 
 SSD_SLICE = (SERVE_BATCH, SERVE_PROMPT, 32, 64, 128, 128)  # B, S, H, P, N, chunk
+ZAMBA2_SSD = (SERVE_BATCH, SERVE_PROMPT, 112, 64, 64, 128)  # zamba2-7b's prefill
 SSD_CASES = [  # B, S, H, P, N, chunk, slow decay
     (1, 64, 2, 16, 8, 16, False),       # tests/test_kernels.py's shapes
     (2, 128, 4, 32, 16, 32, False),
@@ -214,6 +245,8 @@ SSD_CASES = [  # B, S, H, P, N, chunk, slow decay
     (2, 1000, 4, 64, 128, 100, True),   # chunk no multiple of 16, ragged
     (1, 256, 4, 64, 128, 128, True),    # fewer blocks than SMs
     (2, 2048, 32, 64, 128, 128, True),  # more blocks than SMs
+    (*ZAMBA2_SSD, False),                # zamba2-7b's shape, both decays
+    (*ZAMBA2_SSD, True),
     # sizes the kernel is not built for: P and N sliced or padded, chunk cut
     *[(1, 300, 4, P, N, chunk, slow) for P, N in ((128, 256), (48, 96))
       for chunk, slow in ((128, False), (256, True))],
@@ -833,6 +866,255 @@ def finite(*values) -> bool:
     return all(math.isfinite(x) for x in values)
 
 
+# ---------------------------------------------------------------------------
+# serving: each model at full width through its kernels, then its checks
+# ---------------------------------------------------------------------------
+
+def diagonal_dropped(scan):
+    """``scan`` with a planted fault, an off-by-one causal mask: y_i leaves
+    out its own position's term (C_i . B_i) dt_i x_i."""
+    def faulty(xh, dt, A, Bm, Cm, *, chunk, return_state=False):
+        out = scan(xh, dt, A, Bm, Cm, chunk=chunk, return_state=return_state)
+        y = out[0] if return_state else out
+        y = y - (Cm * Bm).sum(-1)[..., None, None] * dt[..., None] * xh
+        return (y, out[1]) if return_state else y
+    return faulty
+
+
+def window_dropped(attention):
+    """``attention`` with a planted fault: the sliding window left out, so
+    every earlier key is visible."""
+    def faulty(q, k, v, *, causal=True, window=0, softcap=0.0):
+        return attention(q, k, v, causal=causal, softcap=softcap)
+    return faulty
+
+
+def card():
+    """The card the serving phases run on."""
+    import torch
+    return torch.device("cuda", 0)
+
+
+def scan_fault():
+    """(what, LM keywords) of the planted fault the SSM logits checks must fail."""
+    from repro_torch.kernels import ops
+    return "off-by-one causal mask in the scan", dict(ssd_scan=diagonal_dropped(ops.ssd_scan))
+
+
+def window_fault():
+    """(what, LM keywords) of the planted fault the long-prompt checks must fail."""
+    from repro_torch.kernels import ops
+    return "sliding window left out", dict(attention=window_dropped(ops.flash_attention))
+
+
+def flash_want(fa, wgmma: int = 0, mma: int = 0) -> dict:
+    """Launches a served prefill must count on each forward flash route."""
+    return {fa.flash_attention: wgmma + mma, fa.flash_attention_wgmma: wgmma,
+            fa.flash_attention_mma: mma, fa.flash_attention_wide: 0}
+
+
+def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
+                  out: dict | None = None, fault=None) -> None:
+    """Prefill logits against the same forward on the plain version(s), and
+    decode at position S from the prefilled cache against a prefill of S+1
+    tokens, both by rel-L2. The prefill logits and first token are the
+    served run's ``out``, or a fresh prefill's without it. With ``fault``
+    (what, LM keywords that plant it), that forward must miss the plain one
+    by more than ``tol``: the check can fail a wrong kernel."""
+    import torch
+
+    from repro_torch.models import LM
+
+    dev = lm.device
+    S = prompts.shape[1]
+    with torch.inference_mode():
+        plain_logits, _ = LM(cfg, device=dev, **plain_kw).prefill(params, prompts)
+        if out is None:
+            got, _ = lm.prefill(params, prompts)
+            tok0 = got.argmax(-1)
+        else:
+            got, tok0 = out["prefill_logits"], out["tokens"][:, 0]
+        e_plain = rel_l2(got, plain_logits)
+        print(f"  {cfg.dtype}, {tuple(prompts.shape)} prompt: prefill vs plain "
+              f"{'/'.join(plain_kw)}: rel_l2={e_plain:.3g} "
+              f"max_abs={float((got - plain_logits).abs().max()):.3g} (tol rel_l2 {tol})")
+        if not e_plain <= tol:
+            fail(f"{cfg.name} {cfg.dtype} prefill logits disagree with the plain "
+                 f"{'/'.join(plain_kw)} forward")
+        if fault is not None:
+            what, fault_kw = fault
+            faulty, _ = LM(cfg, device=dev, **fault_kw).prefill(params, prompts)
+            e_fault = rel_l2(faulty, plain_logits)
+            print(f"  {cfg.dtype}: planted fault ({what}) vs plain: rel_l2={e_fault:.3g} "
+                  f"(must exceed {tol})")
+            if not e_fault > tol:
+                fail(f"the {cfg.name} {cfg.dtype} prefill check passes a planted fault "
+                     f"({what})")
+            del faulty
+
+        _, cache = lm.prefill(params, prompts, max_seq=S + 1)
+        step_logits, _ = lm.decode_step(params, cache, tok0, S)
+        del cache
+        longer, _ = lm.prefill(params, torch.cat([prompts, tok0[:, None]], 1))
+        e_cache = rel_l2(step_logits, longer)
+        print(f"  {cfg.dtype}: decode_step at {S} vs prefill of {S + 1}: "
+              f"rel_l2={e_cache:.3g} max_abs={float((step_logits - longer).abs().max()):.3g} "
+              f"(tol rel_l2 {tol})")
+        if not e_cache <= tol:
+            fail(f"{cfg.name} {cfg.dtype} decode from the prefilled cache disagrees with "
+                 f"a longer prefill")
+
+
+def serve_counted(cfg, lm, params, prompts, want: dict) -> tuple[dict, dict]:
+    """Serve ``prompts`` with every counter of ``want`` set to 0 just before
+    the run and read just after; fail unless each counted ``want[counter]``
+    launches. Returns the served output and the counts."""
+    import torch
+
+    from repro_torch.launch.serve import report, serve
+
+    dev = lm.device
+    serve(lm, params, prompts, 2)  # warm-up: cuBLAS and allocator start-up
+    for counter in want:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = serve(lm, params, prompts, SERVE_NEW)
+    launches = {counter: counter.launches for counter in want}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(report(out))
+    print(f"serve {cfg.name} {cfg.dtype} layers={cfg.num_layers}: "
+          f"prefill_ms={out['prefill_s'] * 1e3:.3f} "
+          f"decode_ms_per_token={out['decode_s'] * 1e3 / SERVE_NEW:.3f} "
+          f"decode_tok_per_s={SERVE_BATCH * SERVE_NEW / out['decode_s']:.1f} "
+          f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) " +
+          " ".join(f"{c.__name__}_launches={n}" for c, n in launches.items()))
+    for counter, n in want.items():
+        if launches[counter] != n:
+            fail(f"{counter.__name__} launched {launches[counter]} times in one "
+                 f"{cfg.name} {cfg.dtype} serve of {cfg.num_layers} layers, want {n}")
+    toks = out["tokens"]
+    if toks.shape != (SERVE_BATCH, SERVE_NEW + 1) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"bad generated tokens: shape {tuple(toks.shape)}")
+    for key in ("prefill_logits", "last_logits"):
+        if out[key].shape != (SERVE_BATCH, cfg.vocab_size) or \
+                out[key].dtype != torch.float32 or not torch.isfinite(out[key]).all():
+            fail(f"{key}: want finite f32 [{SERVE_BATCH}, {cfg.vocab_size}]")
+    return out, launches
+
+
+def init_model(cfg):
+    """``LM(cfg)`` on the card and its params from seed 0, with the peak
+    memory of the init (each weight is cast as it is drawn)."""
+    import torch
+
+    from repro_torch.models import LM
+
+    dev = card()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    lm = LM(cfg, device=dev)
+    params = lm.init(0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{cfg.name}: {count_params(params) / 1e9:.3f} B params, {cfg.dtype}, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}; init peak {peak} B "
+          f"({peak / 2**30:.2f} GiB)")
+    return lm, params
+
+
+def check_serving(arch: str, want: dict, plain_kw: dict, rel_tol: float, *,
+                  f32_tol: float | None = None, fault=None, want_f32: dict | None = None,
+                  f32_layers: int | None = None,
+                  long_prompt: int | None = None) -> tuple[dict, dict | None]:
+    """Serve ``arch`` at full width with its kernels' launches counted
+    (``want``: counter -> launches the run must make), then the correctness
+    checks. With ``f32_tol`` the logits checks are repeated on the model in
+    f32, where rounding does not hide a fault, at ``f32_layers`` of its
+    layers if given (full width), on a served f32 run counted like the
+    first if ``want_f32`` is given; ``fault`` plants a fault that the bf16
+    check must fail. ``long_prompt``: the checks again, in both dtypes, on
+    one prompt of that many tokens, with the sliding window left out as the
+    planted fault. Last, the reduced model on the card against the CPU.
+    Returns the launches of the served runs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import LM
+
+    t0 = time.perf_counter()
+    phase(f"serve {arch}")
+    dev = card()
+    cfg = get_config(arch)
+    lm, params = init_model(cfg)
+    prompts = torch.from_numpy(
+        make_prompts(SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, 0)).to(dev)
+    long_prompts = None if long_prompt is None else torch.from_numpy(
+        make_prompts(1, long_prompt, cfg.vocab_size, 2)).to(dev)
+    out, launches = serve_counted(cfg, lm, params, prompts, want)
+    logits_checks(cfg, lm, params, prompts, plain_kw, rel_tol, out=out, fault=fault)
+    if long_prompts is not None:
+        logits_checks(cfg, lm, params, long_prompts, plain_kw, rel_tol, fault=window_fault())
+    del lm, params, out
+    launches32 = None
+    if f32_tol is not None:
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    num_layers=f32_layers or cfg.num_layers)
+        if cfg32.num_layers != cfg.num_layers:
+            print(f"  f32 repeat at full width and {cfg32.num_layers} of {cfg.num_layers} "
+                  f"layers: the f32 weights of all {cfg.num_layers} "
+                  f"({cfg.param_count() * 4 / 1e9:.1f} GB) do not fit the card")
+        lm32, params32 = init_model(cfg32)
+        out32 = None
+        if want_f32 is not None:
+            out32, launches32 = serve_counted(cfg32, lm32, params32, prompts, want_f32)
+        logits_checks(cfg32, lm32, params32, prompts, plain_kw, f32_tol, out=out32)
+        if long_prompts is not None:
+            logits_checks(cfg32, lm32, params32, long_prompts, plain_kw, f32_tol,
+                          fault=window_fault())
+        del lm32, params32, out32
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        small = cfg.reduced(dtype="float32", **(HYBRID_TAIL if cfg.family == "hybrid" else {}))
+        cpu_lm, gpu_lm = LM(small, device="cpu"), LM(small, device=dev)
+        cpu_params = cpu_lm.init(0)
+        gpu_params = to_device(cpu_params, dev)
+        small_tokens = torch.from_numpy(make_prompts(2, 100, small.vocab_size, 1))
+        want_small = cpu_lm.forward_logits(cpu_params, small_tokens)
+        got = gpu_lm.forward_logits(gpu_params, small_tokens.to(dev)).cpu()
+        e_small, ok = compare(got, want_small, REDUCED_F32_TOL)
+        print(f"  reduced f32 model ({small.num_layers} layers; its kernels at the reduced "
+              f"shape), card vs CPU: max_abs_err={e_small:.3g} (rtol = atol = {REDUCED_F32_TOL})")
+        if not ok:
+            fail(f"the reduced {arch} on the card disagrees with the CPU")
+    print(f"serve {arch}: phase took {time.perf_counter() - t0:.1f} s")
+    return launches, launches32
+
+
+def serving_phases(fa, ssd, flash_attention_ref, ssd_scan_ref) -> None:
+    """The hybrid zamba2-7b and the three dense configs beyond llama3.2-1b,
+    each at full width and depth in bf16 and again in f32 (internlm2-20b's
+    f32 at ``INTERNLM2_F32_LAYERS`` layers)."""
+    from repro_torch.configs import get_config
+
+    z = get_config("zamba2-7b")
+    groups = z.num_layers // z.hybrid_attn_period
+    zamba_want = {**flash_want(fa, mma=groups), ssd.ssd_scan: z.num_layers}
+    check_serving("zamba2-7b", zamba_want,
+                  dict(attention=flash_attention_ref, ssd_scan=ssd_scan_ref),
+                  HYBRID_BF16_REL_TOL, f32_tol=HYBRID_F32_REL_TOL, fault=scan_fault(),
+                  want_f32=zamba_want)
+    for arch, route in (("chatglm3-6b", "wgmma"), ("internlm2-20b", "wgmma"),
+                        ("h2o-danube-3-4b", "mma")):
+        L = get_config(arch).num_layers
+        L32 = INTERNLM2_F32_LAYERS if arch == "internlm2-20b" else L
+        check_serving(arch, flash_want(fa, **{route: L}), dict(attention=flash_attention_ref),
+                      LOGITS_REL_TOL, f32_tol=LLAMA_F32_REL_TOL,
+                      want_f32=flash_want(fa, mma=L32), f32_layers=L32,
+                      long_prompt=WINDOW_PROMPT if get_config(arch).sliding_window else None)
+
+
 def dp_phase(torch, dev, fa) -> None:
     """train_lm's data-parallel step with ``DP_RANKS`` ranks stacked on the
     card, PCCL beside the built-in reduction from the same params on the
@@ -885,6 +1167,7 @@ def dp_phase(torch, dev, fa) -> None:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
     if not (SRC / "repro_torch").is_dir():
@@ -897,7 +1180,6 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref, ssd_scan_ref
-    from repro_torch.launch.serve import make_prompts, report, serve
     from repro_torch.models import LM
 
     # 1. the card --------------------------------------------------------
@@ -919,7 +1201,8 @@ def main() -> int:
     phase("build")
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    print(f"built {sorted(logs)} in {build_s:.1f} s")
     for name, log in logs.items():
         if name == "flash_attention_bwd":  # by pass, type and head_dim below
             continue
@@ -1114,154 +1397,34 @@ def main() -> int:
     if ssd_times["ms"] < ssd_bound_ms:
         fail(f"the SSD kernel reads {ssd_times['ms']:.4f} ms, below its "
              f"{ssd_bound_ms:.4f} ms bound: the timing or the bound is wrong")
+    # zamba2-7b's shape (112 heads, state 64): printed, not in the kernels line
+    B, S, H, P, N, chunk = ZAMBA2_SSD
+    zx = ssd_inputs(torch, gen, dev, B, S, H, P, N)
+    got = {"ms": [], "plain_ms": []}
+    for _ in range(3):  # in turns
+        got["ms"].append(time_ms(torch, lambda: ops.ssd_scan(*zx, chunk=chunk,
+                                                             return_state=True), 10))
+        got["plain_ms"].append(time_ms(torch, lambda: ssd_scan_ref(*zx, return_state=True), 1))
+    got = {key: statistics.median(vals) for key, vals in got.items()}
+    zb = ssd_bound(zx[0], zx[3], chunk)
+    print(f"  zamba2-7b's shape {ZAMBA2_SSD} f32 with final state: kernel {got['ms']:.4f} ms, "
+          f"plain {got['plain_ms']:.4f} ms; bound {zb[0] * 1e3:.2f} us by {zb[1]} "
+          f"({bound_terms(zb[4])}); kernel {got['ms'] / zb[0]:.2f}x its bound")
+    del zx
 
     # 5. the backward kernel against its plain version -----------------------
     bwd = backward_phase(torch, dev, gen, fa, ops, flash_attention_ref, flash_attention_bwd_ref)
 
-    # 6. and 7. serve each model through its kernel -------------------------
-    def diagonal_dropped(scan):
-        """``scan`` with a planted fault, an off-by-one causal mask: y_i
-        leaves out its own position's term (C_i . B_i) dt_i x_i."""
-        def faulty(xh, dt, A, Bm, Cm, *, chunk, return_state=False):
-            out = scan(xh, dt, A, Bm, Cm, chunk=chunk, return_state=return_state)
-            y = out[0] if return_state else out
-            y = y - (Cm * Bm).sum(-1)[..., None, None] * dt[..., None] * xh
-            return (y, out[1]) if return_state else y
-        return faulty
-
-    def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
-                      out: dict | None = None, fault_kw: dict | None = None) -> None:
-        """Prefill logits against the same forward on the plain version(s),
-        and decode at position S from the prefilled cache against a prefill
-        of S+1 tokens, both by rel-L2. The prefill logits and first token are
-        the served run's ``out``, or a fresh prefill's without it. With
-        ``fault_kw`` (LM arguments that plant a fault), that forward must
-        miss the plain one by more than ``tol``: the check can fail a wrong
-        kernel."""
-        with torch.inference_mode():
-            plain_logits, _ = LM(cfg, device=dev, **plain_kw).prefill(params, prompts)
-            if out is None:
-                got, _ = lm.prefill(params, prompts)
-                tok0 = got.argmax(-1)
-            else:
-                got, tok0 = out["prefill_logits"], out["tokens"][:, 0]
-            e_plain = rel_l2(got, plain_logits)
-            print(f"  {cfg.dtype}: prefill vs plain {'/'.join(plain_kw)}: "
-                  f"rel_l2={e_plain:.3g} max_abs={float((got - plain_logits).abs().max()):.3g} "
-                  f"(tol rel_l2 {tol})")
-            if not e_plain <= tol:
-                fail(f"{cfg.dtype} prefill logits disagree with the plain "
-                     f"{'/'.join(plain_kw)} forward")
-            if fault_kw is not None:
-                faulty, _ = LM(cfg, device=dev, **fault_kw).prefill(params, prompts)
-                e_fault = rel_l2(faulty, plain_logits)
-                print(f"  {cfg.dtype}: planted fault (off-by-one causal mask) vs "
-                      f"plain: rel_l2={e_fault:.3g} (must exceed {tol})")
-                if not e_fault > tol:
-                    fail(f"the {cfg.dtype} prefill check passes a planted fault")
-
-            _, cache = lm.prefill(params, prompts, max_seq=SERVE_PROMPT + 1)
-            step_logits, _ = lm.decode_step(params, cache, tok0, SERVE_PROMPT)
-            longer, _ = lm.prefill(params, torch.cat([prompts, tok0[:, None]], 1))
-            e_cache = rel_l2(step_logits, longer)
-            print(f"  {cfg.dtype}: decode_step at S vs prefill of S+1: rel_l2={e_cache:.3g} "
-                  f"max_abs={float((step_logits - longer).abs().max()):.3g} "
-                  f"(tol rel_l2 {tol})")
-            if not e_cache <= tol:
-                fail(f"{cfg.dtype} decode from the prefilled cache disagrees with "
-                     f"a longer prefill")
-
-    def serve_counted(cfg, lm, params, prompts, want: dict) -> tuple[dict, dict]:
-        """Serve ``prompts`` with every counter of ``want`` set to 0 just
-        before the run and read just after; fail unless each counted
-        ``want[counter]`` launches. Returns the served output and the counts."""
-        serve(lm, params, prompts, 2)  # warm-up: cuBLAS and allocator start-up
-        for counter in want:
-            counter.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        out = serve(lm, params, prompts, SERVE_NEW)
-        launches = {counter: counter.launches for counter in want}
-        peak = torch.cuda.max_memory_allocated(dev)
-        print(report(out))
-        print(f"serve {cfg.dtype}: prefill_ms={out['prefill_s'] * 1e3:.3f} "
-              f"decode_ms_per_token={out['decode_s'] * 1e3 / SERVE_NEW:.3f} "
-              f"decode_tok_per_s={SERVE_BATCH * SERVE_NEW / out['decode_s']:.1f} "
-              f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) " +
-              " ".join(f"{c.__name__}_launches={n}" for c, n in launches.items()))
-        for counter, n in want.items():
-            if launches[counter] != n:
-                fail(f"{counter.__name__} launched {launches[counter]} times in one "
-                     f"{cfg.dtype} prefill of {cfg.num_layers} layers, want {n}")
-        toks = out["tokens"]
-        if toks.shape != (SERVE_BATCH, SERVE_NEW + 1) or not (
-                (toks >= 0) & (toks < cfg.vocab_size)).all():
-            fail(f"bad generated tokens: shape {tuple(toks.shape)}")
-        for key in ("prefill_logits", "last_logits"):
-            if out[key].shape != (SERVE_BATCH, cfg.vocab_size) or \
-                    out[key].dtype != torch.float32 or not torch.isfinite(out[key]).all():
-                fail(f"{key}: want finite f32 [{SERVE_BATCH}, {cfg.vocab_size}]")
-        return out, launches
-
-    def check_serving(arch: str, want: dict, plain_kw: dict, rel_tol: float,
-                      f32_tol: float | None = None, fault_kw: dict | None = None,
-                      want_f32: dict | None = None) -> tuple[dict, dict | None]:
-        """Serve ``arch`` at full width with its kernels' launches counted
-        (``want``: counter -> launches the run must make), then the
-        correctness checks. With ``f32_tol`` the logits checks are repeated
-        on the same model in f32, where rounding does not hide a fault, on a
-        served f32 run counted like the first if ``want_f32`` is given;
-        ``fault_kw`` plants a fault that the bf16 check must fail. Returns
-        the launches of the served runs."""
-        phase(f"serve {arch}")
-        cfg = get_config(arch)
-        lm = LM(cfg, device=dev)
-        params = lm.init(0)
-        print(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}, "
-              f"{cfg.num_layers} layers, d_model {cfg.d_model}")
-        prompts = torch.from_numpy(
-            make_prompts(SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, 0)).to(dev)
-        out, launches = serve_counted(cfg, lm, params, prompts, want)
-        logits_checks(cfg, lm, params, prompts, plain_kw, rel_tol, out=out,
-                      fault_kw=fault_kw)
-        del lm, params
-        launches32 = None
-        if f32_tol is not None:
-            cfg32 = dataclasses.replace(cfg, dtype="float32")
-            lm32 = LM(cfg32, device=dev)
-            params32 = lm32.init(0)
-            out32 = None
-            if want_f32 is not None:
-                out32, launches32 = serve_counted(cfg32, lm32, params32, prompts, want_f32)
-            logits_checks(cfg32, lm32, params32, prompts, plain_kw, f32_tol, out=out32)
-            del lm32, params32
-
-        with torch.inference_mode():
-            small = cfg.reduced(dtype="float32")
-            cpu_lm, gpu_lm = LM(small, device="cpu"), LM(small, device=dev)
-            cpu_params = cpu_lm.init(0)
-            gpu_params = to_device(cpu_params, dev)
-            small_tokens = torch.from_numpy(make_prompts(2, 100, small.vocab_size, 1))
-            want = cpu_lm.forward_logits(cpu_params, small_tokens)
-            got = gpu_lm.forward_logits(gpu_params, small_tokens.to(dev)).cpu()
-            e_small, ok = compare(got, want, REDUCED_F32_TOL)
-            print(f"  reduced f32 model (its kernel at the reduced shape), card vs "
-                  f"CPU: max_abs_err={e_small:.3g} (rtol = atol = {REDUCED_F32_TOL})")
-            if not ok:
-                fail("the reduced model on the card disagrees with the CPU")
-        return launches, launches32
-
+    # 6. and 7. serve each model through its kernels ------------------------
     layers = get_config("llama3.2-1b").num_layers
     flash, flash32 = check_serving(
-        "llama3.2-1b",
-        {fa.flash_attention: layers, fa.flash_attention_wgmma: layers,
-         fa.flash_attention_mma: 0, fa.flash_attention_wide: 0},
-        dict(attention=flash_attention_ref), LOGITS_REL_TOL, f32_tol=LLAMA_F32_REL_TOL,
-        want_f32={fa.flash_attention: layers, fa.flash_attention_wgmma: 0,
-                  fa.flash_attention_mma: layers, fa.flash_attention_wide: 0})
+        "llama3.2-1b", flash_want(fa, wgmma=layers), dict(attention=flash_attention_ref),
+        LOGITS_REL_TOL, f32_tol=LLAMA_F32_REL_TOL, want_f32=flash_want(fa, mma=layers))
     ssd_launches, _ = check_serving(
         "mamba2-370m", {ssd.ssd_scan: get_config("mamba2-370m").num_layers},
         dict(ssd_scan=ssd_scan_ref), SSM_BF16_REL_TOL, f32_tol=SSM_F32_REL_TOL,
-        fault_kw=dict(ssd_scan=diagonal_dropped(ops.ssd_scan)))
+        fault=scan_fault())
+    serving_phases(fa, ssd, flash_attention_ref, ssd_scan_ref)
 
     # 8. train full-width llama3.2-1b; 9. the data-parallel step ------------
     train_launches = training_phase(torch, dev, get_config, LM, fa, flash_attention_ref,
@@ -1272,6 +1435,8 @@ def main() -> int:
     collective_phase(torch, dev, get_config, LM)
 
     # 11. per-kernel numbers ------------------------------------------------
+    total_s = time.perf_counter() - t_start
+    print(f"chip_smoke: {total_s:.1f} s in all, {total_s - build_s:.1f} s without the build")
     flash_source = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
         "name": "flash_attention_wgmma",

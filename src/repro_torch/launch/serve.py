@@ -1,11 +1,13 @@
 """Serving launcher of the port: a batch of prompts is prefilled in one pass
 (attention through the flash-attention kernel, the SSD scan through the SSD
-kernel), then decoded greedily from the KV or SSM cache. Counterpart of
-``repro/launch/serve.py`` and ``examples/serve_batch.py``.
+kernel), then decoded greedily from the KV and SSM caches. Counterpart of
+``repro/launch/serve.py`` and ``examples/serve_batch.py``. ``--arch`` takes
+llama3.2-1b, chatglm3-6b, internlm2-20b, h2o-danube-3-4b (dense),
+mamba2-370m (ssm) and zamba2-7b (hybrid).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --batch 4 --prompt-len 1024 --new-tokens 32
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --prompt-len 32 --new-tokens 8
 

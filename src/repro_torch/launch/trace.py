@@ -4,6 +4,7 @@ under ``torch.profiler``, one phase at a time.
 
     PYTHONPATH=src python -m repro_torch.launch.trace                     # llama3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.trace --arch mamba2-370m
+    PYTHONPATH=src python -m repro_torch.launch.trace --arch zamba2-7b   # the hybrid
     PYTHONPATH=src python -m repro_torch.launch.trace --dtype float32    # llama in f32
 
 After one untraced warm-up, traces one prefill and then 8 greedy decode

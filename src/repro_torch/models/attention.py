@@ -14,12 +14,14 @@ from repro_torch.models.layers import Params, _init, apply_rope, rope_tables
 
 
 def attention_init(gen: torch.Generator, d_model: int, num_heads: int,
-                   num_kv_heads: int, head_dim: int, *, stack: int = 0) -> Params:
+                   num_kv_heads: int, head_dim: int, *, stack: int = 0,
+                   dtype: torch.dtype = torch.float32) -> Params:
+    kw = dict(stack=stack, dtype=dtype)
     return {
-        "wq": _init(gen, (d_model, num_heads * head_dim), stack=stack),
-        "wk": _init(gen, (d_model, num_kv_heads * head_dim), stack=stack),
-        "wv": _init(gen, (d_model, num_kv_heads * head_dim), stack=stack),
-        "wo": _init(gen, (num_heads * head_dim, d_model), stack=stack),
+        "wq": _init(gen, (d_model, num_heads * head_dim), **kw),
+        "wk": _init(gen, (d_model, num_kv_heads * head_dim), **kw),
+        "wv": _init(gen, (d_model, num_kv_heads * head_dim), **kw),
+        "wo": _init(gen, (num_heads * head_dim, d_model), **kw),
     }
 
 

@@ -15,14 +15,17 @@ import torch.nn.functional as F
 Params = dict[str, Any]
 
 
-def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0):
-    """N(0, 1) * scale in f32 on the generator's device; scale defaults to
-    1/sqrt(shape[0]) (fan-in). ``stack > 0`` draws that many independent
-    weights of ``shape`` on a leading layer axis."""
+def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0,
+          dtype: torch.dtype = torch.float32):
+    """N(0, 1) * scale drawn in f32 on the generator's device and stored in
+    ``dtype``; scale defaults to 1/sqrt(shape[0]) (fan-in). ``stack > 0``
+    draws that many independent weights of ``shape`` on a leading layer
+    axis. The cast follows the draw at once, so a model's init holds at
+    most one f32 leaf beside its weights in ``dtype``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     full = (stack, *shape) if stack else tuple(shape)
     return torch.randn(full, generator=gen, device=gen.device,
-                       dtype=torch.float32) * scale
+                       dtype=torch.float32).mul_(scale).to(dtype)
 
 
 # leaves the reference uses in f32 whatever the compute dtype: RMSNorm
@@ -59,21 +62,23 @@ def unstack(tree: Params, n: int) -> list[Params]:
     return list(tree.unbind(0))
 
 
-def linear_init(gen: torch.Generator, d_in: int, d_out: int) -> Params:
-    return {"w": _init(gen, (d_in, d_out))}
+def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
+                dtype: torch.dtype = torch.float32) -> Params:
+    return {"w": _init(gen, (d_in, d_out), dtype=dtype)}
 
 
 def swiglu_init(gen: torch.Generator, d: int, d_ff: int, *,
-                stack: int = 0) -> Params:
+                stack: int = 0, dtype: torch.dtype = torch.float32) -> Params:
     return {
-        "gate": _init(gen, (d, d_ff), stack=stack),
-        "up": _init(gen, (d, d_ff), stack=stack),
-        "down": _init(gen, (d_ff, d), stack=stack),
+        "gate": _init(gen, (d, d_ff), stack=stack, dtype=dtype),
+        "up": _init(gen, (d, d_ff), stack=stack, dtype=dtype),
+        "down": _init(gen, (d_ff, d), stack=stack, dtype=dtype),
     }
 
 
-def embedding_init(gen: torch.Generator, vocab: int, d: int) -> Params:
-    return {"table": _init(gen, (vocab, d), scale=0.02)}
+def embedding_init(gen: torch.Generator, vocab: int, d: int, *,
+                   dtype: torch.dtype = torch.float32) -> Params:
+    return {"table": _init(gen, (vocab, d), scale=0.02, dtype=dtype)}
 
 
 # ---------------------------------------------------------------------------

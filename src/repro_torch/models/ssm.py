@@ -19,28 +19,31 @@ from repro_torch.models.layers import Params, _init
 
 def ssd_init(gen: torch.Generator, d_model: int, *, expand: int = 2,
              head_dim: int = 64, state: int = 128, conv_width: int = 4,
-             stack: int = 0) -> Params:
+             stack: int = 0, dtype: torch.dtype = torch.float32) -> Params:
+    """The block's weights in ``dtype``; dt_bias, A_log, D and norm_scale
+    in f32 (``layers.F32_LEAVES``)."""
     d_inner = expand * d_model
     heads = d_inner // head_dim
     dev = gen.device
+    kw = dict(stack=stack, dtype=dtype)
 
     def const(n: int, value: float) -> torch.Tensor:
         shape = (stack, n) if stack else (n,)
         return torch.full(shape, value, dtype=torch.float32, device=dev)
 
     return {
-        "w_z": _init(gen, (d_model, d_inner), stack=stack),
-        "w_x": _init(gen, (d_model, d_inner), stack=stack),
-        "w_B": _init(gen, (d_model, state), stack=stack),
-        "w_C": _init(gen, (d_model, state), stack=stack),
-        "w_dt": _init(gen, (d_model, heads), stack=stack),
-        "conv_x": _init(gen, (conv_width, d_inner), scale=0.5, stack=stack),
-        "conv_B": _init(gen, (conv_width, state), scale=0.5, stack=stack),
-        "conv_C": _init(gen, (conv_width, state), scale=0.5, stack=stack),
+        "w_z": _init(gen, (d_model, d_inner), **kw),
+        "w_x": _init(gen, (d_model, d_inner), **kw),
+        "w_B": _init(gen, (d_model, state), **kw),
+        "w_C": _init(gen, (d_model, state), **kw),
+        "w_dt": _init(gen, (d_model, heads), **kw),
+        "conv_x": _init(gen, (conv_width, d_inner), scale=0.5, **kw),
+        "conv_B": _init(gen, (conv_width, state), scale=0.5, **kw),
+        "conv_C": _init(gen, (conv_width, state), scale=0.5, **kw),
         "dt_bias": const(heads, 0.0),
         "A_log": const(heads, 0.0),
         "D": const(heads, 1.0),
-        "out_proj": _init(gen, (d_inner, d_model), stack=stack),
+        "out_proj": _init(gen, (d_inner, d_model), **kw),
         "norm_scale": const(d_inner, 1.0),
     }
 

@@ -1,13 +1,15 @@
-"""The LM of the dense family (GQA + SwiGLU, e.g. llama3.2-1b) and of the
-ssm family (a Mamba2/SSD stack, e.g. mamba2-370m), ported from
-``repro/models/transformer.py`` for serving, and the dense family's loss
-for training:
+"""The LM of the dense family (GQA + SwiGLU: llama3.2-1b, chatglm3-6b,
+internlm2-20b, h2o-danube-3-4b), of the ssm family (a Mamba2/SSD stack,
+mamba2-370m) and of the hybrid family (Mamba2 blocks with one shared
+attention block after every ``hybrid_attn_period`` of them, zamba2-7b),
+ported from ``repro/models/transformer.py`` for serving, and the dense
+family's loss for training:
 
   * init(seed)                                -> params (stacked [L, ...])
   * loss(params, batch)                       -> (scalar loss, metrics)
   * forward_logits(params, tokens)            -> [B, S, vocab] f32
   * prefill(params, tokens, max_seq=...)      -> (last logits [B, vocab], cache)
-  * decode_init(batch, max_seq)               -> KV cache or SSM cache
+  * decode_init(batch, max_seq)               -> KV and/or SSM cache
   * decode_step(params, cache, tokens, pos)   -> (logits [B, vocab], cache)
 
 The layer stack is a Python loop over the stacked parameters (the
@@ -15,7 +17,8 @@ reference's ``lax.scan``). Prefill attention goes through the
 flash-attention kernel and the prefill SSD scan through the SSD kernel;
 the loss's attention through the forward and backward flash kernels;
 decode is plain torch, as in the reference. Other families raise
-``NotImplementedError``.
+``NotImplementedError``, and so does the loss of the ssm and hybrid
+families.
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     Params,
-    cast_params,
     embed,
     embedding_init,
     layer,
@@ -46,7 +48,7 @@ from repro_torch.models.layers import (
 )
 
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 class LM:
@@ -75,39 +77,56 @@ class LM:
     # init
     # ------------------------------------------------------------------
     def init(self, seed: int = 0, param_dtype: torch.dtype | None = None) -> Params:
-        """Seeded random params with the reference's distributions (not its
-        bits: torch and jax.random differ). Weights are stored in
-        ``param_dtype`` (f32 master weights for training), by default in the
-        config dtype; the leaves of ``layers.F32_LEAVES`` in f32 either way.
-        Every use casts a weight to the compute dtype, as the reference does."""
-        c, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        L = c.num_layers
+        """Seeded random params with the reference's distributions and dict
+        paths (not its bits: torch and jax.random differ). Weights are stored
+        in ``param_dtype`` (f32 master weights for training), by default in
+        the config dtype, each cast as soon as it is drawn; the leaves of
+        ``layers.F32_LEAVES`` are f32 either way. Every use casts a weight
+        to the compute dtype, as the reference does."""
+        c = self.cfg
+        wd = param_dtype or self.dtype
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        extra: Params = {}
         if c.family == "ssm":
-            layers = {
-                "ln": rms_norm_init(c.d_model, dev, stack=L),
-                "ssd": ssm_mod.ssd_init(gen, c.d_model, expand=c.ssm_expand,
-                                        head_dim=c.ssm_head_dim,
-                                        state=c.ssm_state,
-                                        conv_width=c.ssm_conv_width, stack=L),
-            }
+            layers = self._mamba_init(gen, c.num_layers, wd)
+        elif c.family == "hybrid":
+            groups, rem = divmod(c.num_layers, c.hybrid_attn_period)
+            layers = self._mamba_init(gen, groups * c.hybrid_attn_period, wd)
+            if rem:
+                extra["tail_layers"] = self._mamba_init(gen, rem, wd)
+            extra["shared_attn"] = self._block_init(gen, 0, wd)
         else:
-            layers = {
-                "ln1": rms_norm_init(c.d_model, dev, stack=L),
-                "attn": attn.attention_init(gen, c.d_model, c.num_heads,
-                                            c.num_kv_heads, c.head_dim,
-                                            stack=L),
-                "ln2": rms_norm_init(c.d_model, dev, stack=L),
-                "mlp": swiglu_init(gen, c.d_model, c.d_ff, stack=L),
-            }
+            layers = self._block_init(gen, c.num_layers, wd)
         params: Params = {
-            "embed": embedding_init(gen, c.vocab_size, c.d_model),
-            "final_ln": rms_norm_init(c.d_model, dev),
+            "embed": embedding_init(gen, c.vocab_size, c.d_model, dtype=wd),
+            "final_ln": rms_norm_init(c.d_model, self.device),
             "layers": layers,
+            **extra,
         }
         if not c.tie_embeddings:
-            params["unembed"] = linear_init(gen, c.d_model, c.vocab_size)
-        return cast_params(params, param_dtype or self.dtype)
+            params["unembed"] = linear_init(gen, c.d_model, c.vocab_size, dtype=wd)
+        return params
+
+    def _block_init(self, gen: torch.Generator, n: int, dtype: torch.dtype) -> Params:
+        """``n`` stacked attention + SwiGLU blocks (one unstacked if 0)."""
+        c, dev = self.cfg, self.device
+        return {
+            "ln1": rms_norm_init(c.d_model, dev, stack=n),
+            "attn": attn.attention_init(gen, c.d_model, c.num_heads, c.num_kv_heads,
+                                        c.head_dim, stack=n, dtype=dtype),
+            "ln2": rms_norm_init(c.d_model, dev, stack=n),
+            "mlp": swiglu_init(gen, c.d_model, c.d_ff, stack=n, dtype=dtype),
+        }
+
+    def _mamba_init(self, gen: torch.Generator, n: int, dtype: torch.dtype) -> Params:
+        """``n`` stacked Mamba2 blocks."""
+        c = self.cfg
+        return {
+            "ln": rms_norm_init(c.d_model, self.device, stack=n),
+            "ssd": ssm_mod.ssd_init(gen, c.d_model, expand=c.ssm_expand,
+                                    head_dim=c.ssm_head_dim, state=c.ssm_state,
+                                    conv_width=c.ssm_conv_width, stack=n, dtype=dtype),
+        }
 
     # ------------------------------------------------------------------
     # loss (train)
@@ -148,40 +167,55 @@ class LM:
                     rotary_pct=c.rotary_pct, window=c.sliding_window,
                     softcap=c.attn_logit_softcap)
 
+    def _stack(self, params: Params, cache: Params | None):
+        """(kind, layer params, its cache slice or None) for each block in
+        the order the stack runs them; kind is "attn" (attention + SwiGLU)
+        or "ssm" (a Mamba2 block). The hybrid family runs each group of
+        ``hybrid_attn_period`` Mamba blocks, then the shared attention block
+        on the group's own KV cache slot, and the tail blocks last."""
+        c = self.cfg
+
+        def sub(key, i):
+            return None if cache is None else layer(cache[key], i)
+
+        if c.family == "dense":
+            for i in range(c.num_layers):
+                yield "attn", layer(params["layers"], i), sub("kv", i)
+            return
+        if c.family == "ssm":
+            for i in range(c.num_layers):
+                yield "ssm", layer(params["layers"], i), sub("ssm", i)
+            return
+        period = c.hybrid_attn_period
+        groups = c.num_layers // period
+        for g in range(groups):
+            for i in range(g * period, (g + 1) * period):
+                yield "ssm", layer(params["layers"], i), sub("ssm", i)
+            yield "attn", params["shared_attn"], sub("kv", g)
+        for i in range(c.num_layers - groups * period):
+            yield "ssm", layer(params["tail_layers"], i), sub("ssm_tail", i)
+
     def _body(self, params: Params, h: torch.Tensor,
               cache: Params | None = None) -> torch.Tensor:
         """The layer stack at positions 0..S-1. With ``cache`` (from
-        ``decode_init``), each layer's rotated k and v, or its SSM state and
-        conv windows, are written into it."""
-        if self.cfg.family == "ssm":
-            return self._body_ssm(params, h, cache)
-        return self._body_dense(params, h, None if cache is None else cache["kv"])
-
-    def _body_dense(self, params: Params, h: torch.Tensor,
-                    kv: Params | None) -> torch.Tensor:
+        ``decode_init``), each attention block's rotated k and v, and each
+        Mamba block's SSM state and conv windows, are written into it."""
         c = self.cfg
         S = h.shape[1]
-        for i in range(c.num_layers):
-            lp = layer(params["layers"], i)
+        for kind, lp, sl in self._stack(params, cache):
+            if kind == "ssm":
+                h = h + ssm_mod.ssd_block(
+                    lp["ssd"], rms_norm(lp["ln"], h, c.norm_eps),
+                    head_dim=c.ssm_head_dim, state=c.ssm_state, chunk=c.ssm_chunk,
+                    conv_width=c.ssm_conv_width, scan=self.ssd_scan, cache=sl)
+                continue
             a, k, v = attn.attention_prefill(
                 lp["attn"], rms_norm(lp["ln1"], h, c.norm_eps),
                 attention=self.attention, **self._attn_kwargs())
-            if kv is not None:
-                self._fill_cache(layer(kv, i), k, v, S)
+            if sl is not None:
+                self._fill_cache(sl, k, v, S)
             h = h + a
             h = h + swiglu(lp["mlp"], rms_norm(lp["ln2"], h, c.norm_eps))
-        return h
-
-    def _body_ssm(self, params: Params, h: torch.Tensor,
-                  cache: Params | None) -> torch.Tensor:
-        c = self.cfg
-        for i in range(c.num_layers):
-            lp = layer(params["layers"], i)
-            h = h + ssm_mod.ssd_block(
-                lp["ssd"], rms_norm(lp["ln"], h, c.norm_eps),
-                head_dim=c.ssm_head_dim, state=c.ssm_state, chunk=c.ssm_chunk,
-                conv_width=c.ssm_conv_width, scan=self.ssd_scan,
-                cache=None if cache is None else layer(cache["ssm"], i))
         return h
 
     def _fill_cache(self, kv_slice: Params, k, v, S: int) -> None:
@@ -211,8 +245,8 @@ class LM:
                 max_seq: int | None = None, cache_dtype=None):
         """One pass over the prompt: returns (f32 logits of the last position
         [B, vocab], a cache of ``max_seq`` positions (default S) holding
-        every layer's rotated k/v at 0..S-1, or for the ssm family every
-        layer's f32 state after S tokens and conv windows). Equals stepping
+        every attention block's rotated k/v at 0..S-1 and every Mamba
+        block's f32 state after S tokens and conv windows). Equals stepping
         ``decode_step`` over the prompt from an empty cache."""
         B, S = tokens.shape
         cache = self.decode_init(B, max_seq or S,
@@ -226,20 +260,34 @@ class LM:
     # ------------------------------------------------------------------
     def decode_init(self, batch_size: int, max_seq: int,
                     dtype=torch.bfloat16) -> Params:
-        """The dense family's KV cache in ``dtype``; the ssm family's cache
-        is f32 whatever ``dtype`` is, as in the reference."""
+        """The reference's cache layout: ``kv`` [blocks, B, T, KV, hd] in
+        ``dtype`` for the attention blocks (the hybrid family's shared block
+        has one slot a group), T = min(max_seq, window) under a sliding
+        window; ``ssm`` (and the hybrid tail's ``ssm_tail``) f32 state and
+        conv windows whatever ``dtype`` is."""
         c = self.cfg
-        if c.family == "ssm":
-            return {"ssm": ssm_mod.init_ssm_cache(
+
+        def ssm(n):
+            return ssm_mod.init_ssm_cache(
                 batch_size, c.d_inner, c.ssm_head_dim, c.ssm_state,
-                c.ssm_conv_width, device=self.device, stack=c.num_layers)}
-        kv_len = (min(max_seq, c.sliding_window) if c.sliding_window > 0
-                  else max_seq)
-        shape = (c.num_layers, batch_size, kv_len, c.num_kv_heads, c.head_dim)
-        return {"kv": {
-            "k": torch.zeros(shape, dtype=dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=dtype, device=self.device),
-        }}
+                c.ssm_conv_width, device=self.device, stack=n)
+
+        def kv(n):
+            kv_len = (min(max_seq, c.sliding_window) if c.sliding_window > 0
+                      else max_seq)
+            shape = (n, batch_size, kv_len, c.num_kv_heads, c.head_dim)
+            return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                    "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+        if c.family == "ssm":
+            return {"ssm": ssm(c.num_layers)}
+        if c.family == "dense":
+            return {"kv": kv(c.num_layers)}
+        groups, rem = divmod(c.num_layers, c.hybrid_attn_period)
+        cache = {"ssm": ssm(groups * c.hybrid_attn_period), "kv": kv(groups)}
+        if rem:
+            cache["ssm_tail"] = ssm(rem)
+        return cache
 
     def decode_step(self, params: Params, cache: Params, tokens: torch.Tensor,
                     pos: int):
@@ -247,17 +295,15 @@ class LM:
         f32, cache); the cache is updated in place and returned."""
         c = self.cfg
         x = embed(params["embed"], tokens[:, None], self.dtype)  # [B,1,d]
-        for i in range(c.num_layers):
-            lp = layer(params["layers"], i)
-            if c.family == "ssm":
+        for kind, lp, sl in self._stack(params, cache):
+            if kind == "ssm":
                 x = x + ssm_mod.ssd_decode_step(
-                    lp["ssd"], rms_norm(lp["ln"], x, c.norm_eps),
-                    layer(cache["ssm"], i), head_dim=c.ssm_head_dim,
-                    state=c.ssm_state)
+                    lp["ssd"], rms_norm(lp["ln"], x, c.norm_eps), sl,
+                    head_dim=c.ssm_head_dim, state=c.ssm_state)
                 continue
             a = attn.attention_decode(
-                lp["attn"], rms_norm(lp["ln1"], x, c.norm_eps),
-                layer(cache["kv"], i), pos, **self._attn_kwargs())
+                lp["attn"], rms_norm(lp["ln1"], x, c.norm_eps), sl, pos,
+                **self._attn_kwargs())
             h = x + a
             x = h + swiglu(lp["mlp"], rms_norm(lp["ln2"], h, c.norm_eps))
         return self._logits(params, x)[:, 0, :], cache

@@ -79,6 +79,11 @@ def _qkv(device, dtype, B, S, T, H, KV, hd, seed=9):
     (4, 512, 8, 32, 8, 64, "bfloat16", dict(causal=True, window=4)),
     (3, 1000, 1000, 16, 4, 128, "bfloat16", dict(causal=True, softcap=20.0)),
     (4, 1024, 1024, 32, 8, 64, "bfloat16", dict(causal=True)),        # the slice
+    # served shapes: chatglm3-6b's 16 query heads a KV head (wgmma in bf16,
+    # mma in f32) and zamba2-7b's MHA at hd 112 (mma)
+    (4, 1024, 1024, 32, 2, 128, "bfloat16", dict(causal=True)),
+    (4, 1024, 1024, 32, 2, 128, "float32", dict(causal=True)),
+    (4, 1024, 1024, 32, 32, 112, "bfloat16", dict(causal=True)),
     # head_dims above 256: the wide route
     *[case for hd in (320, 512) for dt in ("float32", "bfloat16") for case in (
         (1, 300, 300, 4, 2, hd, dt, dict(causal=True, window=96, softcap=20.0)),
@@ -247,6 +252,8 @@ def _ssd_inputs(device, B, S, H, P, N, seed=11, slow=False):
     (2, 1000, 4, 64, 128, 100, True),   # chunk no multiple of 16, ragged
     (1, 256, 4, 64, 128, 128, True),    # fewer blocks than SMs
     (2, 2048, 32, 64, 128, 128, True),  # more blocks than SMs
+    (4, 1024, 112, 64, 64, 128, False),  # zamba2-7b's shape, both decays
+    (4, 1024, 112, 64, 64, 128, True),
     # sizes the kernel is not built for: sliced and padded by the wrapper
     *[(1, 300, 4, P, N, chunk, slow) for P, N in ((128, 256), (48, 96))
       for chunk, slow in ((128, False), (256, True))],
@@ -406,6 +413,39 @@ def test_training_step_through_both_kernels(cuda):
         assert launched == ((4, 2) if name == "kernel" else (0, 0))
     for g, w in zip(grads["kernel"], grads["plain"]):
         torch.testing.assert_close(g, w, rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("over", [{}, dict(num_layers=7, hybrid_attn_period=3)],
+                         ids=["no_tail", "tail"])
+def test_reduced_hybrid_on_card_matches_cpu(cuda, over):
+    """The reduced zamba2 in f32 (the attention kernel once a group, the
+    SSD kernel once a Mamba block) on the card against the same params on
+    the CPU (the plain versions): forward logits and every leaf of the
+    prefilled cache."""
+    from repro_torch.bridge import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config("zamba2-7b").reduced(dtype="float32", **over)
+    cpu_lm, card_lm = LM(cfg, device="cpu"), LM(cfg, device=cuda)
+    params = cpu_lm.init(0)
+    card_params = _tree({path: t.to(cuda) for path, t in named_leaves(params)})
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 100)))
+    groups = cfg.num_layers // cfg.hybrid_attn_period
+    with torch.inference_mode():
+        before = (tfa.flash_attention.launches, tssd.ssd_scan.launches)
+        got = card_lm.forward_logits(card_params, tokens.to(cuda))
+        torch.cuda.synchronize()
+        assert (tfa.flash_attention.launches - before[0],
+                tssd.ssd_scan.launches - before[1]) == (groups, cfg.num_layers)
+        torch.testing.assert_close(got.cpu(), cpu_lm.forward_logits(params, tokens),
+                                   rtol=1e-4, atol=1e-4)
+        got_log, got_cache = card_lm.prefill(card_params, tokens.to(cuda), max_seq=104)
+        want_log, want_cache = cpu_lm.prefill(params, tokens, max_seq=104)
+    torch.testing.assert_close(got_log.cpu(), want_log, rtol=1e-4, atol=1e-4)
+    want = dict(named_leaves(want_cache))
+    for path, leaf in named_leaves(got_cache):
+        torch.testing.assert_close(leaf.cpu(), want[path], rtol=1e-4, atol=1e-4)
 
 
 def _tree(flat: dict) -> dict:

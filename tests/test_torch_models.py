@@ -19,7 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.models import LM as JLM  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
-from repro_torch.bridge import params_from_jax  # noqa: E402
+from repro_torch.bridge import named_leaves, params_from_jax  # noqa: E402
 from repro_torch.configs import get_config as tget_config  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.launch.serve import make_prompts, serve  # noqa: E402
@@ -27,11 +27,16 @@ from repro_torch.models import LM as TLM  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 
 TOL = 1e-4
-VARIANTS = {
-    "llama": {},
+DENSE_ARCHS = ("llama3.2-1b", "chatglm3-6b", "internlm2-20b", "h2o-danube-3-4b")
+VARIANTS = {  # name: (arch, overrides of its reduced config)
+    "llama": ("llama3.2-1b", {}),
     # window shorter than the prompt (ring cache), softcap, partial rotary
-    "swa_softcap_partial_rope": dict(sliding_window=8, attn_logit_softcap=30.0,
-                                     rotary_pct=0.5),
+    "swa_softcap_partial_rope": ("llama3.2-1b", dict(
+        sliding_window=8, attn_logit_softcap=30.0, rotary_pct=0.5)),
+    # the other dense configs as reduced(): chatglm3's partial rotary,
+    # internlm2's and h2o-danube's untied unembedding, h2o-danube's window
+    # (4096, wider than these prompts: the ring cache is the variant above's)
+    **{arch: (arch, {}) for arch in DENSE_ARCHS[1:]},
 }
 
 
@@ -45,12 +50,27 @@ def _close(got, want, tol=TOL):
 # config copy
 # ---------------------------------------------------------------------------
 
-def test_config_copy_matches_reference():
-    j, t = jget_config("llama3.2-1b"), tget_config("llama3.2-1b")
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_config_copy_matches_reference(arch):
+    j, t = jget_config(arch), tget_config(arch)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert j.param_count() == t.param_count()
     assert dataclasses.asdict(j.reduced()) == dataclasses.asdict(t.reduced())
     assert j.reduced().param_count() == t.reduced().param_count()
+    assert t.family == "dense"
+
+
+def test_dense_configs_take_the_kernel_routes_they_are_checked_on():
+    """Head dims of the dense configs as the card serves them in bf16:
+    hd 64 / 128 on the wgmma route, h2o-danube's 120 on the mma route."""
+    got = {arch: (tget_config(arch).head_dim, tget_config(arch).num_kv_heads,
+                  tget_config(arch).rotary_pct, tget_config(arch).sliding_window,
+                  tfa.route(torch.bfloat16, tget_config(arch).head_dim))
+           for arch in DENSE_ARCHS}
+    assert got == {"llama3.2-1b": (64, 8, 1.0, 0, "wgmma"),
+                   "chatglm3-6b": (128, 2, 0.5, 0, "wgmma"),
+                   "internlm2-20b": (128, 8, 1.0, 0, "wgmma"),
+                   "h2o-danube-3-4b": (120, 8, 1.0, 4096, "mma")}
 
 
 # ---------------------------------------------------------------------------
@@ -132,15 +152,31 @@ def test_init_distributions():
     assert torch.equal(tp["layers"]["ln1"]["scale"], torch.ones(2, 128))
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-370m"])
+def test_init_casts_each_leaf_as_drawn(arch):
+    """``LM.init`` in bf16 casts each leaf right after its draw: the params
+    are bit for bit an f32 draw cast once at the end, and the f32 leaves
+    stay f32."""
+    lm = TLM(tget_config(arch).reduced(), device="cpu")  # bf16
+    got = named_leaves(lm.init(3))
+    want = named_leaves(tl.cast_params(lm.init(3, param_dtype=torch.float32), torch.bfloat16))
+    assert [path for path, _ in got] == [path for path, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype == (torch.float32 if path[-1] in tl.F32_LEAVES
+                                      else torch.bfloat16), path
+        assert torch.equal(g, w), path
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module", params=sorted(VARIANTS))
 def models(request):
-    over = dict(dtype="float32", **VARIANTS[request.param])
-    jcfg = jget_config("llama3.2-1b").reduced(**over)
-    tcfg = tget_config("llama3.2-1b").reduced(**over)
+    arch, over = VARIANTS[request.param]
+    over = dict(dtype="float32", **over)
+    jcfg = jget_config(arch).reduced(**over)
+    tcfg = tget_config(arch).reduced(**over)
     jlm = JLM(jcfg, use_flash=True)
     jparams = jlm.init(jax.random.PRNGKey(0))
     tlm = TLM(tcfg, device="cpu")

@@ -37,7 +37,8 @@ def test_no_jax_or_repro_imports(path):
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "transformer.py", "ops.py", "serve.py", "ssm.py",
-            "ssd_scan.py", "mamba2_370m.py"} <= names
+            "ssd_scan.py", "mamba2_370m.py", "zamba2_7b.py", "chatglm3_6b.py",
+            "internlm2_20b.py", "h2o_danube_3_4b.py"} <= names
     rel = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
     assert {f"core/{m}.py" for m in COPIED["core"]} <= rel
     assert {f"topology/{m}.py" for m in COPIED["topology"]} <= rel
@@ -148,26 +149,28 @@ def test_entry_points_raise_without_cuda(no_cuda):
                         "--new-tokens", "1"])
 
 
-def test_serve_runs_on_cpu_when_asked(capsys):
-    for arch in ("llama3.2-1b", "mamba2-370m"):
-        assert serve.main(["--arch", arch, "--reduced", "--device", "cpu",
-                           "--batch", "2", "--prompt-len", "8",
-                           "--new-tokens", "3"]) == 0
-        out = capsys.readouterr().out
-        assert f"serving {arch}" in out
-        assert "prefill: 2x8 tokens" in out and "decode: 3 steps x 2 seqs" in out
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-370m", "chatglm3-6b",
+                                  "internlm2-20b", "h2o-danube-3-4b", "zamba2-7b"])
+def test_serve_runs_on_cpu_when_asked(capsys, arch):
+    assert serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "8",
+                       "--new-tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    assert f"serving {arch}" in out
+    assert "prefill: 2x8 tokens" in out and "decode: 3 steps x 2 seqs" in out
 
 
 def test_registry_holds_only_ported_archs():
     assert get_config("llama3.2-1b").family == "dense"
     assert get_config("mamba2-370m").family == "ssm"
+    assert get_config("zamba2-7b").family == "hybrid"
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("zamba2-7b")
+        get_config("granite-moe-1b-a400m")
 
 
 def test_other_families_not_ported():
     cfg = get_config("llama3.2-1b").reduced()
-    for fam in ("moe", "hybrid", "encdec", "vlm"):
+    for fam in ("moe", "encdec", "vlm"):
         with pytest.raises(NotImplementedError):
             LM(cfg.reduced(family=fam), device="cpu")
 

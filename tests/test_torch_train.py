@@ -283,7 +283,9 @@ def test_adamw_steps_match_reference(lr):
     jp = jax.tree.map(jnp.asarray, params)
     jstate = jadamw.adamw_init(jp)
     jupdate = jax.jit(lambda p, g, s: jadamw.adamw_update(p, g, s, lr=jlr))
-    tp = jax.tree.map(torch.from_numpy, params)
+    # the port updates its params in place; its own copies, since jnp.asarray
+    # of a numpy array on the CPU may share that array's memory
+    tp = jax.tree.map(lambda a: torch.from_numpy(a.copy()), params)
     tstate = tadamw.adamw_init(tp)
     for scale in (3.0, 0.01, 1.0, 0.05):
         grads = jax.tree.map(lambda g: g * np.float32(scale), draw(jax.tree.map(np.shape, params)))
