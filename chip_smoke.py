@@ -39,6 +39,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    version, its bound and, as a yardstick the port never calls, the backward
    of ``scaled_dot_product_attention``, with its device time by pass; and in
    f32 beside SDPA's f32 backward and its bound (printed only);
+   then hold the SSD backward kernel against its plain version (autograd
+   through the chunked scan) at small, ragged, sliced and padded shapes and
+   at mamba2-370m's and zamba2-7b's training shapes, each on fast- and
+   slow-decay inputs; a planted fault (the adjoint's carry across chunks
+   dropped) must fail that check; two calls must give the same bits; then
+   time it at both training shapes beside the plain version and its bound,
+   with its device time by pass;
 6. serve full-width llama3.2-1b (bf16, seeded random weights): 4 prompts of
    1024 tokens, one-pass prefill, 32 greedy decode steps, with each flash
    route's launches counted over that run (all 16 on the wgmma route); then
@@ -62,7 +69,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    params and AdamW state, 4 x 1024 tokens a step): the first step's loss
    and gradient norm beside the same step through the plain attention
    forward and backward, then three timed steps with each flash kernel's
-   launches counted over them;
+   launches counted over them; then the same for full-width mamba2-370m
+   and for zamba2-7b at full width and 13 of its 81 layers (the SSD scan
+   and its backward, and zamba2's shared attention block, through their
+   kernels; the plain scan, scan backward and attention as the
+   comparison), each with its launches counted exactly, one traced step,
+   and the first step repeated in f32 with every SSM gradient leaf held to
+   the plain one;
 9. the data-parallel step of train_lm's 100m model with 8 ranks stacked on
    the card, PCCL beside the built-in reduction: the ``PCCL_CONFORMANCE``
    line, every rank's params equal bit for bit after each step;
@@ -278,6 +291,46 @@ TRAIN_STEPS = 3  # timed, after one warm-up step
 # the first step's loss through the kernels against the same step through
 # the plain attention, relative: bf16 rounds at other places in the two
 TRAIN_LOSS_REL_TOL = 1e-3
+# the SSD backward: mamba2-370m's and zamba2-7b's training shapes (B, S, H,
+# P, N, chunk); the first goes to the kernels line
+SSD_BWD_SHAPES = {"mamba2-370m": (TRAIN_SHAPE[0], TRAIN_SHAPE[1], 32, 64, 128, 128),
+                  "zamba2-7b": (TRAIN_SHAPE[0], TRAIN_SHAPE[1], 112, 64, 64, 128)}
+SSD_BWD_CASES = [  # B, S, H, P, N, chunk, slow decay
+    (1, 64, 2, 16, 8, 16, False),       # the scan's test shapes
+    (2, 128, 4, 32, 16, 32, True),
+    (1, 50, 2, 64, 64, 128, False),     # S < chunk: one chunk, no carry
+    (2, 1000, 4, 64, 128, 128, True),   # ragged last chunk
+    (2, 1000, 4, 64, 128, 100, True),   # chunk no multiple of 16
+    (1, 4096, 4, 64, 128, 128, True),   # 32 chunks
+    (2, 2048, 32, 64, 128, 128, True),  # more blocks than SMs
+    # sizes the kernel is not built for: P and N sliced or padded, chunk cut
+    (1, 300, 4, 128, 256, 256, True),
+    (1, 300, 4, 48, 96, 128, False),
+    (2, 100, 2, 8, 4, 40, True),
+    # the training shapes, both decays
+    *[(*shape, slow) for shape in SSD_BWD_SHAPES.values() for slow in (False, True)],
+]
+# the SSD backward kernel against its plain version (autograd through the
+# chunked scan), f32: max |got - want| <= SSD_BWD_TOL * max |want| for each
+# gradient (``compare_scaled``). An element of dA, ddt, dB or dC is a sum of
+# many terms of both signs (dA over every position of the batch), so its
+# f32 rounding scales with the gradient's largest elements, not with its
+# own size, and the two sum in other orders (the kernel's d(log decay) as
+# row and column sums of W o CB^T and a reverse prefix sum, the plain one
+# by autograd of each exp; both take the prefix sums of dt * A in f64).
+SSD_BWD_TOL = SSD_TOL
+# mamba2-370m and zamba2-7b training steps in f32: each SSM gradient leaf
+# through the kernels against the plain scan and backward, rel-L2. As the
+# f32 logits checks (SSM_F32_REL_TOL): the two differ by summation order
+# and the forward's 3xTF32 residue, compounded over the layers.
+SSM_GRAD_REL_TOL = 1e-3
+# zamba2-7b trains at full width and this many of its 81 layers (two groups
+# of 6 Mamba blocks, the shared block after each, a tail of 1): its 6.75 B
+# params at 16 bytes each (f32 weights, gradients, two AdamW moments) do
+# not fit the card
+ZAMBA2_TRAIN_LAYERS = 13
+# the flash backward at zamba2-7b's shared block (B, S, H, KV, hd), bf16
+ZAMBA2_ATTN = (TRAIN_SHAPE[0], TRAIN_SHAPE[1], 32, 32, 112)
 # the data-parallel step: train_lm's model, ranks stacked on the card,
 # steps, global batch and sequence; the limits of the conformance line
 # that tests/test_exec_conformance.py holds examples/train_lm.py to
@@ -306,6 +359,31 @@ PTXAS_REGS = re.compile(r"Used (\d+) registers")
 BWD_SYMBOL = re.compile(r"flash_bwd_(lse|dkdv|dq)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
 
 
+# the SSD backward's passes at the training shapes' P, N (templated on
+# them) and its untemplated passes
+SSD_BWD_SYMBOL = re.compile(
+    r"ssd_bwd_(\w+?)_kernel(?:ILi64ELi(64|128)EE|ILi(64|128)EE|(?=E[PvN]))")
+
+
+def ssd_bwd_ptxas(log: str) -> list[str]:
+    """One line per SSD backward pass at the training shapes in nvcc's
+    ``-Xptxas -v`` output: pass, N where templated, registers, spill
+    bytes."""
+    rows, entry, spill = [], None, ("?", "?")
+    for line in log.splitlines():
+        if m := PTXAS_ENTRY.search(line):
+            entry, spill = SSD_BWD_SYMBOL.search(m[1]), ("?", "?")
+        elif m := PTXAS_SPILL.search(line):
+            spill = (m[1], m[2])
+        elif (m := PTXAS_REGS.search(line)) and entry:
+            n = entry[2] or entry[3]
+            rows.append(f"ssd_bwd_{entry[1]}_kernel{f' P 64 N {n}' if entry[2] else ''}"
+                        f"{f' N {n}' if entry[3] else ''}: {m[1]} registers, "
+                        f"spill stores {spill[0]} B, loads {spill[1]} B")
+            entry = None
+    return sorted(rows)
+
+
 def bwd_ptxas(log: str) -> list[str]:
     """One line per instance of the backward's passes in nvcc's ``-Xptxas
     -v`` output: pass, type, padded head_dim, registers, spill bytes."""
@@ -328,7 +406,11 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
+PHASE_STARTS: list = []  # (name, perf_counter at its start) of each phase
+
+
 def phase(name: str) -> None:
+    PHASE_STARTS.append((name, time.perf_counter()))
     print(f"== {name}", flush=True)
 
 
@@ -421,6 +503,35 @@ def ssd_bound(xh, Bm, chunk: int):
             "operations" if t_ops >= terms["bytes_ms"] else "bytes", flops, nbytes, terms)
 
 
+def ssd_bwd_bound(xh, Bm, chunk: int):
+    """(bound_ms, bound_by, flops, bytes, terms) of the SSD backward, as
+    ``ssd_bound``. The operations: C.B^T over the causal pairs once per (b,
+    chunk); per (b, h, chunk) dy.x^T, (C.B^T o L)^T dy, W B and W^T C over
+    the causal pairs, and the products of q x P x N that the function needs:
+    the chunk's state (the forward's, recomputed), B carry^T and x carry in
+    every chunk but the last (the last chunk's state is read by nothing and
+    its carry is 0), its reverse state dy^T C and dy h_in in every chunk but
+    the first (its entering state is 0). Bytes: xh, dt, A, Bm, Cm and dy
+    read once; dxh, ddt, dA, dBm and dCm written once."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    nc = -(-S // chunk)
+    flops = 0
+    for c in range(nc):
+        q = min(chunk, S - c * chunk)
+        pairs = q * (q + 1) // 2
+        products = 3 * (c < nc - 1) + 2 * (c > 0)
+        flops += B * (pairs * N * 2 + H * (2 * pairs * P * 2 + 2 * pairs * N * 2
+                                            + products * q * P * N * 2))
+    nbytes = (3 * xh.numel() + 2 * B * S * H + 2 * H + 4 * Bm.numel()) * 4
+    terms = {"f32_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+             "3xtf32_ms": 3 * flops / PEAK_FLOPS["tf32"] * 1e3,
+             "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+    t_ops = min(terms["f32_ms"], terms["3xtf32_ms"])
+    return (max(t_ops, terms["bytes_ms"]),
+            "operations" if t_ops >= terms["bytes_ms"] else "bytes", flops, nbytes, terms)
+
+
 def ssd_inputs(torch, gen, dev, B, S, H, P, N, slow=False):
     """Inputs as ssd_block gives them: dt after softplus (scaled by 0.02 with
     ``slow``), A < 0."""
@@ -464,6 +575,14 @@ def compare(got, want, tol: float) -> tuple[float, bool]:
     diff = (got.float() - want.float()).abs()
     ok = bool((diff <= tol + tol * want.float().abs()).all())
     return float(diff.max()), ok
+
+
+def compare_scaled(got, want, tol: float) -> tuple[float, bool]:
+    """(max abs error, whether max |got - want| <= tol * max |want| and got
+    is finite): a tolerance scaled by the largest element."""
+    diff = float((got.float() - want.float()).abs().max())
+    ok = diff <= tol * float(want.float().abs().max()) and bool(got.isfinite().all())
+    return diff, ok
 
 
 def to_device(tree, dev):
@@ -862,6 +981,268 @@ def training_phase(torch, dev, get_config, LM, fa, flash_attention_ref,
     return launches
 
 
+def carry_dropped(bwd):
+    """``bwd`` with a planted fault: the adjoint carried into a chunk from
+    the later chunks dropped, so that a chunk's gradients of x, dt, B and C
+    see only its own positions' dy (dA left as ``bwd`` gives it). Each
+    chunk's rows come from ``bwd`` over the positions up to its end with dy
+    zero outside it."""
+    import torch
+
+    def faulty(xh, dt, A, Bm, Cm, dy, *, chunk):
+        out = [torch.zeros_like(t) for t in (xh, dt, A, Bm, Cm)]
+        out[2] = bwd(xh, dt, A, Bm, Cm, dy, chunk=chunk)[2]
+        S = xh.shape[1]
+        for t0 in range(0, S, chunk):
+            t1 = min(S, t0 + chunk)
+            own = dy[:, :t1].clone()
+            own[:, :t0] = 0
+            got = bwd(xh[:, :t1], dt[:, :t1], A, Bm[:, :t1], Cm[:, :t1], own, chunk=chunk)
+            for i in (0, 1, 3, 4):
+                out[i][:, t0:t1] = got[i][:, t0:t1]
+        return tuple(out)
+    return faulty
+
+
+def ssd_bwd_phase(torch, dev, gen, ops, ssd, ssd_scan_bwd_ref) -> dict:
+    """The SSD backward kernel against its plain version at
+    ``SSD_BWD_CASES``, a planted fault that the check must fail, two calls
+    bit-equal, and its time at the training shapes beside the plain version
+    and its bound. Returns the kernels-line numbers (mamba2-370m's shape)."""
+    from repro_torch.launch import trace
+
+    phase("SSD backward kernel checks")
+    names = ("dxh", "ddt", "dA", "dBm", "dCm")
+    err = 0.0
+
+    def inputs(B, S, H, P, N, slow):
+        ins = ssd_inputs(torch, gen, dev, B, S, H, P, N, slow)
+        return (*ins, torch.randn((B, S, H, P), generator=gen, device=dev))
+
+    for B, S, H, P, N, chunk, slow in SSD_BWD_CASES:
+        ins = inputs(B, S, H, P, N, slow)
+        before = ssd.ssd_scan_bwd.launches
+        got = ops.ssd_scan_bwd(*ins, chunk=chunk)
+        torch.cuda.synchronize()
+        p_cuts, n_cuts, _ = ssd.slice_plan(P, N, chunk)
+        if ssd.ssd_scan_bwd.launches != before + len(p_cuts) * len(n_cuts):
+            fail("the SSD backward wrapper did not count its launches")
+        want = ssd_scan_bwd_ref(*ins, chunk=chunk)
+        checked = [compare_scaled(g, w, SSD_BWD_TOL) for g, w in zip(got, want)]
+        ok = all(c[1] for c in checked)
+        print(f"  B={B} S={S} H={H} P={P} N={N} chunk={chunk}{' slow decay' if slow else ''}: "
+              f"max_abs_err {' / '.join(f'{n} {c[0]:.3g}' for n, c in zip(names, checked))} "
+              f"(tol {SSD_BWD_TOL} x max |plain|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the SSD backward kernel disagrees with its plain version at "
+                 f"{(B, S, H, P, N, chunk, slow)}")
+        if (B, S, H, P, N, chunk) == SSD_BWD_SHAPES["mamba2-370m"]:
+            err = max(err, *(c[0] for c in checked))
+        del ins, got, want
+
+    # the planted fault, on slow-decay inputs at mamba2-370m's shape
+    B, S, H, P, N, chunk = SSD_BWD_SHAPES["mamba2-370m"]
+    ins = inputs(B, S, H, P, N, True)
+    want = ssd_scan_bwd_ref(*ins, chunk=chunk)
+    got = carry_dropped(ops.ssd_scan_bwd)(*ins, chunk=chunk)
+    checked = [compare_scaled(g, w, SSD_BWD_TOL) for g, w in zip(got, want)]
+    print(f"  planted fault (the adjoint's inter-chunk carry dropped), slow decay: max_abs_err "
+          f"{' / '.join(f'{n} {c[0]:.3g}' for n, c in zip(names, checked))} (must fail "
+          f"tol {SSD_BWD_TOL} x max |plain|)")
+    if all(c[1] for c in checked):
+        fail("the SSD backward check passes a planted fault (the carry dropped)")
+    del ins, got, want
+
+    out = {}
+    for arch, (B, S, H, P, N, chunk) in SSD_BWD_SHAPES.items():
+        ins = inputs(B, S, H, P, N, False)
+        first = ops.ssd_scan_bwd(*ins, chunk=chunk)
+        if not all(torch.equal(a, b) for a, b in zip(first, ops.ssd_scan_bwd(*ins, chunk=chunk))):
+            fail(f"two SSD backward calls at {arch}'s shape gave different gradients")
+        del first
+        fns = {"ms": (lambda: ops.ssd_scan_bwd(*ins, chunk=chunk), 10),
+               "plain_ms": (lambda: ssd_scan_bwd_ref(*ins, chunk=chunk), 2)}
+        times = {name: [] for name in fns}
+        for _ in range(3):  # in turns
+            for name, (fn, reps) in fns.items():
+                times[name].append(time_ms(torch, fn, reps))
+        times = {name: statistics.median(vals) for name, vals in times.items()}
+        bound = ssd_bwd_bound(ins[0], ins[3], chunk)
+        calls = 3
+        by_name = trace.traced(lambda: [fns["ms"][0]() for _ in range(calls)], dev)["by_name"]
+        passes = {}
+        for name, us in by_name.items():
+            if m := re.search(r"ssd_(bwd_\w+?|chunk_state|state_pass)_kernel", name):
+                passes[m[1]] = passes.get(m[1], 0.0) + us / calls / 1e3
+        print(f"  {arch}'s shape {(B, S, H, P, N, chunk)} f32: two calls bit-equal; kernel "
+              f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms; bound "
+              f"{bound[0] * 1e3:.2f} us by {bound[1]} ({bound[2] / 1e9:.2f} GFLOP, "
+              f"{bound[3] / 1e6:.1f} MB: {bound_terms(bound[4])}); kernel at "
+              f"{bound[2] / times['ms'] / 1e9:.2f} TFLOP/s of counted operations, "
+              f"{times['ms'] / bound[0]:.2f}x its bound")
+        print(f"  {arch}'s shape, device time by pass (profiler, {calls} calls): " +
+              ", ".join(f"{name} {ms:.4f} ms" for name, ms in passes.items()))
+        if times["ms"] < bound[0]:
+            fail(f"the SSD backward reads {times['ms']:.4f} ms, below its {bound[0]:.4f} ms "
+                 f"bound: the timing or the bound is wrong")
+        out[arch] = dict(times, bound=bound)
+        del ins, fns
+    return dict(out["mamba2-370m"], err=err)
+
+
+def ssm_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None = None,
+                       f32_layers: int | None = None) -> dict:
+    """Training steps of ``arch`` (the ssm or hybrid family) on the card at
+    full width, ``layers`` of its layers if given: bf16 compute, f32 master
+    params and AdamW state, remat per block, 4 x 1024 tokens a step. The
+    first step (the warm-up) beside the same step through the chunked plain
+    scan, its autograd backward and the plain attention; the same first step in f32 (at
+    ``f32_layers`` if given), where every SSM gradient leaf is held to
+    ``SSM_GRAD_REL_TOL``; then ``TRAIN_STEPS`` timed steps with every
+    kernel's launches counted exactly, and one traced step. Returns the
+    launches."""
+    from repro_torch.bridge import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import _batch_for_step
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+        ssd_chunked_ref,
+        ssd_scan_bwd_ref,
+    )
+    from repro_torch.launch import trace
+    from repro_torch.launch.train_lm import DATA_SEED, loss_and_grads
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw_init, adamw_update, cosine_schedule, global_norm
+
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+    label = f"train {arch}" + (f" layers={cfg.num_layers}" if layers else "")
+    phase(label)
+    torch.cuda.empty_cache()
+    B, S = TRAIN_SHAPE[:2]
+    # the comparison steps run the chunked plain scan (the token-by-token
+    # recurrence holds the kernel in the kernel phases), without remat: the
+    # same values, and each plain scan once a block instead of twice
+    plain_kw = dict(attention=flash_attention_ref, attention_bwd=flash_attention_bwd_ref,
+                    ssd_scan=ssd_chunked_ref, ssd_scan_bwd=ssd_scan_bwd_ref)
+    batches = [{key: torch.from_numpy(val).to(dev, torch.int64) for key, val in
+                _batch_for_step(DATA_SEED, step, B, S, cfg.vocab_size).items()}
+               for step in range(1 + TRAIN_STEPS)]
+
+    def model(c):
+        params = LM(c, device=dev).init(0, param_dtype=torch.float32)
+        for _, t in named_leaves(params):
+            t.requires_grad_(True)
+        return LM(c, device=dev, remat=True), params
+
+    if cfg.family == "hybrid":  # the flash backward at the shared block's shape
+        gen = torch.Generator(device=dev).manual_seed(24)
+        (q, k, v), _ = attention_inputs(torch, gen, dev, ZAMBA2_ATTN, "bfloat16")
+        o = flash_attention_ref(q, k, v, causal=True)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        got = ops.flash_attention_bwd(q, k, v, o, do, causal=True)
+        checked = [compare(g, w, BF16_TOL) for g, w in
+                   zip(got, flash_attention_bwd_ref(q, k, v, o, do, causal=True))]
+        print(f"  flash backward at {ZAMBA2_ATTN} bfloat16 causal: max_abs_err dq/dk/dv "
+              f"{' / '.join(f'{c[0]:.3g}' for c in checked)} (tol {BF16_TOL})")
+        if not all(c[1] for c in checked):
+            fail("the flash backward kernel disagrees with its plain version at zamba2-7b's "
+                 "shared block")
+        del q, k, v, o, do, got
+
+    lm, params = model(cfg)
+    print(f"{cfg.name}: {count_params(params)} params (f32 master weights), compute "
+          f"{cfg.dtype}, {cfg.num_layers} of {full.num_layers} layers, d_model {cfg.d_model}, "
+          f"batch {B} x {S} tokens, remat per block")
+    plain_loss, grads = loss_and_grads(LM(cfg, device=dev, **plain_kw), params,
+                                       batches[0])
+    plain_loss, plain_gnorm = float(plain_loss), float(global_norm(grads))
+    del grads
+    opt = adamw_init(params)
+    lr = cosine_schedule(3e-4, warmup=20, total=100)
+    loss, grads = loss_and_grads(lm, params, batches[0])
+    loss, gnorm = float(loss), float(global_norm(grads))
+    adamw_update(params, grads, opt, lr=lr)
+    del grads
+    rel_loss = abs(loss - plain_loss) / abs(plain_loss)
+    print(f"  first step, kernels vs plain scan, scan backward and attention: loss {loss:.6f} vs "
+          f"{plain_loss:.6f} (rel {rel_loss:.3g}, tol {TRAIN_LOSS_REL_TOL}); grad norm "
+          f"{gnorm:.6f} vs {plain_gnorm:.6f} (rel {abs(gnorm - plain_gnorm) / plain_gnorm:.3g})")
+    if not (rel_loss <= TRAIN_LOSS_REL_TOL and finite(loss, gnorm)):
+        fail(f"the first {arch} training step's loss disagrees with the plain kernels'")
+
+    counters = (ssd.ssd_scan, ssd.ssd_scan_bwd, *flash_counters(fa))
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, losses = [], []
+    for step in range(1, 1 + TRAIN_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(lm, params, batches[step])
+        adamw_update(params, grads, opt, lr=lr)
+        del grads
+        torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = {counter.__name__: counter.launches for counter in counters}
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = statistics.median(step_ms)
+    print(f"  steps {list(range(1, 1 + TRAIN_STEPS))}: loss "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; ms {', '.join(f'{x:.3f}' for x in step_ms)}")
+    print(f"{label}: step_ms={ms:.3f} tok_per_s={B * S / ms * 1e3:.1f} "
+          f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) " +
+          " ".join(f"{name}_launches_per_step={n / TRAIN_STEPS:g}"
+                   for name, n in launches.items()))
+    L = cfg.num_layers
+    groups = L // cfg.hybrid_attn_period if cfg.family == "hybrid" else 0
+    want = {"ssd_scan": 2 * L, "ssd_scan_bwd": L, "flash_attention": 2 * groups,
+            "flash_attention_wgmma": 0, "flash_attention_mma": 2 * groups,
+            "flash_attention_wide": 0, "flash_attention_bwd": groups}
+    want = {name: n * TRAIN_STEPS for name, n in want.items()}
+    if launches != want:
+        fail(f"launches over {TRAIN_STEPS} {arch} training steps {launches}, want {want} (the "
+             f"scan and the attention once a block and again in remat's recompute, each "
+             f"backward once)")
+    if not finite(*losses):
+        fail(f"a {arch} training step's loss is not finite")
+
+    def one_step():
+        _, grads = loss_and_grads(lm, params, batches[-1])
+        adamw_update(params, grads, opt, lr=lr)
+
+    trace.print_phase(f"{label}, one step traced", trace.traced(one_step, dev), 1, 8)
+    del lm, params, opt
+    torch.cuda.empty_cache()
+
+    # the first step again in f32, where rounding does not hide a fault
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=f32_layers or L)
+    if cfg32.num_layers != L:
+        print(f"  f32 repeat at {cfg32.num_layers} of the {L} layers")
+    lm32, params32 = model(cfg32)
+    loss32, g_kernel = loss_and_grads(lm32, params32, batches[0])
+    plain32, g_plain = loss_and_grads(LM(cfg32, device=dev, **plain_kw), params32,
+                                      batches[0])
+    rel32 = abs(float(loss32) - float(plain32)) / abs(float(plain32))
+    rels = {".".join(path): rel_l2(gk, gp) for (path, gk), (_, gp) in
+            zip(named_leaves(g_kernel), named_leaves(g_plain)) if "ssd" in path}
+    worst = max(rels, key=rels.get)
+    print(f"  f32 first step, kernels vs plain: loss rel {rel32:.3g}; SSM gradient leaves, "
+          f"rel-L2 (tol {SSM_GRAD_REL_TOL}): " +
+          ", ".join(f"{path.split('.')[-1]} {rel:.3g}" for path, rel in rels.items()
+                    if path.startswith("layers.")) + f"; worst {worst} {rels[worst]:.3g}")
+    if not (rel32 <= TRAIN_LOSS_REL_TOL and rels[worst] <= SSM_GRAD_REL_TOL):
+        fail(f"the f32 {arch} training step's loss or an SSM gradient leaf disagrees with "
+             f"the plain kernels'")
+    del lm32, params32, g_kernel, g_plain
+    torch.cuda.empty_cache()
+    print(f"{label}: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def finite(*values) -> bool:
     return all(math.isfinite(x) for x in values)
 
@@ -1179,7 +1560,12 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref, ssd_scan_ref
+    from repro_torch.kernels.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+        ssd_scan_bwd_ref,
+        ssd_scan_ref,
+    )
     from repro_torch.models import LM
 
     # 1. the card --------------------------------------------------------
@@ -1204,13 +1590,15 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"built {sorted(logs)} in {build_s:.1f} s")
     for name, log in logs.items():
-        if name == "flash_attention_bwd":  # by pass, type and head_dim below
+        if name in ("flash_attention_bwd", "ssd_scan_bwd"):  # by pass below
             continue
         for line in log.splitlines():
             if any(key in line for key in ("registers", "spill", "(C75")):
                 print(f"  {name}: {line.strip()}")
     for row in bwd_ptxas(logs["flash_attention_bwd"]):
         print(f"  ptxas, backward: {row}")
+    for row in ssd_bwd_ptxas(logs["ssd_scan_bwd"]):
+        print(f"  ptxas, SSD backward: {row}")
 
     # 3. both flash routes against their plain version ---------------------
     phase("kernel checks")
@@ -1414,6 +1802,7 @@ def main() -> int:
 
     # 5. the backward kernel against its plain version -----------------------
     bwd = backward_phase(torch, dev, gen, fa, ops, flash_attention_ref, flash_attention_bwd_ref)
+    ssd_bwd = ssd_bwd_phase(torch, dev, gen, ops, ssd, ssd_scan_bwd_ref)
 
     # 6. and 7. serve each model through its kernels ------------------------
     layers = get_config("llama3.2-1b").num_layers
@@ -1426,9 +1815,12 @@ def main() -> int:
         fault=scan_fault())
     serving_phases(fa, ssd, flash_attention_ref, ssd_scan_ref)
 
-    # 8. train full-width llama3.2-1b; 9. the data-parallel step ------------
+    # 8. train full-width llama3.2-1b, mamba2-370m and zamba2-7b at 13
+    # layers; 9. the data-parallel step -------------------------------------
     train_launches = training_phase(torch, dev, get_config, LM, fa, flash_attention_ref,
                                     flash_attention_bwd_ref)
+    ssm_launches = ssm_training_phase(torch, dev, fa, ssd, "mamba2-370m")
+    ssm_training_phase(torch, dev, fa, ssd, "zamba2-7b", layers=ZAMBA2_TRAIN_LAYERS)
     dp_phase(torch, dev, fa)
 
     # 10. the collective path -------------------------------------------------
@@ -1437,6 +1829,9 @@ def main() -> int:
     # 11. per-kernel numbers ------------------------------------------------
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: {total_s:.1f} s in all, {total_s - build_s:.1f} s without the build")
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
+    print("chip_smoke: s by phase: " + ", ".join(
+        f"{name} {end - t:.1f}" for (name, t), end in zip(PHASE_STARTS, ends)))
     flash_source = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
         "name": "flash_attention_wgmma",
@@ -1497,6 +1892,18 @@ def main() -> int:
         "plain_ms": ssd_times["plain_ms"],
         "bound_ms": ssd_bound_ms,
         "bound_by": ssd_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "ssd_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:61",
+        "launches": ssm_launches["ssd_scan_bwd"],
+        "max_abs_err": ssd_bwd["err"],
+        "ms": ssd_bwd["ms"],
+        "plain_ms": ssd_bwd["plain_ms"],
+        "bound_ms": ssd_bwd["bound"][0],
+        "bound_by": ssd_bwd["bound"][1],
         "library_ms": None,
     }]}))
     # 12. result -------------------------------------------------------------

@@ -30,7 +30,7 @@ CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention", "flash_attention_wgmma", "flash_attention_wide",
-           "flash_attention_bwd", "ssd_scan")
+           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

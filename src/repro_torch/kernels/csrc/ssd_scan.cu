@@ -68,7 +68,8 @@
 // on another, so nothing can hang across blocks.
 //
 // C interface (bound with ctypes): repro_ssd_scan_fwd returns the
-// cudaError_t of the launches (0 on success).
+// cudaError_t of the launches (0 on success); repro_ssd_scan_states runs
+// passes (a) and (b) alone, for the backward.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -698,6 +699,7 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
                             stream>>>(p.states, p.totals, p.state_out, p.nc, pn4);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
+  if (p.y == nullptr) return cudaSuccess;  // the states alone (the backward's)
   const size_t smem = OutSmem<P, N>::floats(Qp) * sizeof(float);
   if ((err = prepare(ssd_chunk_out_kernel<P, N>, OUT_THREADS, smem, &slots)) != cudaSuccess)
     return err;
@@ -757,7 +759,8 @@ int repro_ssd_scan_fwd(const void* x, const void* dt, const void* A,
   p.c_sb = strides[7]; p.c_ss = strides[8];
   p.y_sb = strides[9]; p.y_ss = strides[10]; p.y_sh = strides[11];
   bool vec = aligned16(x) && aligned16(Bm) && aligned16(Cm);
-  for (int i : {0, 1, 2, 5, 6, 7, 8}) vec = vec && strides[i] % 4 == 0;
+  for (int i : {0, 1, 2, 5, 6}) vec = vec && strides[i] % 4 == 0;
+  if (y != nullptr) vec = vec && strides[7] % 4 == 0 && strides[8] % 4 == 0;
   p.vec = vec;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (P) {
@@ -766,6 +769,22 @@ int repro_ssd_scan_fwd(const void* x, const void* dt, const void* A,
     case 64: return int(dispatch_n<64>(N, p, B, st));
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+// Passes (a) and (b) alone, for the SSD backward (csrc/ssd_scan_bwd.cu):
+// states [B, H, nc, P, N] holds the state entering chunk c (c >= 1) and
+// totals [B, H, nc] each chunk's total log decay; nothing else is written.
+// x, dt, A, Bm f32 with the strides of repro_ssd_scan_fwd's x, dt and B
+// (7 element strides); nc = ceil(S / chunk) > 1.
+int repro_ssd_scan_states(const void* x, const void* dt, const void* A, const void* Bm,
+                          void* states, void* totals, int B, int S, int H, int P, int N,
+                          int chunk, const long long* strides, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || chunk < 1 || chunk > QMAX || S <= chunk)
+    return int(cudaErrorInvalidValue);
+  const long long full[12] = {strides[0], strides[1], strides[2], strides[3], strides[4],
+                              strides[5], strides[6], 0, 0, 0, 0, 0};
+  return repro_ssd_scan_fwd(x, dt, A, Bm, Bm, nullptr, nullptr, states, totals, B, S, H, P, N,
+                            chunk, full, stream);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -12,7 +12,12 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref, ssd_scan_ref
+from repro_torch.kernels.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+    ssd_scan_bwd_ref,
+    ssd_scan_ref,
+)
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -83,3 +88,16 @@ def ssd_scan(xh, dt, A, Bm, Cm, *, chunk=128, return_state=False):
         return ssd_scan_ref(xh, dt, A, Bm, Cm, chunk=chunk,
                             return_state=return_state)
     raise ValueError(f"no ssd_scan for device {xh.device}")
+
+
+def ssd_scan_bwd(xh, dt, A, Bm, Cm, dy, *, chunk=128):
+    """(dxh, ddt, dA, dBm, dCm) of ``ssd_scan(xh, dt, A, Bm, Cm)`` = y for
+    the cotangent ``dy`` [B,S,H,P] of y."""
+    _check_ssd(xh, dt, A, Bm, Cm)
+    if dy.shape != xh.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} must be shaped as xh {tuple(xh.shape)}")
+    if xh.device.type == "cuda":
+        return _ssd.ssd_scan_bwd(xh, dt, A, Bm, Cm, dy, chunk=chunk)
+    if xh.device.type == "cpu":
+        return ssd_scan_bwd_ref(xh, dt, A, Bm, Cm, dy, chunk=chunk)
+    raise ValueError(f"no ssd_scan_bwd for device {xh.device}")

@@ -104,3 +104,65 @@ def ssd_scan_ref(xh, dt, A, Bm, Cm, *, chunk=128, return_state=False):
         ys.append(torch.einsum("bhpn,bn->bhp", h, c[:, t]))
     y = (torch.stack(ys, dim=1) if ys else torch.zeros_like(x)).to(xh.dtype)
     return (y, h) if return_state else y
+
+
+def ssd_chunked_ref(xh, dt, A, Bm, Cm, *, chunk=128):
+    """The chunked SSD scan in f32, differentiable by autograd: a port of
+    the reference's ``repro/models/ssm.py:_ssd_chunked`` (without its
+    sharding ``policy``), whose autodiff is how the reference trains the
+    scan. Same shapes as ``ssd_scan_ref``; returns y [B,S,H,P] in f32.
+
+    Three departures, none of which changes y where the reference's is
+    finite: the prefix sums of dt*A are taken in f64 (they reach ~-100 over
+    a chunk of 128, where an f32 sum is off by ~1e-5 of that); the decay
+    exp(csum_i - csum_j) is masked before the exp, not after, so that its
+    gradient is 0 above the diagonal, where exp of a difference above ~88
+    overflows to inf and the reference's gradient reads inf * 0 = nan; and
+    S need not be a multiple of the chunk (the sequence is zero-padded,
+    dt = x = B = C = 0, which adds nothing and is dropped)."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = max(1, min(chunk, S))
+    pad = -S % Q
+    x, d, b, c = xh.float(), dt.float(), Bm.float(), Cm.float()
+    if pad:
+        x, b, c = (torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+                   for t in (x, b, c))
+        d = torch.nn.functional.pad(d, (0, 0, 0, pad))
+    nc = (S + pad) // Q
+    x_ = (x * d[..., None]).reshape(B, nc, Q, H, P)
+    dA = (d * A.float()).reshape(B, nc, Q, H)
+    Bc, Cc = b.reshape(B, nc, Q, N), c.reshape(B, nc, Q, N)
+
+    csum = torch.cumsum(dA.double(), dim=2)  # [B, nc, Q, H]
+    total = csum[:, :, -1, :]  # [B, nc, H]
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=xh.device).tril()[..., None]
+    diff = csum[:, :, :, None, :] - csum[:, :, None, :, :]  # [B, nc, Q, Q, H]
+    L = torch.exp(diff.masked_fill(~lower, float("-inf"))).float()
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    intra = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * L, x_)
+
+    decay_to_end = torch.exp(total[:, :, None, :] - csum).float()  # [B, nc, Q, H]
+    chunk_state = torch.einsum("bcjn,bcjhp->bchpn", Bc, x_ * decay_to_end[..., None])
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
+    states_in = []
+    for ci in range(nc):  # the state entering each chunk
+        states_in.append(state)
+        state = state * torch.exp(total[:, ci]).float()[..., None, None] + chunk_state[:, ci]
+    inter = torch.einsum("bcin,bchpn->bcihp", Cc, torch.stack(states_in, 1))
+    y = intra + inter * torch.exp(csum).float()[..., None]
+    return y.reshape(B, nc * Q, H, P)[:, :S]
+
+
+def ssd_scan_bwd_ref(xh, dt, A, Bm, Cm, dy, *, chunk=128):
+    """(dxh, ddt, dA, dBm, dCm) of ``ssd_scan(xh, dt, A, Bm, Cm)`` = y for
+    the cotangent ``dy`` of y: ``torch.autograd.grad`` through
+    ``ssd_chunked_ref``, in f32 and then the inputs' dtypes. The plain
+    version of the SSD backward kernel, and the function of the reference's
+    autodiff of ``_ssd_chunked`` (repro/models/ssm.py:61)."""
+    ins = (xh, dt, A, Bm, Cm)
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_(True) for t in ins]
+        y = ssd_chunked_ref(*leaves, chunk=chunk)
+        grads = torch.autograd.grad(y, leaves, dy.float())
+    return tuple(g.to(t.dtype) for g, t in zip(grads, ins))

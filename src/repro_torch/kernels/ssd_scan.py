@@ -1,4 +1,5 @@
-"""Wrapper of the CUDA SSD chunked-scan kernel (csrc/ssd_scan.cu).
+"""Wrappers of the CUDA SSD chunked-scan kernel (csrc/ssd_scan.cu) and of
+its backward (csrc/ssd_scan_bwd.cu).
 
 Replaces ``repro/kernels/ssd_scan.py:ssd_scan`` (Pallas). Takes CUDA f32
 tensors only: it checks them, allocates the output and the kernel's scratch
@@ -11,6 +12,11 @@ and chunk, as the reference does, by cutting or padding them to those
 sizes (``slice_plan`` says why each step is exact), always through the
 kernel. Counts its launches in ``ssd_scan.launches``: one a call at built
 sizes, one for each (P slice, N slice) otherwise.
+
+``ssd_scan_bwd`` gives the scan's gradients for a cotangent of y, on the
+same terms (CUDA f32, any P, N and chunk through ``slice_plan``); it
+recomputes the states entering each chunk with the forward's passes (a)
+and (b) and counts its launches in ``ssd_scan_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -24,22 +30,34 @@ from repro_torch.kernels import build
 HEAD_DIMS = (16, 32, 64)  # built widths of P, N and the chunk; others
 STATE_SIZES = (8, 16, 32, 64, 128)  # are cut or padded to them (slice_plan)
 MAX_CHUNK = 128
-_fn = None
+_fns: dict = {}
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
+    """(the forward, its states-only entry, the error string), bound."""
+    if "fwd" not in _fns:
         lib = build.load("ssd_scan")
+        p, i, strides = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
         fn = lib.repro_ssd_scan_fwd
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                       ctypes.POINTER(ctypes.c_longlong), p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides, p]
         fn.restype = i
+        states = lib.repro_ssd_scan_states
+        states.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, strides, p]
+        states.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.repro_cuda_error_string)
-    return _fn
+        _fns["fwd"] = (fn, states, lib.repro_cuda_error_string)
+    return _fns["fwd"]
+
+
+def _bwd_kernel():
+    if "bwd" not in _fns:
+        fn = build.load("ssd_scan_bwd").repro_ssd_scan_bwd
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 18 + [i] * 6 + [p]
+        fn.restype = i
+        _fns["bwd"] = fn
+    return _fns["bwd"]
 
 
 def slice_plan(P: int, N: int, chunk: int):
@@ -92,7 +110,7 @@ def _launch(xh, dt, A, Bm, Cm, chunk, state_out):
     strides = (ctypes.c_longlong * 12)(
         *xh.stride()[:3], *dt.stride()[:2], *Bm.stride()[:2],
         *Cm.stride()[:2], *y.stride()[:3])
-    fn, err_str = _kernel()
+    fn, _, err_str = _kernel()
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream(xh.device).cuda_stream
         err = fn(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
@@ -130,15 +148,7 @@ def _sliced(xh, dt, A, Bm, Cm, chunk, state_out, launch):
     return y
 
 
-def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
-             state_out: torch.Tensor | None = None) -> torch.Tensor:
-    """xh [B,S,H,P], dt [B,S,H], A [H], Bm/Cm [B,S,N] -> y [B,S,H,P] on the
-    card, at any P, N and chunk (``slice_plan``); ``state_out`` [B,H,P,N]
-    f32 (contiguous) receives the final state."""
-    named = (("xh", xh), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm))
-    if state_out is not None:
-        named += (("state_out", state_out),)
+def _check_card(named) -> None:
     for name, t in named:
         if not t.is_cuda:
             raise ValueError(f"{name} is on {t.device}; the kernel takes CUDA tensors")
@@ -148,6 +158,18 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise ValueError(f"{name}'s last dimension must be contiguous")
     if len({t.device for _, t in named}) != 1:
         raise ValueError("the SSD scan's tensors must be on one device")
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
+             state_out: torch.Tensor | None = None) -> torch.Tensor:
+    """xh [B,S,H,P], dt [B,S,H], A [H], Bm/Cm [B,S,N] -> y [B,S,H,P] on the
+    card, at any P, N and chunk (``slice_plan``); ``state_out`` [B,H,P,N]
+    f32 (contiguous) receives the final state."""
+    named = (("xh", xh), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm))
+    if state_out is not None:
+        named += (("state_out", state_out),)
+    _check_card(named)
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
     if A.ndim != 1 or not A.is_contiguous():
@@ -165,3 +187,90 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_scan.launches = 0
+
+
+def _bwd_launch(xh, dt, A, Bm, Cm, dy, chunk):
+    """One backward at built sizes (P in HEAD_DIMS, N in STATE_SIZES, chunk
+    <= MAX_CHUNK), contiguous tensors. Returns (dxh, ddt, dA, dBm, dCm)."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    nc, qp = -(-S // chunk), -(-chunk // 16) * 16
+
+    def scratch(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xh.device)
+
+    states = scratch(B, H, nc, P, N) if nc > 1 else scratch(0)
+    totals, rev = scratch(B, H, nc), torch.empty_like(states)
+    scores, dA_part = scratch(B, nc, qp, qp), scratch(B, nc, H)
+    dB_part, dC_part = scratch(B, H, S, N), scratch(B, H, S, N)
+    out = [torch.empty_like(t) for t in (xh, dt, A, Bm, Cm)]
+    _, states_fn, err_str = _kernel()
+    fn = _bwd_kernel()
+    with torch.cuda.device(xh.device):
+        stream = torch.cuda.current_stream(xh.device).cuda_stream
+        err = 0
+        if nc > 1:  # the states entering each chunk: the forward's passes (a), (b)
+            strides = (ctypes.c_longlong * 7)(*xh.stride()[:3], *dt.stride()[:2],
+                                              *Bm.stride()[:2])
+            err = states_fn(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                            states.data_ptr(), totals.data_ptr(), B, S, H, P, N,
+                            int(chunk), strides, stream)
+        if err == 0:
+            err = fn(*(t.data_ptr() for t in (xh, dt, A, Bm, Cm, dy, states, totals, rev,
+                                               scores, dB_part, dC_part, dA_part, *out)),
+                     B, S, H, P, N, int(chunk), stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: "
+                           f"{err_str(err).decode()} ({err})")
+    ssd_scan_bwd.launches += 1
+    return tuple(out)
+
+
+def _sliced_bwd(xh, dt, A, Bm, Cm, dy, chunk, launch):
+    """The backward at any (P, N, chunk) through ``launch`` at built sizes,
+    by ``slice_plan``: dx of each P slice sums over the N slices, dB and dC
+    of each N slice over the P slices, ddt and dA over all (each slice is
+    the scan of its own x columns and state columns). One launch when P and
+    N are built sizes."""
+    P, N = xh.shape[-1], Bm.shape[-1]
+    p_cuts, n_cuts, run_chunk = slice_plan(P, N, chunk)
+    if len(p_cuts) == len(n_cuts) == 1 and p_cuts[0][2] == P and n_cuts[0][2] == N:
+        return launch(xh, dt, A, Bm, Cm, dy, run_chunk)
+    dx, ddt, dA = torch.zeros_like(xh), torch.zeros_like(dt), torch.zeros_like(A)
+    dB, dC = torch.zeros_like(Bm), torch.zeros_like(Cm)
+    for p_lo, p_hi, pw in p_cuts:
+        x_s = _pad_last(xh, p_lo, p_hi, pw).contiguous()
+        dy_s = _pad_last(dy, p_lo, p_hi, pw).contiguous()
+        for n_lo, n_hi, nw in n_cuts:
+            gx, gdt, gA, gB, gC = launch(
+                x_s, dt, A, _pad_last(Bm, n_lo, n_hi, nw).contiguous(),
+                _pad_last(Cm, n_lo, n_hi, nw).contiguous(), dy_s, run_chunk)
+            dx[..., p_lo:p_hi] += gx[..., :p_hi - p_lo]
+            ddt += gdt
+            dA += gA
+            dB[..., n_lo:n_hi] += gB[..., :n_hi - n_lo]
+            dC[..., n_lo:n_hi] += gC[..., :n_hi - n_lo]
+    return dx, ddt, dA, dB, dC
+
+
+def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int = 128):
+    """(dxh, ddt, dA, dBm, dCm) of ``ssd_scan(xh, dt, A, Bm, Cm)`` = y for
+    the cotangent ``dy`` [B,S,H,P] of y, on the card, at any P, N and chunk
+    (``slice_plan``). Every sum (over heads for dB and dC, over batch and
+    positions for dA) is taken in a fixed order: two calls give the same
+    bits."""
+    named = (("xh", xh), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("dy", dy))
+    _check_card(named)
+    if dy.shape != xh.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} must be shaped as xh {tuple(xh.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk} must be positive")
+    xh, dt, A, Bm, Cm, dy = (t.contiguous() for t in (xh, dt, A, Bm, Cm, dy))
+    if xh.numel() == 0 or Bm.shape[-1] == 0:
+        return tuple(torch.zeros_like(t) for t in (xh, dt, A, Bm, Cm))
+    return _sliced_bwd(xh, dt, A, Bm, Cm, dy, chunk, _bwd_launch)
+
+
+ssd_scan_bwd.launches = 0

@@ -39,19 +39,25 @@ _FLASH = re.compile(r"flash_fwd_(wgmma|mma|wide)_kernel")
 _FLASH_BWD = re.compile(r"flash_bwd_(lse|dkdv|dq)_kernel")
 # the SSD scan's three passes (csrc/ssd_scan.cu)
 _SSD = re.compile(r"ssd_(chunk_state|state_pass|chunk_out)_kernel")
+# the SSD backward's own passes (csrc/ssd_scan_bwd.cu); the states it
+# recomputes through the forward's passes (a) and (b) count as ssd_scan
+_SSD_BWD = re.compile(r"ssd_bwd_(scores|rev|carry|chunk|sum|dA)_kernel")
 _MATMUL = re.compile(r"gemm|gemv|xmma|cutlass|cublas|nvjet", re.I)
 
 
 def kind_of(kernel: str) -> str:
     """The port's own kernels by symbol (the three flash routes, the flash
-    backward's passes, the SSD scan's passes), before the library products,
-    whose names a kernel's template arguments may also contain."""
+    backward's passes, the SSD scan's and its backward's passes), before
+    the library products, whose names a kernel's template arguments may
+    also contain."""
     if _FLASH.search(kernel):
         return "flash_attention"
     if _FLASH_BWD.search(kernel):
         return "flash_attention_bwd"
     if _SSD.search(kernel):
         return "ssd_scan"
+    if _SSD_BWD.search(kernel):
+        return "ssd_scan_bwd"
     return "matmul" if _MATMUL.search(kernel) else "other"
 
 

@@ -51,13 +51,14 @@ def layer(tree: Params, i: int) -> Params:
     return tree[i]
 
 
-def unstack(tree: Params, n: int) -> list[Params]:
-    """The ``n`` layers of a stacked ``[L, ...]`` tree as views, by one
-    ``unbind`` a leaf: its backward writes every layer's gradient into one
-    stacked tensor, where ``layer(tree, i)`` per layer would add ``n``
-    stack-sized ones."""
+def unstack(tree: Params) -> list[Params]:
+    """The layers of a stacked ``[L, ...]`` tree as views, by one ``unbind``
+    a leaf: its backward writes every layer's gradient into one stacked
+    tensor, where ``layer(tree, i)`` per layer would add ``L`` stack-sized
+    ones."""
     if isinstance(tree, dict):
-        per_key = {k: unstack(v, n) for k, v in tree.items()}
+        per_key = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
     return list(tree.unbind(0))
 

@@ -1,6 +1,7 @@
-"""Mamba2 / SSD blocks, ported from ``repro/models/ssm.py`` for serving:
-prefill through the SSD chunked-scan kernel, and the O(1)-per-token
-recurrent decode in plain torch.
+"""Mamba2 / SSD blocks, ported from ``repro/models/ssm.py``: prefill
+through the SSD chunked-scan kernel, training through one autograd
+function around the scan kernel and its backward kernel, and the
+O(1)-per-token recurrent decode in plain torch.
 
 Projections stay separate weight matrices (z/x/B/C/dt), with the
 reference's paths and layouts. Dtypes follow the reference: projections
@@ -67,6 +68,25 @@ def _gated_norm_out(p: Params, y: torch.Tensor, z: torch.Tensor,
     return y @ p["out_proj"].to(dtype)
 
 
+class _SSDScan(torch.autograd.Function):
+    """y = fwd(xh, dt, A, Bm, Cm) with the gradient of bwd(xh, dt, A, Bm,
+    Cm, dy): the SSD kernels on the card, their plain versions on the CPU
+    (``kernels/ops``). Saves the inputs; the backward recomputes the states
+    entering each chunk."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bm, Cm, chunk, fwd, bwd):
+        y = fwd(xh, dt, A, Bm, Cm, chunk=chunk)
+        ctx.save_for_backward(xh, dt, A, Bm, Cm)
+        ctx.chunk, ctx.bwd = chunk, bwd
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = ctx.bwd(*ctx.saved_tensors, dy.contiguous(), chunk=ctx.chunk)
+        return (*grads, None, None, None)
+
+
 def ssd_block(
     p: Params,
     x: torch.Tensor,  # [B, S, d_model]
@@ -76,14 +96,17 @@ def ssd_block(
     chunk: int,
     conv_width: int = 4,
     scan=kops.ssd_scan,
+    scan_bwd=kops.ssd_scan_bwd,
     cache: Params | None = None,
 ) -> torch.Tensor:
     """The Mamba2 block over positions 0..S-1; returns [B, S, d_model].
-    ``scan`` is the SSD scan (the kernel unless a comparison swaps in the
-    plain version). With ``cache`` (one layer of an ``init_ssm_cache``
-    cache), the state after S tokens and the last K-1 rows of the three
-    conv inputs are written into it, as stepping ``ssd_decode_step`` over
-    the prompt would leave them."""
+    ``scan`` and ``scan_bwd`` are the SSD scan and its backward (the
+    kernels unless a comparison swaps in the plain versions); without a
+    cache the scan is one autograd function, whose backward is ``scan_bwd``
+    when autograd records the block, as in training. With
+    ``cache`` (one layer of an ``init_ssm_cache`` cache), the state after S
+    tokens and the last K-1 rows of the three conv inputs are written into
+    it, as stepping ``ssd_decode_step`` over the prompt would leave them."""
     B, S, _ = x.shape
     d_inner = p["out_proj"].shape[0]
     H = d_inner // head_dim
@@ -98,10 +121,11 @@ def ssd_block(
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # [B,S,H]
     A = -torch.exp(p["A_log"])  # [H] negative
     xh = xin.reshape(B, S, H, head_dim)
-    y = scan(xh.float(), dt, A, Bm.float(), Cm.float(), chunk=chunk,
-             return_state=cache is not None)
-    if cache is not None:
-        y, final = y
+    ins = (xh.float(), dt, A, Bm.float(), Cm.float())
+    if cache is None:
+        y = _SSDScan.apply(*ins, chunk, scan, scan_bwd)
+    else:
+        y, final = scan(*ins, chunk=chunk, return_state=True)
         cache["state"].copy_(final)
         keep = min(S, conv_width - 1)
         for name in ("x", "B", "C"):

@@ -2,8 +2,7 @@
 internlm2-20b, h2o-danube-3-4b), of the ssm family (a Mamba2/SSD stack,
 mamba2-370m) and of the hybrid family (Mamba2 blocks with one shared
 attention block after every ``hybrid_attn_period`` of them, zamba2-7b),
-ported from ``repro/models/transformer.py`` for serving, and the dense
-family's loss for training:
+ported from ``repro/models/transformer.py`` for serving and training:
 
   * init(seed)                                -> params (stacked [L, ...])
   * loss(params, batch)                       -> (scalar loss, metrics)
@@ -15,10 +14,10 @@ family's loss for training:
 The layer stack is a Python loop over the stacked parameters (the
 reference's ``lax.scan``). Prefill attention goes through the
 flash-attention kernel and the prefill SSD scan through the SSD kernel;
-the loss's attention through the forward and backward flash kernels;
-decode is plain torch, as in the reference. Other families raise
-``NotImplementedError``, and so does the loss of the ssm and hybrid
-families.
+the loss's attention through the forward and backward flash kernels and
+its SSD scan through the forward and backward SSD kernels; decode is
+plain torch, as in the reference. Other families raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,13 +54,15 @@ class LM:
     def __init__(self, cfg: ModelConfig, *, device=None,
                  attention=kops.flash_attention,
                  attention_bwd=kops.flash_attention_bwd,
-                 ssd_scan=kops.ssd_scan, remat: bool = False):
+                 ssd_scan=kops.ssd_scan, ssd_scan_bwd=kops.ssd_scan_bwd,
+                 remat: bool = False):
         """``device``: 'cuda' (the default; raises without a card) or 'cpu'.
-        ``attention``, ``attention_bwd`` and ``ssd_scan``: the attention
-        forward and backward and the SSD scan; the kernels unless a
-        comparison swaps in the plain versions. ``remat``: the loss
-        recomputes each block's activations in the backward
-        (``torch.utils.checkpoint``), as the reference's ``remat``."""
+        ``attention``, ``attention_bwd``, ``ssd_scan`` and ``ssd_scan_bwd``:
+        the attention forward and backward and the SSD scan and its
+        backward; the kernels unless a comparison swaps in the plain
+        versions. ``remat``: the loss recomputes each block's activations
+        (Mamba or attention) in the backward (``torch.utils.checkpoint``),
+        as the reference's ``remat``."""
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not yet ported ({', '.join(FAMILIES)} only)")
@@ -71,6 +72,7 @@ class LM:
         self.attention = attention
         self.attention_bwd = attention_bwd
         self.ssd_scan = ssd_scan
+        self.ssd_scan_bwd = ssd_scan_bwd
         self.remat = remat
 
     # ------------------------------------------------------------------
@@ -139,20 +141,30 @@ class LM:
             **self._attn_kwargs())
         return h + swiglu(lp["mlp"], rms_norm(lp["ln2"], h, c.norm_eps))
 
+    def _mamba(self, lp: Params, h: torch.Tensor,
+               cache: Params | None = None) -> torch.Tensor:
+        """One Mamba2 block with its residual, for the loss and prefill."""
+        c = self.cfg
+        return h + ssm_mod.ssd_block(
+            lp["ssd"], rms_norm(lp["ln"], h, c.norm_eps),
+            head_dim=c.ssm_head_dim, state=c.ssm_state, chunk=c.ssm_chunk,
+            conv_width=c.ssm_conv_width, scan=self.ssd_scan,
+            scan_bwd=self.ssd_scan_bwd, cache=cache)
+
     def loss(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
         """batch: tokens [B,S], labels [B,S] (labels < 0 are masked). The
-        mean token cross-entropy through the training attention, and the
-        reference's metrics (``moe_aux`` is 0 in the dense family)."""
-        c = self.cfg
-        if c.family != "dense":
-            raise NotImplementedError(
-                f"loss of the {c.family!r} family is not yet ported (dense only)")
+        mean token cross-entropy through the training attention and SSD
+        scan, and the reference's metrics (``moe_aux`` is 0 in the dense,
+        ssm and hybrid families). The blocks run in ``_stack``'s order; the
+        hybrid's shared block runs under autograd at each call, so its
+        gradients sum over the calls."""
         h = embed(params["embed"], batch["tokens"], self.dtype)
-        for lp in unstack(params["layers"], c.num_layers):
+        for kind, lp, _ in self._stack(params, None):
+            block = self._mamba if kind == "ssm" else self._block_train
             if self.remat:
-                h = checkpoint(self._block_train, lp, h, use_reentrant=False)
+                h = checkpoint(block, lp, h, use_reentrant=False)
             else:
-                h = self._block_train(lp, h)
+                h = block(lp, h)
         xent = softmax_xent(self._logits(params, h), batch["labels"])
         aux = torch.zeros((), dtype=torch.float32, device=xent.device)
         return xent + 0.01 * aux, {"xent": xent, "moe_aux": aux}
@@ -172,28 +184,32 @@ class LM:
         the order the stack runs them; kind is "attn" (attention + SwiGLU)
         or "ssm" (a Mamba2 block). The hybrid family runs each group of
         ``hybrid_attn_period`` Mamba blocks, then the shared attention block
-        on the group's own KV cache slot, and the tail blocks last."""
+        on the group's own KV cache slot, and the tail blocks last. The
+        stacked trees are taken apart by ``unstack``, so the loss's gradient
+        of each is one stacked tensor."""
         c = self.cfg
+        layers = unstack(params["layers"])
 
         def sub(key, i):
             return None if cache is None else layer(cache[key], i)
 
         if c.family == "dense":
             for i in range(c.num_layers):
-                yield "attn", layer(params["layers"], i), sub("kv", i)
+                yield "attn", layers[i], sub("kv", i)
             return
         if c.family == "ssm":
             for i in range(c.num_layers):
-                yield "ssm", layer(params["layers"], i), sub("ssm", i)
+                yield "ssm", layers[i], sub("ssm", i)
             return
         period = c.hybrid_attn_period
         groups = c.num_layers // period
         for g in range(groups):
             for i in range(g * period, (g + 1) * period):
-                yield "ssm", layer(params["layers"], i), sub("ssm", i)
+                yield "ssm", layers[i], sub("ssm", i)
             yield "attn", params["shared_attn"], sub("kv", g)
-        for i in range(c.num_layers - groups * period):
-            yield "ssm", layer(params["tail_layers"], i), sub("ssm_tail", i)
+        tail = unstack(params["tail_layers"]) if "tail_layers" in params else []
+        for i, lp in enumerate(tail):
+            yield "ssm", lp, sub("ssm_tail", i)
 
     def _body(self, params: Params, h: torch.Tensor,
               cache: Params | None = None) -> torch.Tensor:
@@ -204,10 +220,7 @@ class LM:
         S = h.shape[1]
         for kind, lp, sl in self._stack(params, cache):
             if kind == "ssm":
-                h = h + ssm_mod.ssd_block(
-                    lp["ssd"], rms_norm(lp["ln"], h, c.norm_eps),
-                    head_dim=c.ssm_head_dim, state=c.ssm_state, chunk=c.ssm_chunk,
-                    conv_width=c.ssm_conv_width, scan=self.ssd_scan, cache=sl)
+                h = self._mamba(lp, h, sl)
                 continue
             a, k, v = attn.attention_prefill(
                 lp["attn"], rms_norm(lp["ln1"], h, c.norm_eps),

@@ -16,11 +16,15 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref as tref  # noqa: E402
-from repro_torch.kernels.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ref import ssd_scan_bwd_ref, ssd_scan_ref  # noqa: E402
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
 SSD_TOL = 1e-4  # tests/test_kernels.py's SSD tolerance
+# the SSD backward against its plain version: max |got - want| <= SSD_BWD_TOL
+# * max |want| per gradient (chip_smoke.py's SSD_BWD_TOL: each element is a
+# sum of many terms of both signs, dA over every position)
+SSD_BWD_TOL = 1e-4
 
 pytestmark = pytest.mark.cuda
 
@@ -299,6 +303,92 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     got = tssd.ssd_scan(xh[..., :8], dt, A, Bm, Cm, chunk=256)
     torch.testing.assert_close(got, ssd_scan_ref(xh[..., :8], dt, A, Bm, Cm),
                                rtol=SSD_TOL, atol=SSD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# SSD backward
+# ---------------------------------------------------------------------------
+
+def _close_scaled(got, want, tol=SSD_BWD_TOL):
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,slow", [
+    (1, 64, 2, 16, 8, 16, False),
+    (2, 128, 4, 32, 16, 32, True),
+    (1, 50, 2, 64, 64, 128, False),     # S < chunk
+    (2, 1000, 4, 64, 128, 128, True),   # ragged last chunk
+    (2, 1000, 4, 64, 128, 100, True),   # chunk no multiple of 16
+    (2, 256, 4, 32, 16, 16, False),     # the reduced mamba2 shape
+    (1, 300, 4, 128, 256, 256, True),   # sliced, chunk cut
+    (1, 300, 4, 48, 96, 128, False),    # padded
+    (2, 100, 2, 8, 4, 40, True),
+])
+def test_ssd_backward_kernel_matches_plain(cuda, B, S, H, P, N, chunk, slow):
+    ins = _ssd_inputs(cuda, B, S, H, P, N, slow=slow)
+    dy = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (B, S, H, P)).astype(np.float32)).to(cuda)
+    before = tssd.ssd_scan_bwd.launches
+    got = tops.ssd_scan_bwd(*ins, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    p_cuts, n_cuts, _ = tssd.slice_plan(P, N, chunk)
+    assert tssd.ssd_scan_bwd.launches == before + len(p_cuts) * len(n_cuts)
+    for g, w in zip(got, ssd_scan_bwd_ref(*ins, dy, chunk=chunk)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        _close_scaled(g, w)
+
+
+def test_ssd_backward_kernel_is_deterministic(cuda):
+    """Every sum in a fixed order, no atomics: two calls, the same bits."""
+    ins = _ssd_inputs(cuda, 2, 512, 8, 64, 128, slow=True)
+    dy = torch.randn(ins[0].shape, device=cuda)
+    first = tops.ssd_scan_bwd(*ins, dy, chunk=128)
+    assert all(torch.equal(a, b) for a, b in zip(first, tops.ssd_scan_bwd(*ins, dy, chunk=128)))
+
+
+def test_ssd_backward_kernel_refuses_what_it_does_not_take(cuda):
+    xh, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 16, 2, 16, 8)
+    with pytest.raises(TypeError, match="float32"):
+        tssd.ssd_scan_bwd(xh, dt, A, Bm, Cm, xh.bfloat16())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tssd.ssd_scan_bwd(xh, dt, A, Bm.cpu(), Cm, xh)
+    with pytest.raises(ValueError, match="chunk"):
+        tssd.ssd_scan_bwd(xh, dt, A, Bm, Cm, xh, chunk=0)
+    with pytest.raises(ValueError, match="shaped as xh"):
+        tssd.ssd_scan_bwd(xh, dt, A, Bm, Cm, xh[:, :8])
+
+
+@pytest.mark.parametrize("arch,over", [("mamba2-370m", {}),
+                                       ("zamba2-7b", dict(num_layers=7, hybrid_attn_period=3))],
+                         ids=["ssm", "hybrid_tail"])
+def test_ssm_training_step_on_card_matches_cpu(cuda, arch, over):
+    """One loss and backward of a reduced f32 model on the card (the SSD
+    scan and its backward through their kernels, twice and once a Mamba
+    block with remat) against the same step on the CPU (the plain
+    versions): the loss and every gradient leaf."""
+    from repro_torch.bridge import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config(arch).reduced(dtype="float32", **over)
+    params = LM(cfg, device="cpu").init(0, param_dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 100)))
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_(True) for _, t in named_leaves(params)]
+        tree = _tree(dict(zip([p for p, _ in named_leaves(params)], leaves)))
+        batch = {"tokens": tokens.to(dev), "labels": tokens.roll(-1, 1).to(dev)}
+        before = (tssd.ssd_scan.launches, tssd.ssd_scan_bwd.launches)
+        loss, _ = LM(cfg, device=dev, remat=True).loss(tree, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        launched = (tssd.ssd_scan.launches - before[0], tssd.ssd_scan_bwd.launches - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (2 * cfg.num_layers, cfg.num_layers))
+        out[str(dev)] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    (cpu_loss, cpu_grads), (card_loss, card_grads) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(card_loss, cpu_loss, rtol=1e-5, atol=1e-5)
+    for (path, _), g, w in zip(named_leaves(params), card_grads, cpu_grads):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=str(path))
 
 
 # ---------------------------------------------------------------------------

@@ -251,14 +251,6 @@ def test_greedy_tokens_identical(models):
     np.testing.assert_array_equal(out["tokens"].numpy(), np.stack(want, 1))
 
 
-def test_loss_is_not_ported(models):
-    """Training the hybrid family waits for a backward of the SSD scan."""
-    _, _, tlm, tparams, _ = models
-    tokens = torch.from_numpy(_prompts(4))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tlm.loss(tparams, {"tokens": tokens, "labels": tokens})
-
-
 # ---------------------------------------------------------------------------
 # bf16, as served
 # ---------------------------------------------------------------------------

@@ -46,6 +46,9 @@ def test_scan_covers_the_package():
             "comms/executor.py", "comms/primitives.py", "comms/selftest.py"} <= rel
     assert {"launch/sharding.py", "launch/train_lm.py", "optim/adamw.py",
             "data/pipeline.py", "kernels/flash_attention.py"} <= rel
+    # every CUDA source is built, the SSD backward's among them
+    csrc = {p.stem for p in (ROOT / "src/repro_torch/kernels/csrc").glob("*.cu")}
+    assert set(build.SOURCES) == csrc and "ssd_scan_bwd" in csrc
 
 
 # the planner modules the port copies from the reference, by package
@@ -285,3 +288,37 @@ def test_trace_kind_of_flash_backward_passes(symbol):
     from repro_torch.launch import trace
 
     assert trace.kind_of(symbol) == "flash_attention_bwd"
+
+
+@pytest.mark.parametrize("symbol", [
+    # each pass of the SSD backward, as the profiler names it
+    "void (anonymous namespace)::ssd_bwd_scores_kernel<128>((anonymous namespace)::Params)",
+    "void (anonymous namespace)::ssd_bwd_rev_kernel<64, 128>((anonymous namespace)::Params)",
+    "(anonymous namespace)::ssd_bwd_carry_kernel(float*, float const*, int, int)",
+    "void (anonymous namespace)::ssd_bwd_chunk_kernel<64, 64>((anonymous namespace)::Params)",
+    "(anonymous namespace)::ssd_bwd_sum_kernel(float const*, float const*, float*, float*, int, "
+    "long long, long long)",
+    "(anonymous namespace)::ssd_bwd_dA_kernel(float const*, float*, int, int)",
+    # mangled
+    "_ZN12_GLOBAL__N_120ssd_bwd_chunk_kernelILi16ELi8EEEvNS_6ParamsE",
+])
+def test_trace_kind_of_ssd_backward_passes(symbol):
+    from repro_torch.launch import trace
+
+    assert trace.kind_of(symbol) == "ssd_scan_bwd"
+
+
+@pytest.mark.parametrize("name", ["ssd_scan_bwd", "flash_attention_bwd"])
+def test_backward_dispatch_raises_off_cpu_and_cuda(name):
+    """A tensor on neither the CPU nor the card goes to no backward: the
+    dispatch raises, it does not fall back."""
+    from repro_torch.kernels import ops
+
+    if name == "ssd_scan_bwd":
+        B, S, H, P, N = 1, 8, 2, 4, 3
+        args = [torch.zeros(s, device="meta") for s in
+                ((B, S, H, P), (B, S, H), (H,), (B, S, N), (B, S, N), (B, S, H, P))]
+    else:
+        args = [torch.zeros((1, 8, 2, 4), device="meta")] * 5
+    with pytest.raises(ValueError, match=f"no {name} for device meta"):
+        getattr(ops, name)(*args)
