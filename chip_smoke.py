@@ -295,6 +295,10 @@ TRAIN_LOSS_REL_TOL = 1e-3
 # P, N, chunk); the first goes to the kernels line
 SSD_BWD_SHAPES = {"mamba2-370m": (TRAIN_SHAPE[0], TRAIN_SHAPE[1], 32, 64, 128, 128),
                   "zamba2-7b": (TRAIN_SHAPE[0], TRAIN_SHAPE[1], 112, 64, 64, 128)}
+# H no power of two, where the kernel groups heads (G > 1); this and
+# SSD_BWD_TOL are imported by tests/test_torch_cuda.py and
+# tests/test_torch_ssm_train.py
+SSD_BWD_GROUP_CASES = [(4, 2048, 6, 64, 128, 128, True), (1, 2048, 12, 64, 128, 128, True)]
 SSD_BWD_CASES = [  # B, S, H, P, N, chunk, slow decay
     (1, 64, 2, 16, 8, 16, False),       # the scan's test shapes
     (2, 128, 4, 32, 16, 32, True),
@@ -309,6 +313,9 @@ SSD_BWD_CASES = [  # B, S, H, P, N, chunk, slow decay
     (2, 100, 2, 8, 4, 40, True),
     # the training shapes, both decays
     *[(*shape, slow) for shape in SSD_BWD_SHAPES.values() for slow in (False, True)],
+    # H no power of two, where the kernel groups heads (G > 1): each group's
+    # dB and dC summed over its heads, then over the groups
+    *SSD_BWD_GROUP_CASES,
 ]
 # the SSD backward kernel against its plain version (autograd through the
 # chunked scan), f32: max |got - want| <= SSD_BWD_TOL * max |want| for each
@@ -359,26 +366,29 @@ PTXAS_REGS = re.compile(r"Used (\d+) registers")
 BWD_SYMBOL = re.compile(r"flash_bwd_(lse|dkdv|dq)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
 
 
-# the SSD backward's passes at the training shapes' P, N (templated on
-# them) and its untemplated passes
-SSD_BWD_SYMBOL = re.compile(
-    r"ssd_bwd_(\w+?)_kernel(?:ILi64ELi(64|128)EE|ILi(64|128)EE|(?=E[PvN]))")
+# the SSD backward's passes: name and template arguments (csrc/ssd_scan_bwd.cu)
+SSD_BWD_SYMBOL = re.compile(r"ssd_bwd_(\w+?)_kernel(?:I((?:Li\d+E)+)E)?")
+SSD_BWD_TEMPLATE = {"scores": ("N",), "rev": ("P", "N"), "chunk": ("P",),
+                    "inter": ("P", "N"), "dbc": ("P", "N")}
 
 
 def ssd_bwd_ptxas(log: str) -> list[str]:
-    """One line per SSD backward pass at the training shapes in nvcc's
-    ``-Xptxas -v`` output: pass, N where templated, registers, spill
-    bytes."""
+    """One line per SSD backward pass at the training shapes (P 64, N 64 and
+    128 where templated) in nvcc's ``-Xptxas -v`` output: pass, template
+    arguments, registers, spill bytes."""
     rows, entry, spill = [], None, ("?", "?")
     for line in log.splitlines():
         if m := PTXAS_ENTRY.search(line):
-            entry, spill = SSD_BWD_SYMBOL.search(m[1]), ("?", "?")
+            entry, spill = None, ("?", "?")
+            if sym := SSD_BWD_SYMBOL.search(m[1]):
+                args = dict(zip(SSD_BWD_TEMPLATE.get(sym[1], ()),
+                                map(int, re.findall(r"Li(\d+)E", sym[2] or ""))))
+                if args.get("P", 64) == 64 and args.get("N", 64) in (64, 128):
+                    entry = (sym[1], "".join(f" {k} {v}" for k, v in args.items()))
         elif m := PTXAS_SPILL.search(line):
             spill = (m[1], m[2])
         elif (m := PTXAS_REGS.search(line)) and entry:
-            n = entry[2] or entry[3]
-            rows.append(f"ssd_bwd_{entry[1]}_kernel{f' P 64 N {n}' if entry[2] else ''}"
-                        f"{f' N {n}' if entry[3] else ''}: {m[1]} registers, "
+            rows.append(f"ssd_bwd_{entry[0]}_kernel{entry[1]}: {m[1]} registers, "
                         f"spill stores {spill[0]} B, loads {spill[1]} B")
             entry = None
     return sorted(rows)
@@ -505,8 +515,10 @@ def ssd_bound(xh, Bm, chunk: int):
 
 def ssd_bwd_bound(xh, Bm, chunk: int):
     """(bound_ms, bound_by, flops, bytes, terms) of the SSD backward, as
-    ``ssd_bound``. The operations: C.B^T over the causal pairs once per (b,
-    chunk); per (b, h, chunk) dy.x^T, (C.B^T o L)^T dy, W B and W^T C over
+    ``ssd_bound``. The operations: once per (b, chunk), over the causal
+    pairs, C.B^T and the intra-chunk parts of dB and dC, Wsum^T C and Wsum
+    B, with Wsum = sum_h W the heads' W summed (H adds a pair), since every
+    head shares B and C; per (b, h, chunk) dy.x^T and (C.B^T o L)^T dy over
     the causal pairs, and the products of q x P x N that the function needs:
     the chunk's state (the forward's, recomputed), B carry^T and x carry in
     every chunk but the last (the last chunk's state is read by nothing and
@@ -521,8 +533,8 @@ def ssd_bwd_bound(xh, Bm, chunk: int):
         q = min(chunk, S - c * chunk)
         pairs = q * (q + 1) // 2
         products = 3 * (c < nc - 1) + 2 * (c > 0)
-        flops += B * (pairs * N * 2 + H * (2 * pairs * P * 2 + 2 * pairs * N * 2
-                                            + products * q * P * N * 2))
+        flops += B * (3 * pairs * N * 2 + H * pairs
+                      + H * (2 * pairs * P * 2 + products * q * P * N * 2))
     nbytes = (3 * xh.numel() + 2 * B * S * H + 2 * H + 4 * Bm.numel()) * 4
     terms = {"f32_ms": flops / PEAK_FLOPS["float32"] * 1e3,
              "3xtf32_ms": 3 * flops / PEAK_FLOPS["tf32"] * 1e3,
@@ -1024,13 +1036,17 @@ def ssd_bwd_phase(torch, dev, gen, ops, ssd, ssd_scan_bwd_ref) -> dict:
         before = ssd.ssd_scan_bwd.launches
         got = ops.ssd_scan_bwd(*ins, chunk=chunk)
         torch.cuda.synchronize()
-        p_cuts, n_cuts, _ = ssd.slice_plan(P, N, chunk)
+        p_cuts, n_cuts, run_chunk = ssd.slice_plan(P, N, chunk)
         if ssd.ssd_scan_bwd.launches != before + len(p_cuts) * len(n_cuts):
             fail("the SSD backward wrapper did not count its launches")
+        groups = ssd.bwd_groups(dev, B, S, H, p_cuts[0][2], n_cuts[0][2], run_chunk)
+        if (B, S, H, P, N, chunk, slow) in SSD_BWD_GROUP_CASES and groups[:2] == (1, 1):
+            fail(f"the SSD backward grouped no heads at {(B, S, H, P, N, chunk)}")
         want = ssd_scan_bwd_ref(*ins, chunk=chunk)
         checked = [compare_scaled(g, w, SSD_BWD_TOL) for g, w in zip(got, want)]
         ok = all(c[1] for c in checked)
-        print(f"  B={B} S={S} H={H} P={P} N={N} chunk={chunk}{' slow decay' if slow else ''}: "
+        print(f"  B={B} S={S} H={H} P={P} N={N} chunk={chunk}{' slow decay' if slow else ''} "
+              f"G={groups[0]},{groups[1]}: "
               f"max_abs_err {' / '.join(f'{n} {c[0]:.3g}' for n, c in zip(names, checked))} "
               f"(tol {SSD_BWD_TOL} x max |plain|) {'ok' if ok else 'FAIL'}")
         if not ok:

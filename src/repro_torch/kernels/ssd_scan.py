@@ -16,7 +16,9 @@ sizes, one for each (P slice, N slice) otherwise.
 ``ssd_scan_bwd`` gives the scan's gradients for a cotangent of y, on the
 same terms (CUDA f32, any P, N and chunk through ``slice_plan``); it
 recomputes the states entering each chunk with the forward's passes (a)
-and (b) and counts its launches in ``ssd_scan_bwd.launches``.
+and (b), sizes the backward's scratch by the heads a block that the kernel
+picks (``bwd_groups``) and counts its launches in
+``ssd_scan_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -51,13 +53,39 @@ def _kernel():
 
 
 def _bwd_kernel():
+    """(the backward, its group query), bound."""
     if "bwd" not in _fns:
-        fn = build.load("ssd_scan_bwd").repro_ssd_scan_bwd
+        lib = build.load("ssd_scan_bwd")
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 18 + [i] * 6 + [p]
+        fn = lib.repro_ssd_scan_bwd
+        fn.argtypes = [p] * 20 + [i] * 8 + [p]
         fn.restype = i
-        _fns["bwd"] = fn
+        groups = lib.repro_ssd_scan_bwd_groups
+        groups.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+        groups.restype = i
+        _fns["bwd"] = (fn, groups)
     return _fns["bwd"]
+
+
+_bwd_groups: dict = {}
+
+
+def bwd_groups(device, B, S, H, P, N, chunk) -> tuple[int, int, int]:
+    """``(g_rev, g_chunk, rq_rows)`` of the backward's kernel at this shape
+    on ``device``: the heads a block of its reverse-state pass and of its
+    chunk and dB/dC passes, chosen by the kernel from the grid and the
+    card's SMs, and the rows of its per-position scratch rq, which the
+    caller allocates; built sizes only."""
+    key = (device, B, S, H, P, N, chunk)
+    if key not in _bwd_groups:
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            err = _bwd_kernel()[1](B, S, H, P, N, int(chunk), out)
+        if err != 0:
+            raise RuntimeError(f"ssd_scan_bwd group query failed: "
+                               f"{_kernel()[2](err).decode()} ({err})")
+        _bwd_groups[key] = (out[0], out[1], out[2])
+    return _bwd_groups[key]
 
 
 def slice_plan(P: int, N: int, chunk: int):
@@ -199,13 +227,15 @@ def _bwd_launch(xh, dt, A, Bm, Cm, dy, chunk):
     def scratch(*shape):
         return torch.empty(shape, dtype=torch.float32, device=xh.device)
 
+    g_rev, g_chunk, rq_rows = bwd_groups(xh.device, B, S, H, P, N, chunk)
     states = scratch(B, H, nc, P, N) if nc > 1 else scratch(0)
     totals, rev = scratch(B, H, nc), torch.empty_like(states)
     scores, dA_part = scratch(B, nc, qp, qp), scratch(B, nc, H)
-    dB_part, dC_part = scratch(B, H, S, N), scratch(B, H, S, N)
+    wsum, rq = scratch(B, nc, H // g_chunk, 2, qp, qp), scratch(rq_rows, B, H, S)
+    dB_part, dC_part = scratch(B, H // g_chunk, S, N), scratch(B, H // g_chunk, S, N)
     out = [torch.empty_like(t) for t in (xh, dt, A, Bm, Cm)]
     _, states_fn, err_str = _kernel()
-    fn = _bwd_kernel()
+    fn = _bwd_kernel()[0]
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream(xh.device).cuda_stream
         err = 0
@@ -217,8 +247,9 @@ def _bwd_launch(xh, dt, A, Bm, Cm, dy, chunk):
                             int(chunk), strides, stream)
         if err == 0:
             err = fn(*(t.data_ptr() for t in (xh, dt, A, Bm, Cm, dy, states, totals, rev,
-                                               scores, dB_part, dC_part, dA_part, *out)),
-                     B, S, H, P, N, int(chunk), stream)
+                                               scores, wsum, rq, dB_part, dC_part, dA_part,
+                                               *out)),
+                     B, S, H, P, N, int(chunk), g_rev, g_chunk, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed: "
                            f"{err_str(err).decode()} ({err})")

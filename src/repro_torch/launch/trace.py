@@ -41,7 +41,7 @@ _FLASH_BWD = re.compile(r"flash_bwd_(lse|dkdv|dq)_kernel")
 _SSD = re.compile(r"ssd_(chunk_state|state_pass|chunk_out)_kernel")
 # the SSD backward's own passes (csrc/ssd_scan_bwd.cu); the states it
 # recomputes through the forward's passes (a) and (b) count as ssd_scan
-_SSD_BWD = re.compile(r"ssd_bwd_(scores|rev|carry|chunk|sum|dA)_kernel")
+_SSD_BWD = re.compile(r"ssd_bwd_(scores|rev|carry|chunk|inter|dbc|sum|dA)_kernel")
 _MATMUL = re.compile(r"gemm|gemv|xmma|cutlass|cublas|nvjet", re.I)
 
 

@@ -6,10 +6,19 @@ jax, so it runs on a machine with PyTorch alone:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+# the SSD backward against its plain version: max |got - want| <= SSD_BWD_TOL
+# * max |want| per gradient, and the cases where H is no power of two and the
+# backward groups heads; one copy, the card check's
+from chip_smoke import SSD_BWD_GROUP_CASES, SSD_BWD_TOL  # noqa: E402
 
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -21,10 +30,6 @@ from repro_torch.kernels.ref import ssd_scan_bwd_ref, ssd_scan_ref  # noqa: E402
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
 SSD_TOL = 1e-4  # tests/test_kernels.py's SSD tolerance
-# the SSD backward against its plain version: max |got - want| <= SSD_BWD_TOL
-# * max |want| per gradient (chip_smoke.py's SSD_BWD_TOL: each element is a
-# sum of many terms of both signs, dA over every position)
-SSD_BWD_TOL = 1e-4
 
 pytestmark = pytest.mark.cuda
 
@@ -324,6 +329,7 @@ def _close_scaled(got, want, tol=SSD_BWD_TOL):
     (1, 300, 4, 128, 256, 256, True),   # sliced, chunk cut
     (1, 300, 4, 48, 96, 128, False),    # padded
     (2, 100, 2, 8, 4, 40, True),
+    *SSD_BWD_GROUP_CASES,
 ])
 def test_ssd_backward_kernel_matches_plain(cuda, B, S, H, P, N, chunk, slow):
     ins = _ssd_inputs(cuda, B, S, H, P, N, slow=slow)
@@ -345,6 +351,18 @@ def test_ssd_backward_kernel_is_deterministic(cuda):
     dy = torch.randn(ins[0].shape, device=cuda)
     first = tops.ssd_scan_bwd(*ins, dy, chunk=128)
     assert all(torch.equal(a, b) for a, b in zip(first, tops.ssd_scan_bwd(*ins, dy, chunk=128)))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,slow", SSD_BWD_GROUP_CASES)
+def test_ssd_backward_kernel_groups_heads(cuda, B, S, H, P, N, chunk, slow):
+    """At these shapes the kernel takes more than one head a block in a
+    pass (chip_smoke.py's SSD_BWD_GROUP_CASES), and two calls still give
+    the same bits."""
+    assert tssd.bwd_groups(cuda, B, S, H, P, N, chunk)[:2] != (1, 1)
+    ins = _ssd_inputs(cuda, B, S, H, P, N, slow=slow)
+    dy = torch.randn(ins[0].shape, device=cuda)
+    first = tops.ssd_scan_bwd(*ins, dy, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(first, tops.ssd_scan_bwd(*ins, dy, chunk=chunk)))
 
 
 def test_ssd_backward_kernel_refuses_what_it_does_not_take(cuda):

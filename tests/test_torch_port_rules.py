@@ -299,8 +299,11 @@ def test_trace_kind_of_flash_backward_passes(symbol):
     "(anonymous namespace)::ssd_bwd_sum_kernel(float const*, float const*, float*, float*, int, "
     "long long, long long)",
     "(anonymous namespace)::ssd_bwd_dA_kernel(float const*, float*, int, int)",
+    "void (anonymous namespace)::ssd_bwd_inter_kernel<64, 128>((anonymous namespace)::Params)",
+    "void (anonymous namespace)::ssd_bwd_dbc_kernel<64, 64>((anonymous namespace)::Params, int)",
     # mangled
     "_ZN12_GLOBAL__N_120ssd_bwd_chunk_kernelILi16ELi8EEEvNS_6ParamsE",
+    "_ZN12_GLOBAL__N_121ssd_bwd_chunk_kernelILi64EEEvNS_6ParamsEi",
 ])
 def test_trace_kind_of_ssd_backward_passes(symbol):
     from repro_torch.launch import trace

@@ -14,12 +14,20 @@ norm_scale), and carried over with ``params_from_jax``. Tolerance 1e-4
 (rtol and atol) in f32: the frameworks sum in other orders.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
 from _torch_cpu import one_torch_thread  # noqa: E402, F401
+# the card's check of the SSD backward kernel against its plain version:
+# max |got - plain| <= SSD_BWD_TOL * max |plain| for each gradient
+from chip_smoke import SSD_BWD_TOL  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -125,55 +133,97 @@ def test_ssd_chunked_ref_gradient_is_finite_where_decays_underflow():
 # the CUDA kernel's decomposition, in numpy (csrc/ssd_scan_bwd.cu's passes)
 # ---------------------------------------------------------------------------
 
-def _kernel_passes(xh, dt, A, Bm, Cm, dy, Q, fault=None):
-    """The backward as the kernel's passes compute it, in float64: the
-    states entering each chunk (the forward's passes (a), (b)); each
-    chunk's reverse state R and the reverse walk of the carries; then per
-    chunk dx, dB, dC from W = (dy x^T) o L o dt and the carries, and ddt,
-    dA from the reverse prefix sum of d(loss)/d(csum). ``fault`` plants an
-    error: "no_carry" drops the adjoint carried in from later chunks,
-    "no_h_out" the <carry, h_out> term of the last position's r."""
+def _f64_matmul(a, b):
+    return a @ b
+
+
+def _kernel_passes(xh, dt, A, Bm, Cm, dy, Q, G=1, fault=None, mm=_f64_matmul):
+    """The backward as the kernel's passes compute it (csrc/ssd_scan_bwd.cu),
+    elementwise in float64, every product through ``mm``: the states
+    entering each chunk (the forward's passes (a), (b)); each chunk's
+    reverse state R and the reverse walk of the carries; per chunk, padded
+    to Qp (a multiple of 16), S = C B^T on the 16 x 16 tiles on and below
+    the diagonal; per head dy x^T gives W = (dy x^T) o L o dt on those tiles,
+    the decay below the diagonal tile a row factor exp(csum_k - csum_r)
+    times a column factor exp(csum_r - csum_j) (r the tile's first row) and
+    an exp per element on it; (S o L)^T dy over the tiles from the diagonal
+    on (row factor exp(csum_e - csum_i), e the tile's last row, after it);
+    B carry^T and C h_in^T; r, and dl by its reverse scan, give ddt and dA.
+    dB and dC of a group of G heads: Wsum B and Wsum^T C, Wsum = sum_h W in
+    head order, plus each head's inter part; the groups summed in order.
+    ``fault`` plants an error: "no_carry" drops the adjoint carried in from
+    later chunks, "no_h_out" the <carry, h_out> term of the last position's
+    r."""
     x, d, a, b, c, g = (np.asarray(v, np.float64) for v in (xh, dt, A, Bm, Cm, dy))
     Bz, S, H, P = x.shape
-    N, nc = b.shape[-1], -(-S // Q)
+    N, nc, Qp = b.shape[-1], -(-S // Q), -(-Q // 16) * 16
+    assert H % G == 0
+    tile = np.arange(Qp) // 16
+    below = tile[:, None] > tile[None, :]     # tiles below the diagonal tile
+    on = tile[:, None] == tile[None, :]
+    causal = np.arange(Qp)[:, None] >= np.arange(Qp)[None, :]
     dx, ddt, dA = np.zeros_like(x), np.zeros_like(d), np.zeros(H)
     dB, dC = np.zeros_like(b), np.zeros_like(c)
+
+    def pad(v):  # a chunk's rows, zero-padded to Qp
+        return np.concatenate([v, np.zeros((Qp - len(v),) + v.shape[1:])])
+
     for bi in range(Bz):
+        cs, h_in, rev = {}, {}, {}
+        for h in range(H):  # the forward's states, R and the carries
+            state = np.zeros((P, N))
+            for ci in range(nc):
+                sl = slice(ci * Q, min(S, (ci + 1) * Q))
+                csum = np.cumsum(pad(d[bi, sl, h]) * a[h])
+                cs[h, ci], h_in[h, ci] = csum, state
+                w = pad(d[bi, sl, h]) * np.exp(csum[-1] - csum)
+                state = np.exp(csum[-1]) * state + mm((pad(x[bi, sl, h]) * w[:, None]).T,
+                                                      pad(b[bi, sl]))
+                rev[h, ci] = mm((pad(g[bi, sl, h]) * np.exp(csum)[:, None]).T, pad(c[bi, sl]))
+        carry = {}
         for h in range(H):
-            cs, h_in, rev, state = [], [], [], np.zeros((P, N))
-            for ci in range(nc):
-                sl = slice(ci * Q, min(S, (ci + 1) * Q))
-                csum = np.cumsum(d[bi, sl, h] * a[h])
-                cs.append(csum)
-                h_in.append(state)
-                w = d[bi, sl, h] * np.exp(csum[-1] - csum)
-                state = np.exp(csum[-1]) * state + (x[bi, sl, h] * w[:, None]).T @ b[bi, sl]
-                rev.append((g[bi, sl, h] * np.exp(csum)[:, None]).T @ c[bi, sl])
-            carry, s = [None] * nc, np.zeros((P, N))
+            s = np.zeros((P, N))
             for ci in reversed(range(nc)):
-                carry[ci] = np.zeros((P, N)) if fault == "no_carry" else s
-                s = rev[ci] + np.exp(cs[ci][-1]) * s
-            for ci in range(nc):
-                sl = slice(ci * Q, min(S, (ci + 1) * Q))
-                csum, X, Dy = cs[ci], x[bi, sl, h], g[bi, sl, h]
-                Bq, Cq, dq = b[bi, sl], c[bi, sl], d[bi, sl, h]
-                L = np.tril(np.exp(np.minimum(csum[:, None] - csum[None, :], 0.0)))
-                sc = Cq @ Bq.T
-                W = (Dy @ X.T) * L * dq[None, :]
-                Sm = W * sc
-                e = np.exp(csum[-1] - csum)
-                dx_ex = e[:, None] * (Bq @ carry[ci].T)
-                dxt = (sc * L).T @ Dy + dx_ex
-                dx[bi, sl, h] = dq[:, None] * dxt
-                dC_in = np.exp(csum)[:, None] * (Dy @ h_in[ci])
-                dC[bi, sl] += W @ Bq + dC_in
-                dB[bi, sl] += W.T @ Cq + (dq * e)[:, None] * (X @ carry[ci])
-                r = Sm.sum(1) - Sm.sum(0) + (Cq * dC_in).sum(1) - dq * (X * dx_ex).sum(1)
-                if ci < nc - 1 and fault != "no_h_out":
-                    r[-1] += (carry[ci] * h_in[ci + 1]).sum()
-                dl = np.cumsum(r[::-1])[::-1]
-                ddt[bi, sl, h] = (X * dxt).sum(1) + a[h] * dl
-                dA[h] += (dq * dl).sum()
+                carry[h, ci] = np.zeros((P, N)) if fault == "no_carry" else s
+                s = rev[h, ci] + np.exp(cs[h, ci][-1]) * s
+        for ci in range(nc):
+            sl = slice(ci * Q, min(S, (ci + 1) * Q))
+            nv = sl.stop - sl.start
+            Bq, Cq = pad(b[bi, sl]), pad(c[bi, sl])
+            Sc = np.where(below | on, mm(Cq, Bq.T), 0.0)  # the causal tiles
+            for h0 in range(0, H, G):
+                Wsum, dB_g, dC_g = np.zeros((Qp, Qp)), np.zeros((Qp, N)), np.zeros((Qp, N))
+                for h in range(h0, h0 + G):
+                    csum, X, Dy = cs[h, ci], pad(x[bi, sl, h]), pad(g[bi, sl, h])
+                    dq = pad(d[bi, sl, h])
+                    first, last = csum[16 * tile], csum[16 * tile + 15]
+                    diag = np.exp(np.minimum(csum[:, None] - csum[None, :], 0.0))
+                    Lw = np.where(below, np.exp(csum - first)[:, None]
+                                  * np.exp(first[:, None] - csum[None, :]),
+                                  np.where(on & causal, diag, 0.0)) * dq[None, :]
+                    W = mm(Dy, X.T) * Lw
+                    Sm = W * Sc
+                    # (S o L)^T: A2t[i][k] = S[k][i] L[k][i], k in the tiles from i's on
+                    A2t = np.where(below.T, Sc.T * np.exp(csum[None, :] - last[:, None])
+                                   * np.exp(last - csum)[:, None],
+                                   np.where(on & causal.T, Sc.T * diag.T, 0.0))
+                    e = np.exp(csum[-1] - csum)
+                    dxe = mm(Bq, carry[h, ci].T)
+                    U = mm(Cq, h_in[h, ci].T)
+                    dxt = mm(A2t, Dy) + e[:, None] * dxe
+                    r = (Sm.sum(1) - Sm.sum(0) + np.exp(csum) * (Dy * U).sum(1)
+                         - dq * e * (X * dxe).sum(1))
+                    if ci < nc - 1 and fault != "no_h_out":
+                        r[nv - 1] += (carry[h, ci] * h_in[h, ci + 1]).sum()
+                    dl = np.cumsum(r[::-1])[::-1]  # the reverse scan
+                    dx[bi, sl, h] = (dq[:, None] * dxt)[:nv]
+                    ddt[bi, sl, h] = ((X * dxt).sum(1) + a[h] * dl)[:nv]
+                    dA[h] += (dq * dl).sum()
+                    Wsum += W
+                    dC_g += np.exp(csum)[:, None] * mm(Dy, h_in[h, ci])
+                    dB_g += (dq * e)[:, None] * mm(X, carry[h, ci])
+                dC[bi, sl] += (mm(Wsum, Bq) + dC_g)[:nv]
+                dB[bi, sl] += (mm(Wsum.T, Cq) + dB_g)[:nv]
     return dx, ddt, dA, dB, dC
 
 
@@ -188,6 +238,40 @@ def test_ssd_backward_kernel_passes_match_plain(B, S, H, P, N, chunk, slow):
     want = ssd_scan_bwd_ref(*map(torch.from_numpy, arrs), torch.from_numpy(dy), chunk=chunk)
     for name, g, w in zip(GRADS, _kernel_passes(*arrs, dy, chunk), want):
         _close(g, w, msg=name)
+
+
+@pytest.mark.parametrize("H,G", [(6, 1), (6, 2), (6, 3), (3, 3)])
+def test_ssd_backward_kernel_passes_sum_groups_of_heads(H, G):
+    """dB and dC summed over each group of G heads (Wsum once a group, then
+    each head's inter part) and then over the groups: the plain backward's
+    at every G, with an H that 2 does not divide among them; chunks of 48
+    (three 16-row tiles) and a ragged last chunk, slow decay."""
+    arrs, dy = _inputs(8, 1, 100, H, 16, 8, slow=True)
+    want = ssd_scan_bwd_ref(*map(torch.from_numpy, arrs), torch.from_numpy(dy), chunk=48)
+    for name, g, w in zip(GRADS, _kernel_passes(*arrs, dy, 48, G=G), want):
+        _close(g, w, msg=name)
+
+
+def test_ssd_bwd_precision_needs_3xtf32():
+    """Every product of the kernel's passes on the tensor cores, emulated
+    (tests/test_torch_kernels.py's TF32 rounding): as one TF32 product each
+    the gradients miss the card's check, max |got - plain| <= SSD_BWD_TOL x
+    max |plain| (tests/test_torch_cuda.py, chip_smoke.py), every one of
+    them; split in three (3xTF32, as the kernel runs them) they hold it.
+    Slow decay, so that the carries cross chunks."""
+    from test_torch_kernels import _tc_matmul
+
+    arrs, dy = _inputs(9, 1, 256, 2, 32, 16, slow=True)
+    want = ssd_scan_bwd_ref(*map(torch.from_numpy, arrs), torch.from_numpy(dy), chunk=64)
+
+    def misses(scheme):
+        got = _kernel_passes(*arrs, dy, 64,
+                             mm=lambda a, b: _tc_matmul(a, b, scheme).astype(np.float64))
+        return [float(np.abs(g - w.numpy()).max()) > SSD_BWD_TOL * float(w.abs().max())
+                for g, w in zip(got, want)]
+
+    assert misses("3xtf32") == [False] * 5
+    assert misses("1xtf32") == [True] * 5
 
 
 @pytest.mark.parametrize("fault", ["no_carry", "no_h_out"])
