@@ -86,8 +86,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    gradient vector over a bidirectional ring of 8 ranks held in one tensor
    on the card, bit for bit on a column sample, against ``x.sum(0)``, with
    exact zeros off a subgroup of 5, timed beside ``x.sum(0)``;
-11. print one JSON line of per-kernel numbers;
-12. print the result line ``{"ok": true, "device": {...}}`` last.
+11. plan repair, on the same stacked backend: BENCH_synthesis.json's
+   fig_repair_64 (a 64-NPU three-level all-gather repaired after a pod's
+   internal link fails) with its strategy, phases kept and re-synthesized,
+   makespan and transfers gated, the repaired and the cold plan each run at
+   4096 f32 a shard, bit for bit against the numpy interpreter and the
+   plain gather, no transfer on the failed link, timed in turns, the
+   repaired one traced; all-reduces of mamba2-370m's gradient vector
+   repaired on the DP ring after a failed link and on the mp222 multi-pod
+   fabric after a failed pod-internal link and after a failed NPU (its row
+   NaN in, exact zeros out), each beside its undamaged plan; the
+   reference's repair fault at check_repair_seed(60973), which the copy
+   fixes, executed; a repair that must refuse (every boundary link cut)
+   and its failure count; fig_repair_512 gated, lowered and run at 256 f32
+   a shard;
+12. print one JSON line of per-kernel numbers;
+13. print the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of jax or of the JAX package ``repro``.
 """
@@ -357,6 +371,19 @@ EXEC_RANKS, EXEC_PAYLOAD = 8, 4096
 EXEC_TOL = 1e-5  # the conformance suite's tolerance for reductions
 SUBGROUP = (0, 2, 3, 5, 6)  # a strict subgroup of 5 of the 8 ranks
 SAMPLE_COLS = 4096  # columns of each chunk held bit for bit against numpy
+# the plan-repair phase: BENCH_synthesis.json's fig_repair rows
+# (benchmarks/repair.py:_scenario), name -> (three_level's pods, racks and
+# NPUs a rack; the row's strategy, phases kept, phases re-synthesized,
+# makespan, transfers and the cold plan's makespan), which the phase gates
+FIG_REPAIR = {
+    "fig_repair_64": ((4, 4, 4), ("phases", 7, 2, 132.0, 4352, 64.0)),
+    "fig_repair_512": ((8, 8, 8), ("phases", 15, 2, 1036.0, 266240, 577.0)),
+}
+REPAIR_SCALE_PAYLOAD = 256  # f32 a shard of fig_repair_512's all-gather
+# tests/test_repair_property.py's check_repair_seed(60973): the reference's
+# repair of a planned reduce_scatter over three_level(2, 2, 2) stops on a
+# bare AssertionError under this event
+SEED_60973_EVENT = {"failed_links": [11, 18, 20], "failed_npus": [5]}
 
 
 # ptxas -v lines: the entry a block of lines is about, its registers and spills
@@ -651,9 +678,50 @@ def count_params(tree) -> int:
     return tree.numel()
 
 
-def collective_phase(torch, dev, get_config, LM) -> None:
+def check_all_reduce(torch, x, topo, req, label: str, program=None):
+    """Run ``req``'s all-reduce once on the stacked rows ``x`` (through
+    ``program`` when one is given), then: a column sample of every chunk
+    bit for bit against the numpy interpreter, the group's rows within
+    EXEC_TOL of the group's sum, every other row exact zeros. Returns the
+    output."""
+    import numpy as np
+
+    from repro_torch.comms import primitives
+
+    group = tuple(req.group)
+    out = primitives.pccl_all_reduce(x, topo, req, program=program)
+    L = x.shape[1] // len(group)
+    cols = np.sort(np.random.default_rng(2).choice(L, SAMPLE_COLS, replace=False))
+    idx = torch.from_numpy((np.arange(len(group))[:, None] * L + cols).reshape(-1)).to(x.device)
+    x_s = x.index_select(1, idx).cpu().numpy()
+    got_s = out.index_select(1, idx).cpu().numpy()
+    interp = primitives.interpret_collective("all_reduce", x_s, topo, req, program=program)
+    if not np.array_equal(got_s.view(np.uint32), interp.view(np.uint32)):
+        fail(f"{label}: the card's result differs from the numpy interpreter on "
+             f"the column sample")
+    total = x[group[0]].clone()  # x[group].sum(0) without a copy of x[group]
+    for d in group[1:]:
+        total += x[d]
+    err = 0.0
+    for d in range(x.shape[0]):
+        if d in group:
+            diff = (out[d] - total).abs()
+            err = max(err, float(diff.max()))
+            if not bool((diff <= EXEC_TOL + EXEC_TOL * total.abs()).all()):
+                fail(f"{label}: rank {d} misses x[group].sum(0) (max abs err {err:.3g})")
+        elif bool(out[d].view(torch.int32).any()):
+            fail(f"{label}: rank {d} is outside the group and was not left at zero")
+    print(f"  {label}: bit-equal to the numpy interpreter on {SAMPLE_COLS} columns of "
+          f"each of {len(group)} chunks; max abs err vs x[group].sum(0) {err:.3g} "
+          f"(tol {EXEC_TOL}); ranks outside the group exact zeros")
+    del total
+    return out
+
+
+def collective_phase(torch, dev, get_config, LM) -> int:
     """The executor's selftest, the fig_exec routes and the all-reduce of
-    mamba2-370m's gradient vector, on the stacked backend on the card."""
+    mamba2-370m's gradient vector, on the stacked backend on the card.
+    Returns the vector's length a rank."""
     import numpy as np
 
     from repro_torch.comms import executor, primitives, selftest
@@ -714,39 +782,7 @@ def collective_phase(torch, dev, get_config, LM) -> None:
     print(f"  mamba2-370m: {nparams} parameters + the loss -> D = {D} f32 "
           f"({D * 4 / 1e9:.3f} GB a rank, {n} ranks in one tensor)")
 
-    def check_all_reduce(x, group, label):
-        """Run once, then: a column sample of every chunk bit for bit
-        against the numpy interpreter, members within EXEC_TOL of the sum,
-        non-members exact zeros."""
-        sub_req = CollectiveRequest("all_reduce", group=tuple(group))
-        out = primitives.pccl_all_reduce(x, topo, sub_req)
-        L = x.shape[1] // len(group)
-        cols = np.sort(np.random.default_rng(2).choice(L, SAMPLE_COLS, replace=False))
-        idx = torch.from_numpy((np.arange(len(group))[:, None] * L + cols).reshape(-1)).to(dev)
-        x_s = x.index_select(1, idx).cpu().numpy()
-        got_s = out.index_select(1, idx).cpu().numpy()
-        interp = primitives.interpret_collective("all_reduce", x_s, topo, sub_req)
-        if not np.array_equal(got_s.view(np.uint32), interp.view(np.uint32)):
-            fail(f"{label}: the card's result differs from the numpy interpreter on "
-                 f"the column sample")
-        total = x[group[0]].clone()  # x[group].sum(0) without a copy of x[group]
-        for d in group[1:]:
-            total += x[d]
-        err = 0.0
-        for d in range(n):
-            if d in group:
-                diff = (out[d] - total).abs()
-                err = max(err, float(diff.max()))
-                if not bool((diff <= EXEC_TOL + EXEC_TOL * total.abs()).all()):
-                    fail(f"{label}: rank {d} misses x[group].sum(0) (max abs err {err:.3g})")
-            elif bool(out[d].view(torch.int32).any()):
-                fail(f"{label}: rank {d} is outside the group and was not left at zero")
-        print(f"  {label}: bit-equal to the numpy interpreter on {SAMPLE_COLS} columns of "
-              f"each of {len(group)} chunks; max abs err vs x[group].sum(0) {err:.3g} "
-              f"(tol {EXEC_TOL}); ranks outside the group exact zeros")
-        del out, total
-
-    check_all_reduce(x, tuple(range(n)), "all-reduce, 8 of 8 ranks")
+    check_all_reduce(torch, x, topo, req, "all-reduce, 8 of 8 ranks")
     # one call under the profiler: its kernels and where their time goes
     # (trace.traced raises if the profiler sees no kernel on the card)
     traced = trace.traced(lambda: primitives.pccl_all_reduce(x, topo, req), dev)
@@ -781,7 +817,8 @@ def collective_phase(torch, dev, get_config, LM) -> None:
           f"{call_bytes / got['pccl'] / 1e9:.3f} TB/s of modelled traffic")
     # a strict subgroup: the same memory, rows of a length the 5 chunks divide
     D5 = D - D % len(SUBGROUP)
-    check_all_reduce(x.view(-1)[:n * D5].view(n, D5), SUBGROUP,
+    check_all_reduce(torch, x.view(-1)[:n * D5].view(n, D5), topo,
+                     CollectiveRequest("all_reduce", group=SUBGROUP),
                      f"all-reduce, subgroup {SUBGROUP} of 8 ranks")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"collectives: all_reduce_ms={got['pccl']:.3f} sum_ms={got['sum']:.3f} "
@@ -791,6 +828,314 @@ def collective_phase(torch, dev, get_config, LM) -> None:
     del x, timed
     executor.clear_plan_cache()
     torch.cuda.empty_cache()
+    return D
+
+
+def first_internal_link(topo, pod: int) -> int:
+    """The first non-boundary link with both ends in ``pod``
+    (benchmarks/repair.py:_first_internal_link)."""
+    members = set(topo.pods()[pod])
+    boundary = {link.id for link in topo.boundary_links()}
+    return next(link.id for link in topo.links
+                if link.id not in boundary and link.src in members and link.dst in members)
+
+
+def fig_repair(core, topology, shape) -> dict:
+    """benchmarks/repair.py:_scenario through one planner package, given as
+    its ``core`` and ``topology`` modules: plan the all-gather over every
+    NPU of ``three_level(*shape)`` in the sequential regime, repair it
+    against pod 0's first internal link (timed, unvalidated, as the bench
+    times it), then synthesize it cold on a fresh fabric's degraded view
+    with a fresh registry (timed). Both plans are validated after, untimed."""
+    topo = topology.three_level(*shape, unit_links=True)
+    req = core.CollectiveRequest("all_gather", group=tuple(topo.npus))
+    event = core.DegradationEvent(failed_links=[first_internal_link(topo, 0)])
+    rp = core.PlanRepairer(topo, registry=core.AlgorithmRegistry(), pipeline=False)
+    t0 = time.perf_counter()
+    rp.plan(req)
+    t1 = time.perf_counter()
+    res = rp.repair(req, event, validate=None)
+    t2 = time.perf_counter()
+    cold_view = topology.three_level(*shape, unit_links=True).degraded(
+        event.failed_links, event.failed_npus)
+    t3 = time.perf_counter()
+    cold = core.SynthesisEngine(cold_view.topology,
+                                registry=core.AlgorithmRegistry()).collective(req)
+    t4 = time.perf_counter()
+    res.algorithm.validate()
+    cold.validate()
+    return {"res": res, "cold": cold, "cold_view": cold_view, "plan_s": t1 - t0,
+            "repair_s": t2 - t1, "cold_s": t4 - t3}
+
+
+def repair_properties(res, cold) -> tuple:
+    """A fig_repair row's gated properties, in FIG_REPAIR's order."""
+    alg = res.algorithm
+    return (res.strategy, res.phases_kept, res.phases_resynthesized, float(alg.makespan),
+            alg.num_transfers, float(cold.makespan))
+
+
+def repair_all_reduce_cases(core, topology) -> dict:
+    """The all-reduces the phase repairs at the real size: label -> (fabric,
+    event). The ring is the data-parallel ring that GradientMean plans;
+    mp222 is FIG_EXEC's multi-pod fabric."""
+    def mp222():
+        return topology.multi_pod(2, 2, 2, unit_links=True, dci_ports_per_pod=2)
+
+    link, npu = mp222(), mp222()
+    dead = next(n for n in npu.pods()[0] if n not in npu.gateways(0))
+    return {
+        "ring8, link 0 failed": (topology.ring(8, bidirectional=True),
+                                 core.DegradationEvent(failed_links=[0])),
+        f"mp222, pod-internal link {first_internal_link(link, 0)} failed": (
+            link, core.DegradationEvent(failed_links=[first_internal_link(link, 0)])),
+        f"mp222, NPU {dead} failed": (npu, core.DegradationEvent(failed_npus=[dead])),
+    }
+
+
+def boundary_cut(core, topology) -> tuple:
+    """mp222 with every boundary link cut (tests/test_repair.py:222): no
+    schedule can join its pods. (fabric, event)."""
+    topo = topology.multi_pod(2, 2, 2, unit_links=True, dci_ports_per_pod=2)
+    return topo, core.DegradationEvent(failed_links=[link.id for link in topo.boundary_links()])
+
+
+def repair_all_reduce(core, svc, topo, event) -> tuple:
+    """Plan the all-reduce over every NPU of ``topo`` through ``svc``'s
+    repairer, then repair it through ``svc.repair``: (the healthy plan, the
+    RepairResult). FabricDegradedError where no schedule can survive."""
+    req = core.CollectiveRequest("all_reduce", group=tuple(topo.npus))
+    healthy = svc.repairer(topo).plan(req)
+    return healthy, svc.repair(topo, req, event)
+
+
+def seed_60973(core, topology) -> tuple:
+    """tests/test_repair_property.py's check_repair_seed(60973): a
+    reduce_scatter over three_level(2, 2, 2) planned in the sequential
+    regime, then SEED_60973_EVENT. (the repairer, the request, the event)."""
+    topo = topology.three_level(2, 2, 2, unit_links=True)
+    req = core.CollectiveRequest("reduce_scatter", group=tuple(topo.npus))
+    rp = core.PlanRepairer(topo, registry=core.AlgorithmRegistry(), pipeline=False)
+    rp.plan(req)
+    return rp, req, core.DegradationEvent(**SEED_60973_EVENT)
+
+
+def failed_parts_used(alg, view, event) -> list[str]:
+    """The failed links that a plan on a degraded view sends over, its link
+    ids mapped back through ``view.links`` (the view keeps node ids), and
+    the failed NPUs it sends from or to."""
+    import numpy as np
+
+    links = set(np.asarray(view.links)[alg.columns.link].tolist())
+    nodes = set(alg.columns.src.tolist()) | set(alg.columns.dst.tolist())
+    return ([f"link {x}" for x in sorted(links & set(event.failed_links))]
+            + [f"NPU {x}" for x in sorted(nodes & set(event.failed_npus))])
+
+
+def plan_repair_phase(torch, dev, D: int) -> None:
+    """Repaired plans on the stacked backend on the card, beside the plans
+    they replace: (a) fig_repair_64's repaired and cold all-gathers, (b)
+    repaired all-reduces of mamba2-370m's gradient vector (D f32 a rank, 8
+    ranks), (c) the reference's repair fault at check_repair_seed(60973),
+    fixed in the copy, (d) a repair that must refuse, (e) fig_repair_512."""
+    import math
+
+    import numpy as np
+
+    import repro_torch.core as core
+    import repro_torch.topology as topology
+    from repro_torch.comms import executor, primitives
+    from repro_torch.launch import trace
+
+    phase("plan repair")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    summary = []
+
+    def avoids_failures(label, alg, view, event):
+        if used := failed_parts_used(alg, view, event):
+            fail(f"{label}: the plan sends over the failed {', '.join(used)}")
+
+    # (a) fig_repair_64: the repaired and the cold all-gather ---------------
+    shape, want = FIG_REPAIR["fig_repair_64"]
+    got = fig_repair(core, topology, shape)
+    res, cold = got["res"], got["cold"]
+    props = repair_properties(res, cold)
+    if props != want:
+        fail(f"fig_repair_64: strategy, kept, resynth, makespan, transfers, cold makespan "
+             f"{props}, want {want} (BENCH_synthesis.json)")
+    print(f"  fig_repair_64: three_level{shape}, all-gather of {len(res.request.group)} "
+          f"NPUs, link {res.event.failed_links[0]} failed: strategy {props[0]}, kept "
+          f"{props[1]}, resynth {props[2]}, makespan {props[3]:g} (cold {props[5]:g}), "
+          f"{props[4]} transfers, as BENCH_synthesis.json's row; repair "
+          f"{got['repair_s'] * 1e3:.1f} ms, cold synthesis {got['cold_s'] * 1e3:.1f} ms "
+          f"on the host")
+    n = len(res.request.group)
+    x = np.random.default_rng(3).standard_normal((n, EXEC_PAYLOAD)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    want_out = exec_reference("all_gather", range(n), x)
+    progs = {}
+    for name, alg, view in (("repaired", res.algorithm, res.view),
+                            ("cold", cold, got["cold_view"])):
+        avoids_failures(f"fig_repair_64 {name}", alg, view, res.event)
+        progs[name] = primitives.lower_algorithm(alg, key=f"fig_repair_64 {name}")
+        out = primitives.pccl_all_gather(xd, None, res.request, program=progs[name])
+        out = out.cpu().numpy()
+        interp = primitives.interpret_collective("all_gather", x, None, res.request,
+                                                 program=progs[name])
+        if not np.array_equal(out.view(np.uint32), interp.view(np.uint32)):
+            fail(f"fig_repair_64 {name}: the card's result differs from the numpy interpreter")
+        if not np.array_equal(out, want_out):
+            fail(f"fig_repair_64 {name}: the result differs from the plain gather")
+    del out, interp, want_out
+    ms = time_pair(torch, {name: (lambda prog=prog: primitives.pccl_all_gather(
+        xd, None, res.request, program=prog)) for name, prog in progs.items()}, 10)
+    for name, (prog, plan) in progs.items():
+        print(f"  fig_repair_64 {name}: {prog.num_rounds} rounds, {prog.num_sends} sends, "
+              f"{plan.buffer_slots} slots a rank; {EXEC_PAYLOAD} f32 a shard "
+              f"({n * n * EXEC_PAYLOAD * 4 / 1e6:.1f} MB out); bit-equal to the numpy "
+              f"interpreter and exactly the plain gather; no transfer on the failed link; "
+              f"{ms[name]:.4f} ms a call (median of 3 rounds of 10, CUDA events, in turns)")
+        summary.append(f"fig_repair_64 {name} {prog.num_rounds}/{prog.num_sends}/"
+                       f"{ms[name]:.3f}")
+    traced = trace.traced(lambda: primitives.pccl_all_gather(
+        xd, None, res.request, program=progs["repaired"]), dev)
+    print(f"  fig_repair_64 repaired traced: wall {traced['wall_us'] / 1e3:.3f} ms, device "
+          f"busy {traced['busy_us'] / 1e3:.3f} ms (idle "
+          f"{1 - traced['busy_us'] / traced['wall_us']:.1%}), {traced['launches']} kernels; "
+          f"by kernel:")
+    for name, us in sorted(traced["by_name"].items(), key=lambda kv: -kv[1])[:4]:
+        print(f"    {us / 1e3:9.3f} ms  {name[:110]}")
+    del xd, progs
+    executor.clear_plan_cache()
+
+    # (b) repaired all-reduces of the gradient vector -----------------------
+    n = EXEC_RANKS
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for label, (topo, event) in repair_all_reduce_cases(core, topology).items():
+        svc = core.PlanService(registry=core.AlgorithmRegistry())
+        healthy, res = repair_all_reduce(core, svc, topo, event)
+        avoids_failures(label, res.algorithm, res.view, event)
+        group = res.request.group
+        # rows every plan's chunks divide: D itself unless a rank died
+        W = D - D % math.lcm(len(group), n)
+        x = torch.randn((n, W), generator=gen, device=dev)
+        dead = [d for d in range(n) if d not in group]
+        x[dead] = float("nan")
+        prog = primitives.lower_algorithm(res.algorithm, key=label)
+        out = check_all_reduce(torch, x, None, res.request, f"{label}, repaired",
+                               program=prog)
+        if not bool(torch.isfinite(out).all()):
+            fail(f"{label}: the output is not finite")
+        del out
+        full = core.CollectiveRequest("all_reduce", group=tuple(topo.npus))
+        undamaged = primitives.lower_algorithm(healthy, key=f"{label} undamaged")
+        ms = time_pair(torch, {
+            "repaired": lambda: primitives.pccl_all_reduce(x, None, res.request, program=prog),
+            "undamaged": lambda: primitives.pccl_all_reduce(x, None, full,
+                                                            program=undamaged)}, 3)
+        print(f"  {label}: strategy {res.strategy} (kept {res.phases_kept}, resynth "
+              f"{res.phases_resynthesized}), group {group}; {W} f32 a rank"
+              f"{f', NPU {dead} NaN in, exact zeros out, every row finite' if dead else ''}; "
+              f"repaired {prog[0].num_rounds} rounds, {prog[0].num_sends} sends, "
+              f"{ms['repaired']:.3f} ms a call; undamaged {undamaged[0].num_rounds} rounds, "
+              f"{undamaged[0].num_sends} sends, {ms['undamaged']:.3f} ms (median of 3 rounds "
+              f"of 3, CUDA events, in turns); no transfer on a failed link or NPU; repair "
+              f"metrics {({k: v for k, v in svc.metrics().items() if k.startswith('repair')})}")
+        summary.append(f"{label.split(',')[0]} {'npu' if dead else 'link'} "
+                       f"{prog[0].num_rounds}/{prog[0].num_sends}/{ms['repaired']:.3f} "
+                       f"(undamaged {undamaged[0].num_rounds}/{undamaged[0].num_sends}/"
+                       f"{ms['undamaged']:.3f})")
+        del x, prog, undamaged
+        executor.clear_plan_cache()
+        torch.cuda.empty_cache()
+
+    # (c) the reference's repair fault, fixed in the copy -------------------
+    rp, req, event = seed_60973(core, topology)
+    try:
+        res = rp.repair(req, event)
+    except core.FabricDegradedError as e:
+        fail(f"check_repair_seed(60973): the copy refused ({e}); tests/test_torch_repair.py "
+             f"pins a plan there")
+    res.algorithm.validate(mode="oracle")
+    avoids_failures("seed 60973", res.algorithm, res.view, event)
+    group = res.request.group
+    prog = primitives.lower_algorithm(res.algorithm, key="seed 60973")
+    x = np.random.default_rng(5).standard_normal(
+        (prog[1].num_devices, len(group), EXEC_PAYLOAD)).astype(np.float32)
+    out = primitives.pccl_reduce_scatter(torch.from_numpy(x).to(dev), None, res.request,
+                                         program=prog).cpu().numpy()
+    interp = primitives.interpret_collective("reduce_scatter", x, None, res.request,
+                                             program=prog)
+    if not np.array_equal(out.view(np.uint32), interp.view(np.uint32)):
+        fail("seed 60973: the card's result differs from the numpy interpreter")
+    want_out = exec_reference("reduce_scatter", group, x)
+    err = float(np.abs(out - want_out).max())
+    if not np.allclose(out, want_out, rtol=EXEC_TOL, atol=EXEC_TOL):
+        fail(f"seed 60973: the result misses the plain sum (max abs err {err:.3g})")
+    print(f"  check_repair_seed(60973): three_level(2, 2, 2), reduce_scatter, "
+          f"{SEED_60973_EVENT} (the reference's repair stops here on a bare AssertionError, "
+          f"pinned by tests/test_torch_repair.py): the copy returns a {res.strategy} plan over group {group}, {prog[0].num_rounds} rounds, "
+          f"{prog[0].num_sends} sends, oracle-valid, bit-equal to the numpy interpreter on "
+          f"the card, max abs err vs the plain sum {err:.3g} (tol {EXEC_TOL})")
+    summary.append(f"seed60973 {prog[0].num_rounds}/{prog[0].num_sends}")
+
+    # (d) the loud failure --------------------------------------------------
+    svc = core.PlanService(registry=core.AlgorithmRegistry())
+    topo, event = boundary_cut(core, topology)
+    try:
+        repair_all_reduce(core, svc, topo, event)
+        fail("mp222 with every boundary link cut: the repair returned a plan")
+    except core.FabricDegradedError as e:
+        refused = str(e)
+    if svc.metrics()["repair_failures"] != 1:
+        fail(f"mp222 cut: repair_failures {svc.metrics()['repair_failures']}, want 1")
+    print(f"  mp222, all {len(event.failed_links)} boundary links cut: FabricDegradedError "
+          f"({refused}); repair_failures 1")
+
+    # (e) fig_repair_512 ----------------------------------------------------
+    shape, want = FIG_REPAIR["fig_repair_512"]
+    got = fig_repair(core, topology, shape)
+    res = got["res"]
+    props = repair_properties(res, got["cold"])
+    if props != want:
+        fail(f"fig_repair_512: strategy, kept, resynth, makespan, transfers, cold makespan "
+             f"{props}, want {want} (BENCH_synthesis.json)")
+    avoids_failures("fig_repair_512", res.algorithm, res.view, res.event)
+    t0 = time.perf_counter()
+    prog = primitives.lower_algorithm(res.algorithm, key="fig_repair_512")
+    t1 = time.perf_counter()
+    n = len(res.request.group)
+    x = np.random.default_rng(6).standard_normal((n, REPAIR_SCALE_PAYLOAD)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    out = primitives.pccl_all_gather(xd, None, res.request, program=prog).cpu().numpy()
+    interp = primitives.interpret_collective("all_gather", x, None, res.request, program=prog)
+    if not np.array_equal(out.view(np.uint32), interp.view(np.uint32)):
+        fail("fig_repair_512: the card's result differs from the numpy interpreter")
+    if not np.array_equal(out, exec_reference("all_gather", range(n), x)):
+        fail("fig_repair_512: the result differs from the plain gather")
+    t2 = time.perf_counter()
+    del out, interp
+    ms512 = statistics.median(time_ms(torch, lambda: primitives.pccl_all_gather(
+        xd, None, res.request, program=prog), 2) for _ in range(3))
+    print(f"  fig_repair_512: three_level{shape}, {n} NPUs: strategy {props[0]}, kept "
+          f"{props[1]}, resynth {props[2]}, makespan {props[3]:g} (cold {props[5]:g}), "
+          f"{props[4]} transfers, as BENCH_synthesis.json's row; on the host: plan "
+          f"{got['plan_s']:.3f} s, repair {got['repair_s']:.3f} s, cold synthesis "
+          f"{got['cold_s']:.3f} s, lowering {t1 - t0:.3f} s; {prog[0].num_rounds} rounds, "
+          f"{prog[0].num_sends} sends, {prog[1].buffer_slots} slots a rank; "
+          f"{REPAIR_SCALE_PAYLOAD} f32 a shard ({n * n * REPAIR_SCALE_PAYLOAD * 4 / 1e6:.1f} "
+          f"MB out) bit-equal to the numpy interpreter and exactly the plain gather "
+          f"(one call and both checks {t2 - t1:.3f} s); {ms512:.3f} ms a call")
+    summary.append(f"fig_repair_512 {prog[0].num_rounds}/{prog[0].num_sends}/{ms512:.3f}")
+    del xd, prog
+    executor.clear_plan_cache()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print("plan_repair: rounds/sends/ms " + "; ".join(summary)
+          + f"; max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB); "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def flash_counters(fa) -> tuple:
@@ -1839,10 +2184,11 @@ def main() -> int:
     ssm_training_phase(torch, dev, fa, ssd, "zamba2-7b", layers=ZAMBA2_TRAIN_LAYERS)
     dp_phase(torch, dev, fa)
 
-    # 10. the collective path -------------------------------------------------
-    collective_phase(torch, dev, get_config, LM)
+    # 10. the collective path; 11. repaired plans ----------------------------
+    D = collective_phase(torch, dev, get_config, LM)
+    plan_repair_phase(torch, dev, D)
 
-    # 11. per-kernel numbers ------------------------------------------------
+    # 12. per-kernel numbers ------------------------------------------------
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: {total_s:.1f} s in all, {total_s - build_s:.1f} s without the build")
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
@@ -1922,7 +2268,7 @@ def main() -> int:
         "bound_by": ssd_bwd["bound"][1],
         "library_ms": None,
     }]}))
-    # 12. result -------------------------------------------------------------
+    # 13. result -------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

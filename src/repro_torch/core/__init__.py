@@ -1,13 +1,13 @@
 """The port's copy of the PCCL planner core (``repro/core``): process
 group-aware collective synthesis, the validation oracle, the algorithm
-registry and the translation to rounds of sends.
+registry, the translation to rounds of sends, fault-aware plan repair, the
+baselines and the alpha-beta simulator.
 
 The modules here are copies of the reference's: they differ from it only in
 their import lines and in marked fixes (``registry._store_disk``; the
-repair entry of ``planservice``, which raises until ``repair`` is copied),
-and ``tests/test_torch_port_rules.py`` holds them to that. ``repair``,
-``synthesizer``, ``simulator`` and ``baselines`` are not copied yet; asking
-for one of their names raises ``NotImplementedError``.
+repair's local-phase failure in ``hierarchy``), and
+``tests/test_torch_port_rules.py`` holds them to that. This module exports
+every name the reference's ``repro.core`` exports.
 """
 
 from repro_torch.core.algorithm import (
@@ -35,7 +35,12 @@ from repro_torch.core.conditions import (
 from repro_torch.core.engine import PhasePlan, PhaseSpec, SynthesisEngine
 from repro_torch.core.errors import FabricDegradedError, PCCLError
 from repro_torch.core.hierarchy import HierarchicalSynthesizer, HierarchyError
-from repro_torch.core.planservice import PlanService
+from repro_torch.core.repair import (
+    DamageReport,
+    DegradationEvent,
+    PlanRepairer,
+    RepairResult,
+)
 from repro_torch.core.request import (
     CollectiveRequest,
     PCCLDeprecationWarning,
@@ -51,6 +56,30 @@ from repro_torch.core.registry import (
     relabel_algorithm,
     topology_fingerprint,
 )
+from repro_torch.core.synthesizer import (
+    order_conditions,
+    synthesize,
+    synthesize_all_gather,
+    synthesize_all_reduce,
+    synthesize_all_to_all,
+    synthesize_joint,
+    synthesize_reduce,
+    synthesize_reduce_scatter,
+)
+from repro_torch.core.simulator import (
+    Flow,
+    SimResult,
+    collective_bandwidth,
+    phase_breakdown,
+    replay_algorithm,
+    simulate_flows,
+)
+from repro_torch.core.baselines import (
+    direct_all_gather,
+    direct_all_to_all,
+    ring_all_gather,
+    shortest_path_links,
+)
 from repro_torch.core.translate import (
     PpermuteProgram,
     Send,
@@ -58,39 +87,19 @@ from repro_torch.core.translate import (
     to_msccl_json,
     to_ppermute_program,
 )
+from repro_torch.core.planservice import PlanService
 from repro_torch.core.serialize import (
     load_plan_npz,
     plan_disk_bytes,
     save_plan_npz,
 )
 
-# names of the reference's core that live in modules not copied yet
-_NOT_YET_PORTED = {
-    "repair": ("DamageReport", "DegradationEvent", "PlanRepairer", "RepairResult"),
-    "synthesizer": ("order_conditions", "synthesize", "synthesize_all_gather",
-                    "synthesize_all_reduce", "synthesize_all_to_all",
-                    "synthesize_joint", "synthesize_reduce",
-                    "synthesize_reduce_scatter"),
-    "simulator": ("Flow", "SimResult", "collective_bandwidth", "phase_breakdown",
-                  "replay_algorithm", "simulate_flows"),
-    "baselines": ("direct_all_gather", "direct_all_to_all", "ring_all_gather",
-                  "shortest_path_links"),
-}
-
-
-def __getattr__(name):
-    for module, names in _NOT_YET_PORTED.items():
-        if name in names:
-            raise NotImplementedError(
-                f"repro_torch.core.{name}: core/{module}.py is not yet ported")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
 __all__ = [
     "CollectiveAlgorithm",
     "Transfer",
     "TransferColumns",
     "TransferList",
+    "PlanService",
     "load_plan_npz",
     "plan_disk_bytes",
     "save_plan_npz",
@@ -99,11 +108,14 @@ __all__ = [
     "PhaseSpec",
     "HierarchicalSynthesizer",
     "HierarchyError",
-    "PlanService",
     "PCCLError",
     "FabricDegradedError",
     "CollectiveRequest",
     "PCCLDeprecationWarning",
+    "DamageReport",
+    "DegradationEvent",
+    "PlanRepairer",
+    "RepairResult",
     "CommSketch",
     "SketchInfeasibleError",
     "TrafficEngineer",
@@ -128,6 +140,24 @@ __all__ = [
     "reduce",
     "reduce_scatter",
     "scatter",
+    "order_conditions",
+    "synthesize",
+    "synthesize_all_gather",
+    "synthesize_all_reduce",
+    "synthesize_all_to_all",
+    "synthesize_joint",
+    "synthesize_reduce",
+    "synthesize_reduce_scatter",
+    "Flow",
+    "SimResult",
+    "collective_bandwidth",
+    "phase_breakdown",
+    "replay_algorithm",
+    "simulate_flows",
+    "direct_all_gather",
+    "direct_all_to_all",
+    "ring_all_gather",
+    "shortest_path_links",
     "PpermuteProgram",
     "Send",
     "from_msccl_json",

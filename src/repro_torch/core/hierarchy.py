@@ -764,7 +764,27 @@ class HierarchicalSynthesizer:
                                            replicate=replicate)
                 except HierarchyError:
                     pass
+        # >>> copy fix: a local phase its sub-fabric cannot connect
+        # A degraded fabric (plan repair) can cut a phase's sub-fabric while
+        # the whole fabric still connects the group; flat synthesis of the
+        # phase would then stop in path finding on a bare AssertionError.
+        # It is a HierarchyError: the engine's auto route synthesizes the
+        # collective flat instead, as cold synthesis on that fabric does.
+        hops = sub.hop_matrix()
+        for c in conds:
+            srcs = sorted(c.srcs) if isinstance(c, ReduceCondition) else [c.src]
+            dests = sorted(c.dests)
+            if hops is not None:
+                connected = bool(np.isfinite(hops[np.ix_(srcs, dests)]).all())
+            else:
+                connected = all(bool((sub.hop_distances_np(s)[dests] >= 0).all())
+                                for s in srcs)
+            if not connected:
+                raise HierarchyError(
+                    f"{kind}: {sub.name} does not connect chunk {c.chunk}'s "
+                    f"endpoints")
         pre = None
+        # <<< copy fix
         if preload is not None and len(preload):
             pre = CollectiveAlgorithm(sub, [], preload, name="preload")
         return self.engine.synthesize(conds, name=kind, topology=sub,

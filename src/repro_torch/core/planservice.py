@@ -116,10 +116,17 @@ class PlanService:
     def repairer(self, topo, *, pipeline: str | bool = "auto"):
         """Memoized :class:`repro.core.repair.PlanRepairer` for ``topo``,
         bound to this service's registry."""
-        # >>> copy fix: repair not yet copied
-        raise NotImplementedError(
-            "PlanService.repairer: core/repair.py is not yet copied into the port")
-        # <<< copy fix
+        from repro_torch.core.repair import PlanRepairer
+
+        with self._lock:
+            ent = self._repairers.get(id(topo))
+            if ent is not None and ent.topology is topo \
+                    and ent.pipeline == pipeline:
+                return ent
+            rp = PlanRepairer(topo, registry=self.registry,
+                              pipeline=pipeline)
+            self._repairers[id(topo)] = rp
+            return rp
 
     def repair(self, topo, request, event, *, pipeline: str | bool = "auto",
                validate: str | None = "auto"):

@@ -13,7 +13,8 @@ backward). The gradients and the loss flatten into one f32 vector, padded
 to a multiple of dp, which is all-reduced and divided by dp:
 ``--collectives pccl`` runs the plan of a bidirectional ring of dp ranks
 that ``PlanService.program()`` serves through ``pccl_all_reduce``;
-``builtin`` is ``x.sum(0)`` or ``dist.all_reduce``. AdamW then steps every
+``builtin`` (the command's default, as the reference's is its framework
+reduction) is ``x.sum(0)`` or ``dist.all_reduce``. AdamW then steps every
 rank's replica of the params. ``--compare-collectives`` runs both from the
 same params on the same batches and prints the largest divergence as
 ``PCCL_CONFORMANCE max_loss_diff=... max_param_diff=...``.
@@ -267,7 +268,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks")
-    ap.add_argument("--collectives", default="pccl", choices=COLLECTIVES,
+    ap.add_argument("--collectives", default="builtin", choices=COLLECTIVES,
                     help="gradient all-reduce implementation")
     ap.add_argument("--compare-collectives", action="store_true",
                     help="run every step through both and report the max divergence")

@@ -56,7 +56,7 @@ COPIED = {
     "topology": ("topology", "generators"),
     "core": ("errors", "conditions", "request", "algorithm", "ten", "pathfinding",
              "registry", "serialize", "translate", "traffic", "hierarchy", "engine",
-             "planservice"),
+             "planservice", "synthesizer", "simulator", "baselines", "repair"),
 }
 FIX_BEGIN, FIX_END = "# >>> copy fix: ", "# <<< copy fix"
 # the marked fixes of the copy: module -> (its marker, the first and last
@@ -67,11 +67,13 @@ FIXES = {
         'tmp = f"{path}.tmp.{os.getpid()}"',
         "self.stats.bytes_stored += os.path.getsize(path)", 12,
         ("os.path.getsize(tmp)", "threading.get_ident()")),
-    # planservice: the repair entry raises until core/repair.py is copied
-    "core/planservice.py": (
-        "# >>> copy fix: repair not yet copied",
-        "from repro.core.repair import PlanRepairer", "            return rp", 11,
-        ("raise NotImplementedError(",)),
+    # hierarchy: a local phase whose degraded sub-fabric no longer connects
+    # its endpoints raises HierarchyError (the engine then goes flat), not a
+    # bare AssertionError out of path finding (check_repair_seed(60973))
+    "core/hierarchy.py": (
+        "# >>> copy fix: a local phase its sub-fabric cannot connect",
+        "pre = None", "pre = None", 1,
+        ("sub.hop_matrix()", "raise HierarchyError(", "pre = None")),
 }
 
 
@@ -113,6 +115,22 @@ def test_planner_copy_does_not_drift(rel):
     assert len(replaced) == n_replaced
     for text in must_hold:
         assert any(text in line for line in fix)
+
+
+def test_core_exports_the_references_names():
+    """``repro_torch.core`` exports every name of ``repro.core``, in the same
+    ``__all__``, and nothing there raises as unported."""
+    import repro.core as rcore
+
+    import repro_torch.core as pcore
+    from repro_torch.core.repair import PlanRepairer
+    from repro_torch.topology import ring
+
+    assert pcore.__all__ == rcore.__all__
+    for name in rcore.__all__:
+        assert getattr(pcore, name).__name__ == getattr(rcore, name).__name__
+    assert not hasattr(pcore, "_NOT_YET_PORTED")
+    assert isinstance(pcore.PlanService().repairer(ring(4)), PlanRepairer)
 
 
 def test_sharding_planner_copy_does_not_drift():

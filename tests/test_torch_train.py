@@ -360,8 +360,17 @@ def test_plan_service_program_equals_reference(n):
     assert plan.buffer_slots == ref_plan.buffer_slots
     assert plan.num_devices == ref_plan.num_devices == n
     assert svc.metrics()["planners"] == 1
-    with pytest.raises(NotImplementedError, match="repair"):
-        svc.repairer(ring(n))
+    # the repair entry is copied: it returns the service's repairer of the
+    # ring, which repairs a failed link of the DP all-reduce
+    from repro_torch.core import CollectiveRequest, DegradationEvent, PlanRepairer
+
+    fabric = ring(n, bidirectional=True)
+    repairer = svc.repairer(fabric)
+    assert isinstance(repairer, PlanRepairer) and svc.repairer(fabric) is repairer
+    res = repairer.repair(CollectiveRequest("all_reduce", group=tuple(range(n))),
+                          DegradationEvent(failed_links=[0]))
+    res.algorithm.validate()
+    assert 0 not in res.view.links
 
 
 def _f32_tiny():
@@ -470,7 +479,7 @@ def test_train_lm_main_needs_cuda_unless_cpu(monkeypatch, capsys):
 
 
 def test_train_lm_dp1_default_flags(capsys):
-    """dp=1 under the default flags (``--collectives pccl``) takes a plain
+    """dp=1 under the default flags (``--collectives builtin``) takes a plain
     step with no collective, as the reference does: no ring, no plan, the
     gradient as it is. ``--compare-collectives`` at dp=1 still raises."""
     assert train_lm.main(["--model", "tiny", "--steps", "2", "--batch", "2",
@@ -483,3 +492,19 @@ def test_train_lm_dp1_default_flags(capsys):
     with pytest.raises(ValueError, match="needs --dp > 1"):
         train_lm.main(["--model", "tiny", "--steps", "1", "--batch", "2", "--seq", "16",
                        "--device", "cpu", "--compare-collectives"])
+
+
+def test_train_lm_defaults_to_the_builtin_reduction(monkeypatch):
+    """``--collectives`` defaults to ``builtin``, the framework's reduction,
+    as the reference's ``examples/train_lm.py`` defaults to its own: at
+    ``--dp 2`` with no ``--collectives`` the step runs ``x.sum(0)``, not a
+    synthesized plan."""
+    runs = []
+    real_train = train_lm.train
+    monkeypatch.setattr(train_lm, "train", lambda *a, **kw: runs.append(real_train(*a, **kw)))
+    assert train_lm.main(["--model", "tiny", "--dp", "2", "--steps", "1", "--batch", "2",
+                          "--seq", "16", "--device", "cpu"]) == 0
+    (out,) = runs
+    assert set(out) == {"builtin"}
+    mean = out["builtin"]["trainer"].mean
+    assert mean.collectives == "builtin" and not hasattr(mean, "program")
