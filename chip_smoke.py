@@ -79,14 +79,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
 9. the data-parallel step of train_lm's 100m model with 8 ranks stacked on
    the card, PCCL beside the built-in reduction: the ``PCCL_CONFORMANCE``
    line, every rank's params equal bit for bit after each step;
-10. the collective path: the executor's selftest on the card; the four
+10. checkpoint and recovery: (a) full-width llama3.2-1b through train_lm
+   (f32 master weights and AdamW state, bf16 compute, remat, 4 x 1024
+   tokens a step) runs 4 steps uninterrupted (U); then 3 steps saving the
+   state after 2 updates as label 2, its write in flight during step 2
+   (C); then resumes from label 2 (R): C's and R's losses within rtol 1e-6
+   of U's, the restored AdamW step 2, R's flash launches exact; the
+   checkpoint's bytes, snapshot, write and restore seconds, step 2's ms
+   with the write in flight beside U's, and whether the losses and R's
+   params are bit-equal to U's; (b) train_lm's 100m in f32 with 8 ranks
+   stacked and PCCL: NPU 7 fails, the reference's recovery loop built from the
+   port's modules repairs the data-parallel all-reduce for the 7
+   survivors (validated, no transfer touches NPU 7) and restores the
+   checkpoint; the repaired all-reduce runs once at the gradient
+   vector's size (NPU 7's row NaN in, exact zeros out), timed; a dp = 7
+   run resumes within the DP phase's limits of the uninterrupted dp = 8
+   run; (c) NPUs 3 and 7 fail, which splits the ring: the recovery raises
+   ``FabricDegradedError`` before any restore;
+11. the collective path: the executor's selftest on the card; the four
    fig_exec routes (8 ranks, 4096 f32 a shard) with their round and send
    counts, bit for bit against the port's numpy round interpreter and
    within 1e-5 of a plain sum; and the all-reduce of mamba2-370m's f32
    gradient vector over a bidirectional ring of 8 ranks held in one tensor
    on the card, bit for bit on a column sample, against ``x.sum(0)``, with
    exact zeros off a subgroup of 5, timed beside ``x.sum(0)``;
-11. plan repair, on the same stacked backend: BENCH_synthesis.json's
+12. plan repair, on the same stacked backend: BENCH_synthesis.json's
    fig_repair_64 (a 64-NPU three-level all-gather repaired after a pod's
    internal link fails) with its strategy, phases kept and re-synthesized,
    makespan and transfers gated, the repaired and the cold plan each run at
@@ -100,8 +117,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    fixes, executed; a repair that must refuse (every boundary link cut)
    and its failure count; fig_repair_512 gated, lowered and run at 256 f32
    a shard;
-12. print one JSON line of per-kernel numbers;
-13. print the result line ``{"ok": true, "device": {...}}`` last.
+13. print one JSON line of per-kernel numbers;
+14. print the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of jax or of the JAX package ``repro``.
 """
@@ -357,6 +374,16 @@ ZAMBA2_ATTN = (TRAIN_SHAPE[0], TRAIN_SHAPE[1], 32, 32, 112)
 # that tests/test_exec_conformance.py holds examples/train_lm.py to
 DP_MODEL, DP_RANKS, DP_STEPS, DP_BATCH, DP_SEQ = "100m", 8, 3, 8, 256
 DP_LOSS_TOL, DP_PARAM_TOL = 1e-4, 1e-3
+# the checkpoint phase: (a) run U takes CKPT_STEPS steps; run C stops one
+# step short, the state after CKPT_LABEL updates saved as label CKPT_LABEL;
+# run R resumes from it. A resumed loss against the uninterrupted one,
+# relative: the reference's own bound (tests/test_substrate.py:154)
+CKPT_STEPS, CKPT_LABEL = 4, 2
+RESUME_RTOL = 1e-6
+# (b) train_lm's model, ranks stacked, and a global batch that splits over
+# 8 ranks and over 7; the NPUs that fail, and (c) two that split the ring
+ELASTIC_MODEL, ELASTIC_RANKS, ELASTIC_BATCH, ELASTIC_SEQ = "100m", 8, 56, 256
+ELASTIC_DEAD, SPLIT_DEAD = (7,), (3, 7)
 
 # the collective phase: BENCH_synthesis.json's fig_exec rows
 # (benchmarks/exec_mesh.py's cases), tag -> (fabric, kind, request
@@ -1906,6 +1933,258 @@ def dp_phase(torch, dev, fa) -> None:
     torch.cuda.empty_cache()
 
 
+def fmt_ms(values) -> str:
+    return ", ".join(f"{x:.3f}" for x in values)
+
+
+class CountingCheckpointer:
+    """A checkpointer whose restores are counted, as tests/test_repair.py's
+    ``_FakeCheckpointer`` counts them: a recovery that must fail first
+    must leave the count at 0."""
+
+    def __init__(self, inner):
+        self.inner, self.restores = inner, 0
+
+    def restore(self, template, **kw):
+        self.restores += 1
+        return self.inner.restore(template, **kw)
+
+
+def checkpoint_resume(torch, dev, cfg, batch: int, seq: int, ckpt_dir: str,
+                      counters=()) -> dict:
+    """(a) at any size, through ``train_lm.train`` at dp 1: run U takes
+    CKPT_STEPS steps; run C stops one short, saving the state after
+    CKPT_LABEL updates as label CKPT_LABEL in ``ckpt_dir`` (its write goes
+    on while the next step runs); run R resumes from it and runs to
+    CKPT_STEPS, writing nothing. Fails unless C's and R's losses are within
+    RESUME_RTOL of U's and R restored label CKPT_LABEL holding AdamW step
+    CKPT_LABEL. ``counters``' launches are counted over R alone."""
+    from repro_torch.bridge import named_leaves
+    from repro_torch.launch import train_lm
+
+    def run(steps, **kw):
+        return train_lm.train(cfg, steps=steps, batch=batch, seq=seq, collectives="builtin",
+                              device=dev, log=lambda line: None, **kw)["builtin"]
+
+    u = run(CKPT_STEPS)
+    u_params = u.pop("trainer").replicas[0]
+    c = run(CKPT_STEPS - 1, ckpt_dir=ckpt_dir, ckpt_every=CKPT_LABEL)
+    del c["trainer"]
+    (save,) = c["saves"]
+    for counter in counters:
+        counter.launches = 0
+    r = run(CKPT_STEPS, ckpt_dir=ckpt_dir, ckpt_every=CKPT_STEPS + 1, resume=True)
+    launches = {counter.__name__: counter.launches for counter in counters}
+    restored = r["restored"]
+    if not (save["step"] == CKPT_LABEL and restored is not None
+            and restored["step"] == restored["opt_step"] == r["start_step"] == CKPT_LABEL):
+        fail(f"resume: saved {save}, restored {restored}, started at {r['start_step']}: "
+             f"want label {CKPT_LABEL} holding AdamW step {CKPT_LABEL}, resumed there")
+    want_c, want_r = u["loss"][:CKPT_STEPS - 1], u["loss"][CKPT_LABEL:]
+    for name, got, want in (("C", c["loss"], want_c), ("R", r["loss"], want_r)):
+        if not (finite(*got) and len(got) == len(want) and all(
+                abs(a - b) <= RESUME_RTOL * abs(b) for a, b in zip(got, want))):
+            fail(f"run {name}'s losses {got} miss the uninterrupted run's {want} "
+                 f"(rtol {RESUME_RTOL})")
+    r_params = r["trainer"].replicas[0]
+    return {"u": u, "c": c, "r": r, "save": save, "restored": restored,
+            "bytes": sum(f.stat().st_size for f in
+                         (Path(ckpt_dir) / f"step_{CKPT_LABEL:08d}").iterdir()),
+            "launches": launches,
+            "losses_bit_equal": c["loss"] == want_c and r["loss"] == want_r,
+            "params_bit_equal": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                named_leaves(r_params), named_leaves(u_params))),
+            "max_param_diff": train_lm.max_abs_diff(r_params, u_params)}
+
+
+def elastic_recovery(torch, dev, cfg, batch: int, seq: int, ckpt_dir: str) -> dict:
+    """(b) and (c) at any size, PCCL through ``train_lm.train``: U8 takes
+    CKPT_STEPS steps on ELASTIC_RANKS ranks stacked; C8 takes CKPT_LABEL
+    and saves label CKPT_LABEL. The reference's recovery loop, built from
+    the port's modules with the data-parallel all-reduce registered, loses
+    ELASTIC_DEAD: it must repair the all-reduce for the survivors (valid,
+    no transfer on a dead NPU) and restore label CKPT_LABEL onto a mesh of
+    the survivors; R7 resumes from that state on a data-parallel run of
+    that size. A second recovery loses SPLIT_DEAD, which splits the ring:
+    it must raise FabricDegradedError before any restore. Returns the
+    runs, the repair and the refusal."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import DegradationEvent, FabricDegradedError, PlanService
+    from repro_torch.launch import train_lm
+    from repro_torch.runtime import ElasticMeshPlanner, FaultToleranceManager
+    from repro_torch.topology import ring
+
+    def run(dp, steps, **kw):
+        return train_lm.train(cfg, steps=steps, batch=batch, seq=seq, dp=dp,
+                              collectives="pccl", device=dev, log=lambda line: None,
+                              **kw)["pccl"]
+
+    u8 = run(ELASTIC_RANKS, CKPT_STEPS)
+    u8_params = u8.pop("trainer").replicas[0]
+    trainer = run(ELASTIC_RANKS, CKPT_LABEL, ckpt_dir=ckpt_dir,
+                  ckpt_every=CKPT_LABEL)["trainer"]
+    template = {"params": trainer.replicas[0], "opt": trainer.opts[0]}
+
+    def manager():
+        ftm = FaultToleranceManager(
+            checkpointer=CountingCheckpointer(Checkpointer(ckpt_dir)),
+            planner=ElasticMeshPlanner(model_degree=1), make_mesh=lambda data, model: data,
+            plan_service=PlanService(), topology=ring(ELASTIC_RANKS, bidirectional=True))
+        ftm.register_collective(trainer.mean.req)  # the data-parallel all-reduce
+        return ftm
+
+    ftm, event = manager(), DegradationEvent(failed_npus=ELASTIC_DEAD)
+    t0 = time.perf_counter()
+    step, state, mesh = ftm.recover(template, surviving_chips=ELASTIC_RANKS - len(ELASTIC_DEAD),
+                                    shardings_for_mesh=lambda mesh: {"params": dev, "opt": dev},
+                                    degradation=event)
+    recover_s = time.perf_counter() - t0
+    survivors = tuple(d for d in range(ELASTIC_RANKS) if d not in ELASTIC_DEAD)
+    if not (step == CKPT_LABEL and mesh == len(survivors) and state["opt"].step == CKPT_LABEL
+            and ftm.checkpointer.restores == 1 and len(ftm.replanned) == 1):
+        fail(f"recover(): step {step}, mesh {mesh}, AdamW step {state['opt'].step}, "
+             f"{ftm.checkpointer.restores} restores, {len(ftm.replanned)} repaired "
+             f"collectives: want step and AdamW step {CKPT_LABEL}, mesh {len(survivors)}, one "
+             f"restore, one repaired all-reduce")
+    (res,) = ftm.replanned.values()
+    res.algorithm.validate()
+    if tuple(res.request.group) != survivors:
+        fail(f"the repaired all-reduce's group {res.request.group}, want {survivors}")
+    if used := failed_parts_used(res.algorithm, res.view, event):
+        fail(f"the repaired all-reduce sends over the failed {', '.join(used)}")
+
+    split = manager()
+    try:
+        split.recover(template, ELASTIC_RANKS - len(SPLIT_DEAD), lambda mesh: {},
+                      degradation=DegradationEvent(failed_npus=SPLIT_DEAD))
+        fail(f"NPUs {SPLIT_DEAD} failed: the recovery returned, where the ring is split")
+    except FabricDegradedError as e:
+        refused = str(e)
+    if split.checkpointer.restores or split.plan_service.metrics()["repair_failures"] != 1:
+        fail(f"NPUs {SPLIT_DEAD} failed: {split.checkpointer.restores} restores and "
+             f"{split.plan_service.metrics()['repair_failures']} repair failures, want 0 and 1")
+    del trainer, template
+
+    r7 = run(mesh, CKPT_STEPS, params=state["params"], opt=state["opt"])
+    del state
+    want = u8["loss"][CKPT_LABEL:]
+    if not (finite(*r7["loss"]) and len(r7["loss"]) == len(want)):
+        fail(f"R7's losses {r7['loss']}, want {len(want)} finite ones")
+    return {"u8": u8, "r7": r7, "res": res, "event": event, "recover_s": recover_s,
+            "refused": refused,
+            "max_loss_diff": max(abs(a - b) for a, b in zip(r7["loss"], want)),
+            "max_param_diff": train_lm.max_abs_diff(r7["trainer"].replicas[0], u8_params)}
+
+
+def checkpoint_phase(torch, dev, fa, smi_line: str) -> None:
+    """Checkpoint/resume of full-width llama3.2-1b (``checkpoint_resume``)
+    with its flash launches counted, then the elastic recovery of
+    train_lm's ELASTIC_MODEL (``elastic_recovery``) with its repaired
+    all-reduce run at the gradient vector's size. Each writes its
+    checkpoints under a new temporary directory, deleted at the end."""
+    import shutil
+    import tempfile
+
+    from repro_torch.comms import executor, primitives
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train_lm
+
+    phase("checkpoint and recovery")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config("llama3.2-1b")
+    B, S = TRAIN_SHAPE[:2]
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free, need = shutil.disk_usage(ckpt_dir).free, 12 * cfg.param_count()
+        print(f"  {ckpt_dir}: {free} B free ({free / 1e9:.1f} GB); one checkpoint of "
+              f"{cfg.name} (f32 params, AdamW mu and nu) takes ~{need / 1e9:.1f} GB")
+        if free < need:
+            fail(f"{free} B free under {ckpt_dir}, a checkpoint needs {need}")
+        a = checkpoint_resume(torch, dev, cfg, B, S, ckpt_dir, flash_counters(fa))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    L, R = cfg.num_layers, CKPT_STEPS - CKPT_LABEL
+    want = {"flash_attention": 2 * L * R, "flash_attention_wgmma": 2 * L * R,
+            "flash_attention_mma": 0, "flash_attention_wide": 0, "flash_attention_bwd": L * R}
+    if a["launches"] != want:
+        fail(f"flash launches over the resumed run's {R} steps {a['launches']}, want {want}")
+    u, c, r, save = a["u"], a["c"], a["r"], a["save"]
+    print(f"  {cfg.name}, batch {B} x {S}, f32 master weights and AdamW state: U "
+          f"{CKPT_STEPS} steps, C {CKPT_STEPS - 1} saving label {CKPT_LABEL} after step "
+          f"{CKPT_LABEL - 1}, R resumed from it: restored step {a['restored']['step']}, "
+          f"AdamW step {a['restored']['opt_step']}")
+    print(f"  losses: U {u['loss']}; C {c['loss']}; R {r['loss']}: within rtol {RESUME_RTOL} "
+          f"of U's; bit-equal to U's: losses {a['losses_bit_equal']}, R's final params "
+          f"{a['params_bit_equal']} (max abs diff {a['max_param_diff']:.3g})")
+    print(f"  checkpoint {a['bytes']} B ({a['bytes'] / 1e9:.2f} GB); save() returned in "
+          f"{save['save_s']:.3f} s (the snapshot to host memory), the write took "
+          f"{save['write_s']:.3f} s after; restore {a['restored']['restore_s']:.3f} s; "
+          f"step {CKPT_LABEL} ms with the write in flight {c['step_ms'][CKPT_LABEL]:.3f} "
+          f"beside U's {u['step_ms'][CKPT_LABEL]:.3f} (step ms U {fmt_ms(u['step_ms'])}; "
+          f"C {fmt_ms(c['step_ms'])}; R {fmt_ms(r['step_ms'])}); R's flash launches "
+          f"{a['launches']}; {smi_line}")
+    summary = (f"checkpoint: bytes={a['bytes']} save_s={save['save_s']:.3f} "
+               f"write_s={save['write_s']:.3f} restore_s={a['restored']['restore_s']:.3f} "
+               f"resumed_losses_bit_equal={a['losses_bit_equal']} "
+               f"resumed_params_bit_equal={a['params_bit_equal']}")
+    del a, u, c, r
+    torch.cuda.empty_cache()
+
+    # f32 compute: in bf16 each rank's weight gradients are rounded to bf16
+    # over the rows it holds, so 7 and 8 rows a rank round apart, and AdamW
+    # turns near-zero gradients that differ in sign into whole steps
+    ecfg = dataclasses.replace(train_lm.model_config(ELASTIC_MODEL), dtype="float32")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        b = elastic_recovery(torch, dev, ecfg, ELASTIC_BATCH, ELASTIC_SEQ, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    res = b["res"]
+    group = tuple(res.request.group)
+    prog = primitives.lower_algorithm(res.algorithm, key="elastic")
+    D = ecfg.param_count() + 1  # the gradient vector and the loss
+    W = D - D % math.lcm(len(group), ELASTIC_RANKS)
+    x = torch.randn((ELASTIC_RANKS, W), generator=torch.Generator(device=dev).manual_seed(7),
+                    device=dev)
+    x[list(ELASTIC_DEAD)] = float("nan")
+    out = check_all_reduce(torch, x, None, res.request, "elastic, repaired", program=prog)
+    if not bool(torch.isfinite(out).all()):
+        fail("the repaired all-reduce's output is not finite")
+    del out
+    ar_ms = statistics.median(time_ms(torch, lambda: primitives.pccl_all_reduce(
+        x, None, res.request, program=prog), 3) for _ in range(3))
+    dead = ", ".join(map(str, ELASTIC_DEAD))
+    print(f"  elastic: {ELASTIC_MODEL} ({ecfg.param_count()} params, f32), PCCL, {ELASTIC_RANKS} "
+          f"ranks stacked, global batch {ELASTIC_BATCH} x {ELASTIC_SEQ}; NPU {dead} "
+          f"failed: recover() took {b['recover_s']:.3f} s, restored label {CKPT_LABEL} onto "
+          f"a mesh of {len(group)}; the all-reduce repaired by {res.strategy} over {group}: "
+          f"{prog[0].num_rounds} rounds, {prog[0].num_sends} sends, valid, no transfer "
+          f"touches NPU {dead}; at {W} f32 a rank, NPU {dead}'s row NaN in: "
+          f"{ar_ms:.3f} ms a call (median of 3 rounds of 3, CUDA events)")
+    print(f"  resumed at dp = {len(group)} (a fresh ring of {len(group)}): losses "
+          f"{b['r7']['loss']} against the uninterrupted dp = {ELASTIC_RANKS} run's "
+          f"{b['u8']['loss'][CKPT_LABEL:]}: max diff {b['max_loss_diff']:.3g} (tol "
+          f"{DP_LOSS_TOL}), params {b['max_param_diff']:.3g} (tol {DP_PARAM_TOL}); step ms "
+          f"dp = {ELASTIC_RANKS} {fmt_ms(b['u8']['step_ms'])}, dp = {len(group)} "
+          f"{fmt_ms(b['r7']['step_ms'])}")
+    if not (b["max_loss_diff"] < DP_LOSS_TOL and b["max_param_diff"] < DP_PARAM_TOL):
+        fail(f"the dp = {len(group)} run resumed from the checkpoint diverges from the "
+             f"uninterrupted dp = {ELASTIC_RANKS} run beyond {DP_LOSS_TOL} (loss) or "
+             f"{DP_PARAM_TOL} (params)")
+    print(f"  NPUs {' and '.join(map(str, SPLIT_DEAD))} failed: FabricDegradedError "
+          f"({b['refused']}) before any restore; repair_failures 1")
+    del x, prog, b
+    executor.clear_plan_cache()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{summary} recovery={res.strategy} ranks={len(group)} "
+          f"repaired_all_reduce_ms={ar_ms:.3f} max_memory_allocated={peak} B "
+          f"({peak / 2**30:.2f} GiB)")
+    print(f"checkpoint and recovery: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1936,7 +2215,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(smi_line)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}, "
           f"{torch.cuda.device_count()} device(s)")
@@ -2184,11 +2464,14 @@ def main() -> int:
     ssm_training_phase(torch, dev, fa, ssd, "zamba2-7b", layers=ZAMBA2_TRAIN_LAYERS)
     dp_phase(torch, dev, fa)
 
-    # 10. the collective path; 11. repaired plans ----------------------------
+    # 10. checkpoint/resume and the elastic recovery -------------------------
+    checkpoint_phase(torch, dev, fa, smi_line)
+
+    # 11. the collective path; 12. repaired plans ----------------------------
     D = collective_phase(torch, dev, get_config, LM)
     plan_repair_phase(torch, dev, D)
 
-    # 12. per-kernel numbers ------------------------------------------------
+    # 13. per-kernel numbers ------------------------------------------------
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: {total_s:.1f} s in all, {total_s - build_s:.1f} s without the build")
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
@@ -2268,7 +2551,7 @@ def main() -> int:
         "bound_by": ssd_bwd["bound"][1],
         "library_ms": None,
     }]}))
-    # 13. result -------------------------------------------------------------
+    # 14. result -------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -9,7 +9,8 @@ hand-written CUDA flash-attention forward kernels, and of the ssm LM
 (mamba2-370m), with a hand-written CUDA SSD chunked-scan kernel; the
 planner and the collective executor; and the dense LM's data-parallel
 training step (``launch/train_lm.py``), through a hand-written CUDA
-flash-attention backward kernel and PCCL's all-reduce.
+flash-attention backward kernel and PCCL's all-reduce, with checkpoints
+(``checkpoint``) and the fault-tolerance runtime (``runtime``).
 """
 
 from repro_torch.device import resolve_device

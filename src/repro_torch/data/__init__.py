@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import DataPipeline, shard_batch
+from repro_torch.data.pipeline import DataPipeline, shard_batch, synthetic_lm_batches
 
-__all__ = ["DataPipeline", "shard_batch"]
+__all__ = ["DataPipeline", "shard_batch", "synthetic_lm_batches"]

@@ -29,6 +29,14 @@ def _batch_for_step(seed: int, step: int, batch: int, seq: int,
     return {"tokens": tokens, "labels": labels}
 
 
+def synthetic_lm_batches(seed: int, batch: int, seq: int, vocab: int):
+    """Infinite deterministic iterator of {tokens, labels} numpy batches."""
+    step = 0
+    while True:
+        yield _batch_for_step(seed, step, batch, seq, vocab)
+        step += 1
+
+
 def shard_batch(batch: dict, rank: int, num_ranks: int) -> dict:
     """Rank ``rank``'s rows of a global batch: the ``rank``-th of
     ``num_ranks`` equal slices of the leading axis."""
@@ -55,6 +63,7 @@ class DataPipeline:
     def __post_init__(self):
         self._queue: queue.Queue = queue.Queue(maxsize=self.prefetch)
         self._stop = threading.Event()
+        self._step = self.start_step
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
 
@@ -79,7 +88,9 @@ class DataPipeline:
         return self
 
     def __next__(self):
-        return self._queue.get()
+        step, item = self._queue.get()
+        self._step = step + 1
+        return step, item
 
     def close(self):
         self._stop.set()

@@ -27,12 +27,23 @@ step checks both). Under an initialized group (gloo on the CPU, NCCL on
 cards) this process is one rank and the all-reduce goes through
 ``DistBackend``.
 
-Checkpointing and ``--resume`` are not ported yet.
+Checkpoints (``--ckpt-every``, ``--ckpt-dir``, ``--resume``; not with
+``--compare-collectives``, as in the reference): the state after k updates,
+the first rank's params and AdamW state, is saved under label k in the
+background while training goes on, and holds AdamW step k. ``--resume``
+restores the newest label and runs from step k, so a resumed run takes
+the steps an uninterrupted one would, bit for bit. (The reference saves
+the state after step k's update under label k and resumes at step k, so
+its resumed run applies batch k twice; ROADMAP §3.) Under
+``DistBackend`` the first rank alone writes, and every rank restores after
+a barrier. Each step runs under the reference's straggler monitor.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 
 import torch
@@ -40,6 +51,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.bridge import named_leaves
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.comms.executor import STACKED, DistBackend
 from repro_torch.comms.primitives import pccl_all_reduce
 from repro_torch.configs import get_config
@@ -50,7 +62,9 @@ from repro_torch.data.pipeline import DataPipeline, shard_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
 from repro_torch.models.layers import Params
-from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_schedule
+from repro_torch.runtime import StragglerMonitor
+from repro_torch.runtime.fault_tolerance import StepTimer
 from repro_torch.topology import ring
 
 MODELS = {
@@ -82,6 +96,10 @@ def _tree_like(like: Params, leaves) -> Params:
 
 def clone_params(params: Params) -> Params:
     return _tree_like(params, (t.detach().clone() for _, t in named_leaves(params)))
+
+
+def clone_opt(opt: AdamWState) -> AdamWState:
+    return AdamWState(opt.step, clone_params(opt.mu), clone_params(opt.nu))
 
 
 def flatten(grads: Params, loss: torch.Tensor) -> torch.Tensor:
@@ -148,17 +166,19 @@ class GradientMean:
 class Trainer:
     """The replicas of one data-parallel run: dp of them stacked in this
     process, or this rank's alone under ``DistBackend``; each with its
-    params (f32) and AdamW state."""
+    params (f32) and AdamW state, its own copies of ``params`` and ``opt``
+    (default: a fresh state)."""
 
     def __init__(self, lm: LM, params: Params, dp: int, collectives: str, lr,
-                 backend=STACKED):
+                 backend=STACKED, opt: AdamWState | None = None):
         self.lm, self.dp, self.lr = lm, dp, lr
         self.rank = backend.rank
         self.replicas = [clone_params(params) for _ in range(dp if self.rank is None else 1)]
         for rep in self.replicas:
             for _, t in named_leaves(rep):
                 t.requires_grad_(True)
-        self.opts = [adamw_init(rep) for rep in self.replicas]
+        self.opts = [adamw_init(rep) if opt is None else clone_opt(opt)
+                     for rep in self.replicas]
         self.mean = GradientMean(dp, collectives, backend)
 
     def step(self, batch: dict) -> tuple[float, float]:
@@ -201,16 +221,29 @@ def max_abs_diff(a: Params, b: Params) -> float:
 
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, dp: int = 1,
           collectives: str = "pccl", compare: bool = False, device=None,
-          seed: int = 0, params: Params | None = None, log=print) -> dict:
-    """Run ``steps`` data-parallel steps; return, for each collective run
-    (both with ``compare``), its trainer and its per-step losses, gradient
-    norms and step times, and with ``compare`` the divergence between them.
-    ``params`` (default: ``LM.init(seed)`` in f32) start every replica."""
+          seed: int = 0, params: Params | None = None, opt: AdamWState | None = None,
+          ckpt_dir: str | None = None, ckpt_every: int = 10, resume: bool = False,
+          log=print) -> dict:
+    """Run data-parallel steps up to step ``steps``; return, for each
+    collective run (both with ``compare``), its trainer and its per-step
+    losses, gradient norms, step times and straggler monitor, and with
+    ``compare`` the divergence between them. ``params`` and ``opt`` (default:
+    ``LM.init(seed)`` in f32 and a fresh AdamW state) start every replica,
+    and the run starts at step ``opt.step``: a state after k updates takes
+    batch k next (each run's ``start_step``). With ``ckpt_dir``, the state
+    after k updates is saved under label k whenever ``ckpt_every`` divides k
+    (the run's ``saves``: label, seconds until ``save()`` returned, seconds
+    the write took after), and ``resume`` first restores the newest label
+    there, if there is one (``restored``: label, AdamW step, seconds)."""
     dp = max(dp, 1)
     if batch % dp:
         raise ValueError(f"--batch {batch} not divisible by --dp {dp}")
     if compare and dp <= 1:
         raise ValueError("--compare-collectives needs --dp > 1")
+    if compare and ckpt_dir is not None:
+        raise ValueError("--compare-collectives takes no checkpoints")
+    if resume and ckpt_dir is None:
+        raise ValueError("resume needs a checkpoint directory")
     dev = resolve_device(device)
     backend = STACKED
     if dist.is_initialized():
@@ -220,26 +253,44 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, dp: int = 1,
     lm = LM(cfg, device=dev, remat=True)
     if params is None:
         params = lm.init(seed, param_dtype=torch.float32)
+    ck = Checkpointer(ckpt_dir, keep=2) if ckpt_dir is not None else None
+    restored = None
+    if resume:
+        if backend.rank is not None:
+            dist.barrier()  # every rank restores what the first rank wrote
+        if ck.latest_step() is not None:
+            t0 = time.perf_counter()
+            label, state = ck.restore({"params": params,
+                                       "opt": adamw_init(params) if opt is None else opt})
+            params, opt = state["params"], state["opt"]
+            restored = {"step": label, "opt_step": opt.step,
+                        "restore_s": time.perf_counter() - t0}
+            log(f"resumed from checkpoint at step {label}")
+    start = 0 if opt is None else opt.step
     lr = cosine_schedule(3e-4, warmup=20, total=max(steps, 100))
     runs = COLLECTIVES if compare else (collectives,)
-    out = {name: {"trainer": Trainer(lm, params, dp, name, lr, backend),
-                  "loss": [], "grad_norm": [], "step_ms": []} for name in runs}
-    del params
+    out = {name: {"trainer": Trainer(lm, params, dp, name, lr, backend, opt),
+                  "loss": [], "grad_norm": [], "step_ms": [], "monitor": StragglerMonitor(),
+                  "start_step": start, "restored": restored, "saves": []} for name in runs}
+    del params, opt
     pipe = DataPipeline(seed=DATA_SEED, batch=batch, seq=seq, vocab=cfg.vocab_size,
-                        device=dev)
+                        start_step=start, device=dev)
     try:
-        for _ in range(steps):
+        for _ in range(start, steps):
             step, global_batch = next(pipe)
             for name, run in out.items():
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 t0 = time.perf_counter()
-                loss, gnorm = run["trainer"].step(global_batch)
+                with StepTimer(run["monitor"]) as timer:
+                    loss, gnorm = run["trainer"].step(global_batch)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 run["step_ms"].append((time.perf_counter() - t0) * 1e3)
                 run["loss"].append(loss)
                 run["grad_norm"].append(gnorm)
+                if timer.verdict != "ok":
+                    log(f"  [straggler] step {step} verdict={timer.verdict}")
             if compare:
                 lp, lb = out["pccl"]["loss"][-1], out["builtin"]["loss"][-1]
                 log(f"step {step} loss builtin={lb:.6f} pccl={lp:.6f} diff={abs(lb - lp):.3e}")
@@ -247,9 +298,21 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, dp: int = 1,
                 run = out[collectives]
                 log(f"step {step:4d}  loss={run['loss'][-1]:.4f}  "
                     f"gnorm={run['grad_norm'][-1]:.3f}  "
-                    f"~{batch * seq / run['step_ms'][-1] * 1e3:,.0f} tok/s")
+                    f"~{batch * seq / max(run['monitor'].median, 1e-9):,.0f} tok/s")
+                if ck is not None and (step + 1) % ckpt_every == 0 and backend.rank in (None, 0):
+                    trainer = run["trainer"]
+                    t0 = time.perf_counter()
+                    fut = ck.save(step + 1, {"params": trainer.replicas[0],
+                                             "opt": trainer.opts[0]})
+                    t1 = time.perf_counter()
+                    rec = {"step": step + 1, "save_s": t1 - t0}
+                    fut.add_done_callback(lambda _, rec=rec, t1=t1: rec.update(
+                        write_s=time.perf_counter() - t1))
+                    run["saves"].append(rec)
     finally:
         pipe.close()
+        if ck is not None:
+            ck.close()
     if compare:
         out["max_loss_diff"] = max(abs(a - b) for a, b in zip(out["pccl"]["loss"],
                                                               out["builtin"]["loss"]))
@@ -274,15 +337,26 @@ def main(argv=None) -> int:
                     help="run every step through both and report the max divergence")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default; raises without a card) or 'cpu'")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="default: repro_torch_train_lm_ckpt in the temporary directory")
+    ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
     cfg = model_config(args.model)
     print(f"model: {cfg.name} reduced -> {cfg.param_count() / 1e6:.1f}M params, "
           f"dp={args.dp}")
+    ckpt_dir = None
+    if not args.compare_collectives:
+        ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
+                                                 "repro_torch_train_lm_ckpt")
     t0 = time.perf_counter()
-    train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, dp=args.dp,
-          collectives=args.collectives, compare=args.compare_collectives,
-          device=args.device, seed=args.seed)
-    print(f"done: {args.steps} steps in {time.perf_counter() - t0:.1f}s")
+    out = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, dp=args.dp,
+                collectives=args.collectives, compare=args.compare_collectives,
+                device=args.device, seed=args.seed, ckpt_dir=ckpt_dir,
+                ckpt_every=args.ckpt_every, resume=args.resume)
+    start = out["pccl" if args.compare_collectives else args.collectives]["start_step"]
+    print(f"done: {args.steps - start} steps in {time.perf_counter() - t0:.1f}s"
+          + (f"; checkpoints in {ckpt_dir}" if ckpt_dir else ""))
     return 0
 
 

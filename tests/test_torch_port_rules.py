@@ -46,6 +46,9 @@ def test_scan_covers_the_package():
             "comms/executor.py", "comms/primitives.py", "comms/selftest.py"} <= rel
     assert {"launch/sharding.py", "launch/train_lm.py", "optim/adamw.py",
             "data/pipeline.py", "kernels/flash_attention.py"} <= rel
+    assert {"checkpoint/__init__.py", "checkpoint/checkpointer.py", "runtime/__init__.py",
+            "runtime/fault_tolerance.py"} <= rel
+    assert {f"runtime/{m}.py" for m in COPIED["runtime"]} <= rel
     # every CUDA source is built, the SSD backward's among them
     csrc = {p.stem for p in (ROOT / "src/repro_torch/kernels/csrc").glob("*.cu")}
     assert set(build.SOURCES) == csrc and "ssd_scan_bwd" in csrc
@@ -57,6 +60,7 @@ COPIED = {
     "core": ("errors", "conditions", "request", "algorithm", "ten", "pathfinding",
              "registry", "serialize", "translate", "traffic", "hierarchy", "engine",
              "planservice", "synthesizer", "simulator", "baselines", "repair"),
+    "runtime": ("fault_tolerance",),
 }
 FIX_BEGIN, FIX_END = "# >>> copy fix: ", "# <<< copy fix"
 # the marked fixes of the copy: module -> (its marker, the first and last
