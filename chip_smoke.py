@@ -65,6 +65,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the window left out as a planted fault), each at full width and depth
    in bf16 and again in f32 (internlm2-20b's f32 at 24 of its 48 layers:
    all 48 do not fit the card in f32);
+   then the moe family: granite-moe-1b-a400m and granite-moe-3b-a800m at
+   full width and depth in bf16 (24 / 32 launches of the wgmma route a
+   prefill) and in f32 (the mma route), the (token, choice) routes that
+   differ between the kernel and the plain prefill counted by layer, a
+   planted GQA fault (KV heads rotated) that the bf16 check must fail, and
+   decode checked at capacity factor E / k, where no choice drops; train
+   full-width granite-moe-1b-a400m (the wgmma forward 48 and the backward
+   24 times a step, the first step against the plain attention, moe_aux,
+   an f32 repeat holding every gradient leaf, the router's included, a
+   traced step split into dispatch/combine, experts, attention and other);
+   the compressed all-reduce (``comms.compression``) of train_lm's 100m
+   gradient tree at 8 ranks stacked: q, scale and residual of every leaf
+   and rank equal to the CPU's bit for bit, each rank its own scale, the
+   mean within the quantization bound, 50 error-feedback steps' drift,
+   timed beside the uncompressed stacked mean and its bound;
 8. train full-width llama3.2-1b on the card (bf16 compute, f32 master
    params and AdamW state, 4 x 1024 tokens a step): the first step's loss
    and gradient norm beside the same step through the plain attention
@@ -246,6 +261,10 @@ CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
     (4, 1024, 1024, 32, 2, 128, "bfloat16", dict(causal=True)),
     (4, 1024, 1024, 32, 2, 128, "float32", dict(causal=True)),
     (4, 1024, 1024, 32, 32, 112, "bfloat16", dict(causal=True)),
+    # granite-moe-3b-a800m's 24 query heads on 8 KV heads: a GQA group of 3
+    # (wgmma in bf16, mma in f32)
+    (4, 1024, 1024, 24, 8, 64, "bfloat16", dict(causal=True)),
+    (4, 1024, 1024, 24, 8, 64, "float32", dict(causal=True)),
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
      "float32", dict(causal=True)),                                   # the slice, f32
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
@@ -315,6 +334,9 @@ BWD_CASES = [
     (1, 64, 8, 2, 2, 32, "bfloat16", dict(causal=True, window=4)),    # empty rows
     (1, 300, 200, 4, 2, 20, "float32", dict(causal=True)),            # hd padded to 32
     (1, 130, 130, 4, 2, 100, "bfloat16", dict(causal=True, window=50, softcap=20.0)),
+    # granite-moe-1b-a400m's training shape: 16 query heads on 8 KV heads
+    (TRAIN_SHAPE[0], TRAIN_SHAPE[1], TRAIN_SHAPE[1], 16, 8, 64, "bfloat16",
+     dict(causal=True)),
     (TRAIN_SHAPE[0], TRAIN_SHAPE[1], TRAIN_SHAPE[1], *TRAIN_SHAPE[2:], "bfloat16",
      dict(causal=True)),
 ]
@@ -369,6 +391,44 @@ SSM_GRAD_REL_TOL = 1e-3
 ZAMBA2_TRAIN_LAYERS = 13
 # the flash backward at zamba2-7b's shared block (B, S, H, KV, hd), bf16
 ZAMBA2_ATTN = (TRAIN_SHAPE[0], TRAIN_SHAPE[1], 32, 32, 112)
+# the moe family (granite-moe-1b-a400m, granite-moe-3b-a800m), served at
+# full width and depth. A bf16 difference between the kernel and the plain
+# attention flips near-tie routes (0.7-0.8% of the first layer's (token,
+# choice) pairs), a flip moves the later pairs' queue places in that
+# expert and reroutes its token from there on, and by the last of 24 / 32
+# layers 31% / 43% of the pairs go to another expert. With the experts'
+# 1/sqrt(E) init the random-weight logits then differ by rel-L2 0.684 /
+# 1.01 (granite-1b / 3b, NVIDIA H100 80GB HBM3, 700.00 W); the planted GQA
+# fault reads 1.43 / 1.41, near sqrt(2), the rel-L2 of unrelated logits.
+# So the bf16 logits limit is loose, and the first MoE layer, ahead of any
+# rerouted token, carries the bf16 check: its share of pairs sent to
+# another expert is held to MOE_FIRST_LAYER_ROUTES (the fault: 0.90 /
+# 0.92). The f32 repeats hold LLAMA_F32_REL_TOL (7.2e-5 / 1.2e-4). Decode
+# from the prefilled cache is held to a prefill one token longer at
+# capacity factor E / k, where no (token, choice) pair drops and a token
+# routes alike in any group; at the configs' 1.25 a decode step's capacity
+# is ~1 slot an expert.
+MOE_ARCHS = ("granite-moe-1b-a400m", "granite-moe-3b-a800m")
+MOE_BF16_REL_TOL = 1.2
+# the share of the first MoE layer's (token, choice) pairs that the kernel
+# prefill sends to another expert than the plain one: ahead of any layer
+# whose routes differed, so random-weight depth does not blur it
+MOE_FIRST_LAYER_ROUTES = 0.05
+# granite-moe-1b-a400m trains at full width and depth (21.4 GB of f32
+# weights, gradients and AdamW moments); granite-3b's 52.8 GB adds no path
+MOE_TRAIN_ARCH = MOE_ARCHS[0]
+# its f32 repeat holds every gradient leaf to SSM_GRAD_REL_TOL at full
+# width and this many layers, where the kernel and the plain attention
+# route every (token, choice) pair alike (checked): deeper, a route that
+# f32 summation order flips reroutes its token from there on, and the
+# gradient leaves of the full 24 layers differ by rel-L2 ~0.07 (PERF.md §6)
+MOE_F32_GRAD_LAYERS = 6
+# the compression phase: train_lm's model whose gradient tree is
+# compressed, its ranks stacked, rank r's gradients scaled by 2^(r - 4);
+# the error-feedback steps of the drift check and its limit
+# (tests/test_comms.py's)
+COMPRESS_MODEL, COMPRESS_RANKS = "100m", 8
+DRIFT_STEPS, DRIFT_TOL = 50, 1e-3
 # the data-parallel step: train_lm's model, ranks stacked on the card,
 # steps, global batch and sequence; the limits of the conformance line
 # that tests/test_exec_conformance.py holds examples/train_lm.py to
@@ -1478,17 +1538,19 @@ def ssd_bwd_phase(torch, dev, gen, ops, ssd, ssd_scan_bwd_ref) -> dict:
     return dict(out["mamba2-370m"], err=err)
 
 
-def ssm_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None = None,
-                       f32_layers: int | None = None) -> dict:
-    """Training steps of ``arch`` (the ssm or hybrid family) on the card at
-    full width, ``layers`` of its layers if given: bf16 compute, f32 master
-    params and AdamW state, remat per block, 4 x 1024 tokens a step. The
-    first step (the warm-up) beside the same step through the chunked plain
-    scan, its autograd backward and the plain attention; the same first step in f32 (at
-    ``f32_layers`` if given), where every SSM gradient leaf is held to
-    ``SSM_GRAD_REL_TOL``; then ``TRAIN_STEPS`` timed steps with every
-    kernel's launches counted exactly, and one traced step. Returns the
-    launches."""
+def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None = None,
+                          f32_layers: int | None = None) -> dict:
+    """Training steps of ``arch`` (the ssm, hybrid or moe family) on the card
+    at full width, ``layers`` of its layers if given: bf16 compute, f32
+    master params and AdamW state, remat per block, 4 x 1024 tokens a step.
+    The first step (the warm-up) beside the same step through the chunked
+    plain scan, its autograd backward and the plain attention; the same
+    first step in f32 (at ``f32_layers`` if given), where every SSM
+    gradient leaf (every leaf of a moe model, the router's included) is
+    held to ``SSM_GRAD_REL_TOL``; then ``TRAIN_STEPS`` timed steps with
+    every kernel's launches counted exactly, and one traced step (a moe
+    step split into dispatch/combine, experts, attention and other).
+    Returns the launches."""
     from repro_torch.bridge import named_leaves
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import _batch_for_step
@@ -1556,11 +1618,20 @@ def ssm_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None = N
     adamw_update(params, grads, opt, lr=lr)
     del grads
     rel_loss = abs(loss - plain_loss) / abs(plain_loss)
-    print(f"  first step, kernels vs plain scan, scan backward and attention: loss {loss:.6f} vs "
+    plain_what = "attention" if cfg.is_moe else "scan, scan backward and attention"
+    print(f"  first step, kernels vs plain {plain_what}: loss {loss:.6f} vs "
           f"{plain_loss:.6f} (rel {rel_loss:.3g}, tol {TRAIN_LOSS_REL_TOL}); grad norm "
           f"{gnorm:.6f} vs {plain_gnorm:.6f} (rel {abs(gnorm - plain_gnorm) / plain_gnorm:.3g})")
     if not (rel_loss <= TRAIN_LOSS_REL_TOL and finite(loss, gnorm)):
         fail(f"the first {arch} training step's loss disagrees with the plain kernels'")
+    if cfg.is_moe:
+        with torch.no_grad():
+            _, metrics = lm.loss(params, batches[0])
+        aux, xent = float(metrics["moe_aux"]), float(metrics["xent"])
+        print(f"  moe_aux {aux:.6f} (summed over {cfg.num_layers} layers; 1 a layer when "
+              f"balanced), xent {xent:.6f}, after the first update")
+        if not (finite(aux) and aux > 0):
+            fail(f"{arch}'s moe_aux {aux} is not finite and positive")
 
     counters = (ssd.ssd_scan, ssd.ssd_scan_bwd, *flash_counters(fa))
     for counter in counters:
@@ -1586,10 +1657,15 @@ def ssm_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None = N
           " ".join(f"{name}_launches_per_step={n / TRAIN_STEPS:g}"
                    for name, n in launches.items()))
     L = cfg.num_layers
-    groups = L // cfg.hybrid_attn_period if cfg.family == "hybrid" else 0
-    want = {"ssd_scan": 2 * L, "ssd_scan_bwd": L, "flash_attention": 2 * groups,
-            "flash_attention_wgmma": 0, "flash_attention_mma": 2 * groups,
-            "flash_attention_wide": 0, "flash_attention_bwd": groups}
+    attn_blocks = (L if cfg.is_moe else
+                   L // cfg.hybrid_attn_period if cfg.family == "hybrid" else 0)
+    ssd_blocks = 0 if cfg.is_moe else L
+    route = fa.route(torch.bfloat16, cfg.head_dim)
+    want = {"ssd_scan": 2 * ssd_blocks, "ssd_scan_bwd": ssd_blocks,
+            "flash_attention": 2 * attn_blocks,
+            "flash_attention_wgmma": 2 * attn_blocks * (route == "wgmma"),
+            "flash_attention_mma": 2 * attn_blocks * (route == "mma"),
+            "flash_attention_wide": 0, "flash_attention_bwd": attn_blocks}
     want = {name: n * TRAIN_STEPS for name, n in want.items()}
     if launches != want:
         fail(f"launches over {TRAIN_STEPS} {arch} training steps {launches}, want {want} (the "
@@ -1602,31 +1678,76 @@ def ssm_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None = N
         _, grads = loss_and_grads(lm, params, batches[-1])
         adamw_update(params, grads, opt, lr=lr)
 
-    trace.print_phase(f"{label}, one step traced", trace.traced(one_step, dev), 1, 8)
+    r = trace.traced(one_step, dev)
+    trace.print_phase(f"{label}, one step traced", r, 1, 8)
+    if cfg.is_moe:  # by range: kernels launched in the MoE layer's parts
+        rng = r["by_range"]
+        split = {"dispatch/combine": rng.get("moe.dispatch", 0) + rng.get("moe.combine", 0),
+                 "experts": rng.get("moe.experts", 0),
+                 "attention": r["by_kind"].get("flash_attention", 0)
+                 + r["by_kind"].get("flash_attention_bwd", 0)}
+        total = sum(r["by_kind"].values())
+        split["other"] = total - sum(split.values())
+        print(f"{label}, traced step by part: " + ", ".join(
+            f"{name} {us / 1e3:.3f} ms ({us / total:.1%})" for name, us in split.items())
+            + f" of {total / 1e3:.3f} ms of kernels")
     del lm, params, opt
     torch.cuda.empty_cache()
 
     # the first step again in f32, where rounding does not hide a fault
-    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=f32_layers or L)
-    if cfg32.num_layers != L:
-        print(f"  f32 repeat at {cfg32.num_layers} of the {L} layers")
-    lm32, params32 = model(cfg32)
-    loss32, g_kernel = loss_and_grads(lm32, params32, batches[0])
-    plain32, g_plain = loss_and_grads(LM(cfg32, device=dev, **plain_kw), params32,
-                                      batches[0])
-    rel32 = abs(float(loss32) - float(plain32)) / abs(float(plain32))
-    rels = {".".join(path): rel_l2(gk, gp) for (path, gk), (_, gp) in
-            zip(named_leaves(g_kernel), named_leaves(g_plain)) if "ssd" in path}
-    worst = max(rels, key=rels.get)
-    print(f"  f32 first step, kernels vs plain: loss rel {rel32:.3g}; SSM gradient leaves, "
-          f"rel-L2 (tol {SSM_GRAD_REL_TOL}): " +
-          ", ".join(f"{path.split('.')[-1]} {rel:.3g}" for path, rel in rels.items()
-                    if path.startswith("layers.")) + f"; worst {worst} {rels[worst]:.3g}")
-    if not (rel32 <= TRAIN_LOSS_REL_TOL and rels[worst] <= SSM_GRAD_REL_TOL):
-        fail(f"the f32 {arch} training step's loss or an SSM gradient leaf disagrees with "
+    def f32_first_step(layers32: int) -> tuple:
+        """(loss rel, {leaf: rel-L2}, moe: first-forward pairs to another
+        expert by layer) of the first step in f32 at ``layers32`` layers."""
+        cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=layers32)
+        lm32, params32 = model(cfg32)
+        plain32_lm = LM(cfg32, device=dev, **plain_kw)
+        if cfg.is_moe:
+            lm32.routes, plain32_lm.routes = [], []
+        loss32, g_kernel = loss_and_grads(lm32, params32, batches[0])
+        plain32, g_plain = loss_and_grads(plain32_lm, params32, batches[0])
+        rel32 = abs(float(loss32) - float(plain32)) / abs(float(plain32))
+        rels = {".".join(path): rel_l2(gk, gp) for (path, gk), (_, gp) in
+                zip(named_leaves(g_kernel), named_leaves(g_plain))
+                if cfg.is_moe or "ssd" in path}
+        # remat's recompute appends a second set of routes: the forward's first
+        flips = (routes_differ(lm32.routes[:layers32], plain32_lm.routes)[0]
+                 if cfg.is_moe else None)
+        del lm32, params32, plain32_lm, g_kernel, g_plain
+        torch.cuda.empty_cache()
+        return rel32, rels, flips
+
+    def leaves(rels: dict) -> str:
+        worst = max(rels, key=rels.get)
+        return (", ".join(f"{path.split('.')[-1]} {rel:.3g}" for path, rel in rels.items()
+                          if path.startswith("layers.")) + f"; worst {worst} {rels[worst]:.3g}")
+
+    if cfg.is_moe:
+        # at full depth the kernel and the plain attention's f32 summation
+        # orders flip a few near-tie routes, and each flip reroutes that
+        # token from there on: its gradient terms change whole. Printed; the
+        # leaves are held at MOE_F32_GRAD_LAYERS, where no route differs
+        rel_full, rels_full, flips_full = f32_first_step(L)
+        print(f"  f32 first step at all {L} layers, kernels vs plain: loss rel {rel_full:.3g} "
+              f"(tol {TRAIN_LOSS_REL_TOL}); pairs to another expert by layer {flips_full}; "
+              f"gradient leaves, rel-L2 (not held at this depth): {leaves(rels_full)}")
+        if not rel_full <= TRAIN_LOSS_REL_TOL:
+            fail(f"the f32 {arch} training step's loss disagrees with the plain kernels'")
+        f32_layers = MOE_F32_GRAD_LAYERS
+    L32 = f32_layers or L
+    if L32 != L:
+        print(f"  f32 repeat at {L32} of the {L} layers")
+    rel32, rels, flips = f32_first_step(L32)
+    worst = max(rels.values())
+    print(f"  f32 first step, kernels vs plain: loss rel {rel32:.3g}; "
+          + (f"pairs to another expert by layer {flips} (must be 0); " if cfg.is_moe else "")
+          + f"{'every' if cfg.is_moe else 'SSM'} gradient leaf, rel-L2 (tol "
+          f"{SSM_GRAD_REL_TOL}): {leaves(rels)}")
+    if cfg.is_moe and sum(flips):
+        fail(f"the f32 {arch} step at {L32} layers routes the kernels' forward unlike the "
+             f"plain one's: its gradients cannot be compared leaf by leaf")
+    if not (rel32 <= TRAIN_LOSS_REL_TOL and worst <= SSM_GRAD_REL_TOL):
+        fail(f"the f32 {arch} training step's loss or a gradient leaf disagrees with "
              f"the plain kernels'")
-    del lm32, params32, g_kernel, g_plain
-    torch.cuda.empty_cache()
     print(f"{label}: phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -1658,6 +1779,15 @@ def window_dropped(attention):
     return faulty
 
 
+def kv_heads_rotated(attention):
+    """``attention`` with a planted fault: the KV heads rotated by one, so
+    every query head reads another group's keys and values (a wrong GQA
+    head map)."""
+    def faulty(q, k, v, **kw):
+        return attention(q, k.roll(1, dims=2), v.roll(1, dims=2), **kw)
+    return faulty
+
+
 def card():
     """The card the serving phases run on."""
     import torch
@@ -1676,6 +1806,31 @@ def window_fault():
     return "sliding window left out", dict(attention=window_dropped(ops.flash_attention))
 
 
+def gqa_fault():
+    """(what, LM keywords) of the planted fault the moe logits checks must fail."""
+    from repro_torch.kernels import ops
+    return ("KV heads rotated by one (a wrong GQA head map)",
+            dict(attention=kv_heads_rotated(ops.flash_attention)))
+
+
+def routes_differ(a: list, b: list) -> tuple[list[int], list[int]]:
+    """Between two runs' ``LM.routes``, by layer: the (token, choice) pairs
+    whose expert differs, and those whose expert or queue slot differs. A
+    token's choices are compared in expert order (their order among the
+    top k moves no queue place); one expert that differs shifts the slots
+    of every later pair in the queues of both experts."""
+    def by_expert(idx, slot):
+        order = idx.argsort(-1)
+        return idx.gather(-1, order), slot.gather(-1, order)
+
+    experts, routes = [], []
+    for ra, rb in zip(a, b):
+        (ia, sa), (ib, sb) = by_expert(*ra), by_expert(*rb)
+        experts.append(int((ia != ib).sum()))
+        routes.append(int(((ia != ib) | (sa != sb)).sum()))
+    return experts, routes
+
+
 def flash_want(fa, wgmma: int = 0, mma: int = 0) -> dict:
     """Launches a served prefill must count on each forward flash route."""
     return {fa.flash_attention: wgmma + mma, fa.flash_attention_wgmma: wgmma,
@@ -1689,7 +1844,14 @@ def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
     tokens, both by rel-L2. The prefill logits and first token are the
     served run's ``out``, or a fresh prefill's without it. With ``fault``
     (what, LM keywords that plant it), that forward must miss the plain one
-    by more than ``tol``: the check can fail a wrong kernel."""
+    by more than ``tol``: the check can fail a wrong kernel. In the moe
+    family the (token, choice) routes that differ between the kernel and
+    the plain prefill are counted by layer (the routed kernel prefill must
+    repeat the served one's logits bit for bit); in the first layer, ahead
+    of any route that differs, the share sent to another expert is held to
+    ``MOE_FIRST_LAYER_ROUTES``, which the fault must exceed; and decode is
+    checked at capacity factor E / k, where no choice drops
+    (``MOE_BF16_REL_TOL``)."""
     import torch
 
     from repro_torch.models import LM
@@ -1697,12 +1859,35 @@ def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
     dev = lm.device
     S = prompts.shape[1]
     with torch.inference_mode():
-        plain_logits, _ = LM(cfg, device=dev, **plain_kw).prefill(params, prompts)
+        plain = LM(cfg, device=dev, **plain_kw)
+        plain.routes = [] if cfg.is_moe else None
+        plain_logits, _ = plain.prefill(params, prompts)
         if out is None:
             got, _ = lm.prefill(params, prompts)
             tok0 = got.argmax(-1)
         else:
             got, tok0 = out["prefill_logits"], out["tokens"][:, 0]
+        if cfg.is_moe:
+            lm.routes = []
+            routed, _ = lm.prefill(params, prompts)
+            kernel_routes, lm.routes = lm.routes, None
+            if not torch.equal(routed, got):
+                fail(f"{cfg.name} {cfg.dtype}: two kernel prefills gave different logits")
+            experts, diff = routes_differ(kernel_routes, plain.routes)
+            per_layer = kernel_routes[0][0].numel()
+            pairs = per_layer * len(diff)
+            print(f"  {cfg.dtype}: (token, choice) pairs of the kernel prefill routed to "
+                  f"another expert than in the plain one, by layer: {experts}; to another "
+                  f"expert or queue slot: {diff}; in all {sum(experts)} and {sum(diff)} of "
+                  f"{pairs} ({sum(experts) / pairs:.3g}, {sum(diff) / pairs:.3g})")
+            first = experts[0] / per_layer
+            print(f"  {cfg.dtype}: first layer, pairs to another expert: {first:.3g} "
+                  f"(tol {MOE_FIRST_LAYER_ROUTES})")
+            if not first <= MOE_FIRST_LAYER_ROUTES:
+                fail(f"{cfg.name} {cfg.dtype}: the first layer routes the kernel prefill "
+                     f"unlike the plain one")
+            del routed, kernel_routes
+        plain_routes, plain.routes = plain.routes, None
         e_plain = rel_l2(got, plain_logits)
         print(f"  {cfg.dtype}, {tuple(prompts.shape)} prompt: prefill vs plain "
               f"{'/'.join(plain_kw)}: rel_l2={e_plain:.3g} "
@@ -1712,21 +1897,36 @@ def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
                  f"{'/'.join(plain_kw)} forward")
         if fault is not None:
             what, fault_kw = fault
-            faulty, _ = LM(cfg, device=dev, **fault_kw).prefill(params, prompts)
+            fault_lm = LM(cfg, device=dev, **fault_kw)
+            fault_lm.routes = [] if cfg.is_moe else None
+            faulty, _ = fault_lm.prefill(params, prompts)
             e_fault = rel_l2(faulty, plain_logits)
             print(f"  {cfg.dtype}: planted fault ({what}) vs plain: rel_l2={e_fault:.3g} "
                   f"(must exceed {tol})")
             if not e_fault > tol:
                 fail(f"the {cfg.name} {cfg.dtype} prefill check passes a planted fault "
                      f"({what})")
-            del faulty
+            if cfg.is_moe:
+                f_first = routes_differ(fault_lm.routes[:1], plain_routes[:1])[0][0] / per_layer
+                print(f"  {cfg.dtype}: planted fault, first layer, pairs to another expert: "
+                      f"{f_first:.3g} (must exceed {MOE_FIRST_LAYER_ROUTES})")
+                if not f_first > MOE_FIRST_LAYER_ROUTES:
+                    fail(f"the {cfg.name} {cfg.dtype} first-layer route check passes a "
+                         f"planted fault ({what})")
+            del faulty, fault_lm
+        del plain_routes
 
-        _, cache = lm.prefill(params, prompts, max_seq=S + 1)
-        step_logits, _ = lm.decode_step(params, cache, tok0, S)
+        dec = lm
+        if cfg.is_moe:
+            dec = LM(dataclasses.replace(
+                cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token), device=dev)
+        _, cache = dec.prefill(params, prompts, max_seq=S + 1)
+        step_logits, _ = dec.decode_step(params, cache, tok0, S)
         del cache
-        longer, _ = lm.prefill(params, torch.cat([prompts, tok0[:, None]], 1))
+        longer, _ = dec.prefill(params, torch.cat([prompts, tok0[:, None]], 1))
         e_cache = rel_l2(step_logits, longer)
-        print(f"  {cfg.dtype}: decode_step at {S} vs prefill of {S + 1}: "
+        print(f"  {cfg.dtype}: decode_step at {S} vs prefill of {S + 1}"
+              f"{f' at capacity factor {dec.cfg.capacity_factor:g}' if cfg.is_moe else ''}: "
               f"rel_l2={e_cache:.3g} max_abs={float((step_logits - longer).abs().max()):.3g} "
               f"(tol rel_l2 {tol})")
         if not e_cache <= tol:
@@ -1884,6 +2084,19 @@ def serving_phases(fa, ssd, flash_attention_ref, ssd_scan_ref) -> None:
                       long_prompt=WINDOW_PROMPT if get_config(arch).sliding_window else None)
 
 
+def moe_serving_phases(fa, flash_attention_ref) -> None:
+    """granite-moe-1b-a400m and granite-moe-3b-a800m at full width and depth
+    in bf16 (the wgmma route) and again in f32 (the mma route), a planted
+    GQA fault that the bf16 check must fail."""
+    from repro_torch.configs import get_config
+
+    for arch in MOE_ARCHS:
+        L = get_config(arch).num_layers
+        check_serving(arch, flash_want(fa, wgmma=L), dict(attention=flash_attention_ref),
+                      MOE_BF16_REL_TOL, f32_tol=LLAMA_F32_REL_TOL, fault=gqa_fault(),
+                      want_f32=flash_want(fa, mma=L))
+
+
 def dp_phase(torch, dev, fa) -> None:
     """train_lm's data-parallel step with ``DP_RANKS`` ranks stacked on the
     card, PCCL beside the built-in reduction from the same params on the
@@ -1931,6 +2144,127 @@ def dp_phase(torch, dev, fa) -> None:
                       trace.traced(lambda: trainer.step(batch), dev), 1, 8)
     del out, trainer
     torch.cuda.empty_cache()
+
+
+def compression_phase(torch, dev) -> dict:
+    """The compressed all-reduce of ``comms.compression`` on the card: a
+    gradient tree with the shapes of train_lm's ``COMPRESS_MODEL``,
+    ``COMPRESS_RANKS`` ranks stacked, rank r's leaves drawn N(0, 1) x
+    2^(r - 4) from a seeded card generator, with residuals at 1e-2 of that.
+    Per leaf and rank, ``ef_int8_compress``'s q, scale and residual equal
+    the same function's on the CPU bit for bit, and
+    ``error_feedback_all_reduce``'s residual row equals it (each rank its
+    own scale); the mean within the quantization bound sum_r scale_r /
+    (2 dp) of the uncompressed mean, not bit-equal to it; 50 error-feedback
+    steps on one leaf. Then both means timed by CUDA events beside their
+    bytes' bound. Returns the times."""
+    from repro_torch.bridge import named_leaves
+    from repro_torch.comms.compression import (
+        ef_int8_compress,
+        ef_int8_decompress,
+        error_feedback_all_reduce,
+    )
+    from repro_torch.launch import train_lm
+    from repro_torch.models import LM
+
+    t_phase = time.perf_counter()
+    phase("compression")
+    torch.cuda.empty_cache()
+    dp = COMPRESS_RANKS
+    cfg = train_lm.model_config(COMPRESS_MODEL)
+    shapes = [(path, tuple(t.shape)) for path, t in
+              named_leaves(LM(cfg, device=dev).init(0, param_dtype=torch.float32))]
+    gen = torch.Generator(device=dev).manual_seed(29)
+    mag = 2.0 ** (torch.arange(dp, device=dev, dtype=torch.float32) - 4)
+    grads, res = {}, {}
+    for path, shape in shapes:
+        m = mag.reshape(dp, *[1] * len(shape))
+        name = ".".join(path)
+        grads[name] = torch.randn((dp, *shape), generator=gen, device=dev) * m
+        res[name] = torch.randn((dp, *shape), generator=gen, device=dev) * (m * 1e-2)
+    n = sum(math.prod(shape) for _, shape in shapes)
+    nbytes = n * dp * 4
+    print(f"{COMPRESS_MODEL}'s gradient tree: {len(shapes)} leaves, {n} f32 a rank, {dp} ranks "
+          f"stacked: {nbytes} B ({nbytes / 1e9:.2f} GB) of gradients, as much of residuals")
+    torch.cuda.reset_peak_memory_stats(dev)
+    mean, new_res = error_feedback_all_reduce(grads, res)
+    torch.cuda.synchronize(dev)
+
+    # per leaf and rank: the card's compress against the CPU's, bit for bit
+    t0 = time.perf_counter()
+    worst_bound, scales = 0.0, []
+    for name in grads:
+        g, r = grads[name], res[name]
+        for rank in range(dp):
+            q, scale, nr = ef_int8_compress(g[rank], r[rank])
+            cq, cscale, cnr = ef_int8_compress(g[rank].cpu(), r[rank].cpu())
+            if not (torch.equal(q.cpu(), cq) and torch.equal(scale.cpu(), cscale)
+                    and torch.equal(nr.cpu(), cnr)):
+                fail(f"ef_int8_compress of {name} rank {rank}: the card's q, scale or "
+                     f"residual differ from the CPU's")
+            if not torch.equal(new_res[name][rank], nr):
+                fail(f"error_feedback_all_reduce's residual of {name} rank {rank} is not "
+                     f"ef_int8_compress's of that rank alone")
+            scales.append(float(scale))
+        acc = g + r
+        rank_scales = acc.abs().reshape(dp, -1).amax(1) / 127.0
+        want = acc.sum(0) / dp
+        err = float((mean[name][0] - want).abs().max())
+        # f32 slack: the dp-term sums of either side, a few ulps of sum_r |acc_r|
+        slack = 1e-6 * float(acc.abs().reshape(dp, -1).amax(1).sum())
+        bound = float(rank_scales.sum()) / (2 * dp)
+        worst_bound = max(worst_bound, err / bound)
+        if not err <= bound + slack:
+            fail(f"the compressed mean of {name} is {err:.3g} from the uncompressed one, over "
+                 f"the quantization bound {bound:.3g} + {slack:.3g}")
+        if torch.equal(mean[name][0], want):
+            fail(f"the compressed mean of {name} equals the uncompressed one bit for bit: "
+                 f"nothing was compressed")
+        if not all(torch.equal(mean[name][rank], mean[name][0]) for rank in range(dp)):
+            fail(f"the ranks' means of {name} differ")
+        del acc, want
+    print(f"  q, scale and residual of every leaf and rank equal the CPU's bit for bit "
+          f"({time.perf_counter() - t0:.1f} s); scales by rank of the last leaf "
+          f"{', '.join(f'{x:.3g}' for x in scales[-dp:])}; mean within "
+          f"{worst_bound:.3g} of the quantization bound at worst, never bit-equal")
+    del mean, new_res
+
+    # error feedback: 50 steps on one leaf of rank 4 (scale 1); the totals
+    # in f64, so that the drift is the compression's, not the sums'
+    name = max(grads, key=lambda k: grads[k][0].numel())
+    g = grads[name][4]
+    r = torch.zeros_like(g)
+    total_in = torch.zeros_like(g, dtype=torch.float64)
+    total_out = torch.zeros_like(total_in)
+    for _ in range(DRIFT_STEPS):
+        q, scale, r = ef_int8_compress(g, r)
+        total_in += g
+        total_out += ef_int8_decompress(q, scale)
+    drift = float((total_out + r - total_in).abs().max())
+    print(f"  {DRIFT_STEPS} error-feedback steps on {name} rank 4 ({g.numel()} f32): drift "
+          f"{drift:.3g} (tol {DRIFT_TOL})")
+    if not drift < DRIFT_TOL:
+        fail(f"error feedback drifts {drift:.3g} over {DRIFT_STEPS} steps")
+    del g, r, total_in, total_out
+
+    leaves = list(grads.values())
+    fns = {"compressed": lambda: error_feedback_all_reduce(grads, res),
+           "uncompressed": lambda: [x.sum(0) / dp for x in leaves]}
+    times = time_pair(torch, fns, 3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    mean_bytes = n * 4
+    moved = {"compressed": 3 * nbytes + mean_bytes,  # g, r read; residual, mean written
+             "uncompressed": nbytes + mean_bytes}
+    for key, ms in times.items():
+        bound_ms = moved[key] / PEAK_BYTES * 1e3
+        print(f"compression {key}: {ms:.3f} ms a call of the whole tree; reads and writes "
+              f"{moved[key]} B ({moved[key] / 1e9:.2f} GB), bound {bound_ms:.3f} ms at "
+              f"{PEAK_BYTES / 1e12:.2f} TB/s ({ms / bound_ms:.2f}x)")
+    print(f"compression: max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB); phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del grads, res, leaves, fns
+    torch.cuda.empty_cache()
+    return times
 
 
 def fmt_ms(values) -> str:
@@ -2455,13 +2789,16 @@ def main() -> int:
         dict(ssd_scan=ssd_scan_ref), SSM_BF16_REL_TOL, f32_tol=SSM_F32_REL_TOL,
         fault=scan_fault())
     serving_phases(fa, ssd, flash_attention_ref, ssd_scan_ref)
+    moe_serving_phases(fa, flash_attention_ref)
+    family_training_phase(torch, dev, fa, ssd, MOE_TRAIN_ARCH)
+    compression_phase(torch, dev)
 
     # 8. train full-width llama3.2-1b, mamba2-370m and zamba2-7b at 13
     # layers; 9. the data-parallel step -------------------------------------
     train_launches = training_phase(torch, dev, get_config, LM, fa, flash_attention_ref,
                                     flash_attention_bwd_ref)
-    ssm_launches = ssm_training_phase(torch, dev, fa, ssd, "mamba2-370m")
-    ssm_training_phase(torch, dev, fa, ssd, "zamba2-7b", layers=ZAMBA2_TRAIN_LAYERS)
+    ssm_launches = family_training_phase(torch, dev, fa, ssd, "mamba2-370m")
+    family_training_phase(torch, dev, fa, ssd, "zamba2-7b", layers=ZAMBA2_TRAIN_LAYERS)
     dp_phase(torch, dev, fa)
 
     # 10. checkpoint/resume and the elastic recovery -------------------------

@@ -1,7 +1,15 @@
 """The port of ``repro/comms``: the buffer-planned executor of synthesized
 schedules and the ``pccl_*`` collectives, on a stacked single-device
 backend (every rank in one tensor) or one rank per process through
-``torch.distributed``."""
+``torch.distributed``; and the error-feedback gradient compression."""
+
+from repro_torch.comms.compression import (
+    ef_int8_compress,
+    ef_int8_decompress,
+    error_feedback_all_reduce,
+    topk_compress,
+    topk_decompress,
+)
 
 from repro_torch.comms.executor import (
     STACKED,
@@ -47,4 +55,9 @@ __all__ = [
     "pccl_all_to_all",
     "pccl_reduce_scatter",
     "synthesize_program",
+    "ef_int8_compress",
+    "ef_int8_decompress",
+    "error_feedback_all_reduce",
+    "topk_compress",
+    "topk_decompress",
 ]

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.chatglm3_6b import CONFIG as chatglm3_6b
+from repro_torch.configs.granite_moe_1b_a400m import CONFIG as granite_moe_1b_a400m
+from repro_torch.configs.granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
 from repro_torch.configs.h2o_danube_3_4b import CONFIG as h2o_danube_3_4b
 from repro_torch.configs.internlm2_20b import CONFIG as internlm2_20b
 from repro_torch.configs.llama3_2_1b import CONFIG as llama3_2_1b
@@ -12,7 +14,8 @@ from repro_torch.configs.mamba2_370m import CONFIG as mamba2_370m
 from repro_torch.configs.zamba2_7b import CONFIG as zamba2_7b
 
 REGISTRY: dict[str, ModelConfig] = {c.name: c for c in [
-    llama3_2_1b, chatglm3_6b, internlm2_20b, h2o_danube_3_4b, mamba2_370m, zamba2_7b]}
+    llama3_2_1b, chatglm3_6b, internlm2_20b, h2o_danube_3_4b, mamba2_370m, zamba2_7b,
+    granite_moe_1b_a400m, granite_moe_3b_a800m]}
 
 
 def get_config(arch: str) -> ModelConfig:

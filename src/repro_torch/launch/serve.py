@@ -3,11 +3,17 @@
 kernel), then decoded greedily from the KV and SSM caches. Counterpart of
 ``repro/launch/serve.py`` and ``examples/serve_batch.py``. ``--arch`` takes
 llama3.2-1b, chatglm3-6b, internlm2-20b, h2o-danube-3-4b (dense),
-mamba2-370m (ssm) and zamba2-7b (hybrid).
+granite-moe-1b-a400m, granite-moe-3b-a800m (moe), mamba2-370m (ssm) and
+zamba2-7b (hybrid). The reference prefills by stepping the decoder over the
+prompt; this one-pass prefill routes a moe model's prompt in groups of up
+to 1024 tokens, so it equals that stepping only where no expert's capacity
+drops a choice (``LM.prefill``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --batch 4 --prompt-len 1024 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \\
+        --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --prompt-len 32 --new-tokens 8
 

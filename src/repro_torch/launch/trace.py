@@ -5,6 +5,8 @@ under ``torch.profiler``, one phase at a time.
     PYTHONPATH=src python -m repro_torch.launch.trace                     # llama3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.trace --arch mamba2-370m
     PYTHONPATH=src python -m repro_torch.launch.trace --arch zamba2-7b   # the hybrid
+    PYTHONPATH=src python -m repro_torch.launch.trace --arch granite-moe-1b-a400m  # moe
+    PYTHONPATH=src python -m repro_torch.launch.trace --arch granite-moe-3b-a800m
     PYTHONPATH=src python -m repro_torch.launch.trace --dtype float32    # llama in f32
 
 After one untraced warm-up, traces one prefill and then 8 greedy decode
@@ -12,8 +14,8 @@ steps, each phase in its own profiler session, and prints per phase:
 host wall time (ending in a synchronise), device-busy time (the union of
 the kernels' intervals), the busy share, device time by kind (the flash
 attention kernels of both routes, the SSD scan's kernels, matrix products,
-everything else)
-and the top kernels.
+everything else), by range (a moe model's dispatch, experts and combine,
+forward and backward) and the top kernels.
 Needs a card; exits non-zero if the profiler records no kernel.
 """
 
@@ -74,16 +76,65 @@ def _busy_us(intervals) -> float:
     return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
+# record_function ranges of the port's model code (models/moe.py) that a
+# traced step's device time is split by
+RANGES = ("moe.dispatch", "moe.experts", "moe.combine")
+
+
+def range_of(event, fwd_ranges: dict) -> str | None:
+    """The range of ``RANGES`` an op ran in: the nearest enclosing one; for
+    an op under an autograd node (the backward), the range of the forward
+    op that made the node, found in ``fwd_ranges`` by the node's forward
+    thread and sequence number. Remat's recompute runs inside the backward,
+    under its own ranges, which are nearer."""
+    e = event
+    while e is not None:
+        if e.name in RANGES:
+            return e.name
+        if e.sequence_nr >= 0 and "Backward" in e.name:
+            return fwd_ranges.get((e.fwd_thread, e.sequence_nr))
+        e = e.cpu_parent
+    return None
+
+
+def forward_ranges(events) -> dict:
+    """(thread, sequence number) -> range of every forward op in a range."""
+    out = {}
+    for e in events:
+        if e.sequence_nr >= 0 and "Backward" not in e.name:
+            r = range_of(e, {})
+            if r is not None:
+                out[(e.thread, e.sequence_nr)] = r
+    return out
+
+
+def by_range(events) -> dict:
+    """Device time (us) of the kernels launched by ops in each range (the
+    profiler links a kernel to the op that launched it)."""
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    fwd = forward_ranges(cpu)
+    out = defaultdict(float)
+    for e in cpu:
+        r = range_of(e, fwd) if e.kernels else None
+        if r is not None:
+            out[r] += sum(k.duration for k in e.kernels)
+    return dict(out)
+
+
 def traced(fn, device) -> dict:
-    """Run ``fn`` once under the profiler; wall and device-busy times."""
+    """Run ``fn`` once under the profiler; wall and device-busy times, device
+    time by kernel kind, by kernel and by range (``RANGES``)."""
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(device)
         wall_us = (time.perf_counter() - t0) * 1e6
+    # a record_function range also appears on the card's timeline, as a
+    # user annotation spanning its kernels: not a kernel
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.name not in RANGES]
     if not kernels:
         raise RuntimeError("the profiler recorded no kernel on the card")
     by_name = defaultdict(float)
@@ -94,7 +145,8 @@ def traced(fn, device) -> dict:
         by_kind[kind_of(name)] += us
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     return {"wall_us": wall_us, "busy_us": busy, "launches": len(kernels),
-            "by_kind": dict(by_kind), "by_name": dict(by_name)}
+            "by_kind": dict(by_kind), "by_name": dict(by_name),
+            "by_range": by_range(prof.events())}
 
 
 def print_phase(name: str, r: dict, per: int, top: int) -> None:
@@ -105,6 +157,8 @@ def print_phase(name: str, r: dict, per: int, top: int) -> None:
           f"{r['launches'] / per:.0f} kernels" + (" per step" if per > 1 else ""))
     for kind, us in sorted(r["by_kind"].items(), key=lambda kv: -kv[1]):
         print(f"  {kind:16s} {us / per / 1e3:9.3f} ms  {us / total:6.1%}")
+    for rng, us in r.get("by_range", {}).items():
+        print(f"  range {rng:12s} {us / per / 1e3:9.3f} ms  {us / total:6.1%}")
     for kname, us in sorted(r["by_name"].items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {us / per / 1e3:9.3f} ms  {kname[:100]}")
 

@@ -29,9 +29,11 @@ def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0,
 
 
 # leaves the reference uses in f32 whatever the compute dtype: RMSNorm
-# scales, and the SSM's dt bias, decay, skip and gated-norm scale
-# (repro/models/ssm.py:154-155, 167, 172)
-F32_LEAVES = frozenset({"scale", "dt_bias", "A_log", "D", "norm_scale"})
+# scales, the SSM's dt bias, decay, skip and gated-norm scale
+# (repro/models/ssm.py:154-155, 167, 172), and the MoE router
+# (repro/models/moe.py:69): top-k on bf16-rounded router weights would send
+# tokens to other experts
+F32_LEAVES = frozenset({"scale", "dt_bias", "A_log", "D", "norm_scale", "router"})
 
 
 def cast_params(tree: Params, dtype: torch.dtype) -> Params:

@@ -1,8 +1,10 @@
 """The LM of the dense family (GQA + SwiGLU: llama3.2-1b, chatglm3-6b,
-internlm2-20b, h2o-danube-3-4b), of the ssm family (a Mamba2/SSD stack,
-mamba2-370m) and of the hybrid family (Mamba2 blocks with one shared
-attention block after every ``hybrid_attn_period`` of them, zamba2-7b),
-ported from ``repro/models/transformer.py`` for serving and training:
+internlm2-20b, h2o-danube-3-4b), of the moe family (GQA + a top-k MoE FFN:
+granite-moe-1b-a400m, granite-moe-3b-a800m), of the ssm family (a
+Mamba2/SSD stack, mamba2-370m) and of the hybrid family (Mamba2 blocks
+with one shared attention block after every ``hybrid_attn_period`` of
+them, zamba2-7b), ported from ``repro/models/transformer.py`` for serving
+and training:
 
   * init(seed)                                -> params (stacked [L, ...])
   * loss(params, batch)                       -> (scalar loss, metrics)
@@ -15,9 +17,9 @@ The layer stack is a Python loop over the stacked parameters (the
 reference's ``lax.scan``). Prefill attention goes through the
 flash-attention kernel and the prefill SSD scan through the SSD kernel;
 the loss's attention through the forward and backward flash kernels and
-its SSD scan through the forward and backward SSD kernels; decode is
-plain torch, as in the reference. Other families raise
-``NotImplementedError``.
+its SSD scan through the forward and backward SSD kernels; decode and
+the MoE layer's dense dispatch are plain torch, as in the reference. Other
+families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     Params,
@@ -47,11 +50,11 @@ from repro_torch.models.layers import (
 )
 
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class LM:
-    def __init__(self, cfg: ModelConfig, *, device=None,
+    def __init__(self, cfg: ModelConfig, *, ep_degree: int = 1, device=None,
                  attention=kops.flash_attention,
                  attention_bwd=kops.flash_attention_bwd,
                  ssd_scan=kops.ssd_scan, ssd_scan_bwd=kops.ssd_scan_bwd,
@@ -62,7 +65,10 @@ class LM:
         backward; the kernels unless a comparison swaps in the plain
         versions. ``remat``: the loss recomputes each block's activations
         (Mamba or attention) in the backward (``torch.utils.checkpoint``),
-        as the reference's ``remat``."""
+        as the reference's ``remat``. ``ep_degree``: the moe family's
+        experts are padded to a multiple of it (``cfg.padded_experts``), as
+        in the reference; 1 on one card. ``routes``: set it to a list and
+        each MoE layer appends its routing to it (``moe.moe_ffn``)."""
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not yet ported ({', '.join(FAMILIES)} only)")
@@ -74,6 +80,8 @@ class LM:
         self.ssd_scan = ssd_scan
         self.ssd_scan_bwd = ssd_scan_bwd
         self.remat = remat
+        self.e_pad = cfg.padded_experts(ep_degree) if cfg.is_moe else 0
+        self.routes: list | None = None
 
     # ------------------------------------------------------------------
     # init
@@ -110,15 +118,21 @@ class LM:
         return params
 
     def _block_init(self, gen: torch.Generator, n: int, dtype: torch.dtype) -> Params:
-        """``n`` stacked attention + SwiGLU blocks (one unstacked if 0)."""
+        """``n`` stacked attention + FFN blocks (one unstacked if 0): SwiGLU
+        ``mlp``, or ``moe`` in the moe family."""
         c, dev = self.cfg, self.device
-        return {
+        p = {
             "ln1": rms_norm_init(c.d_model, dev, stack=n),
             "attn": attn.attention_init(gen, c.d_model, c.num_heads, c.num_kv_heads,
                                         c.head_dim, stack=n, dtype=dtype),
             "ln2": rms_norm_init(c.d_model, dev, stack=n),
-            "mlp": swiglu_init(gen, c.d_model, c.d_ff, stack=n, dtype=dtype),
         }
+        if c.is_moe:
+            p["moe"] = moe_mod.moe_init(gen, c.d_model, c.moe_d_ff, c.num_experts,
+                                        self.e_pad, stack=n, dtype=dtype)
+        else:
+            p["mlp"] = swiglu_init(gen, c.d_model, c.d_ff, stack=n, dtype=dtype)
+        return p
 
     def _mamba_init(self, gen: torch.Generator, n: int, dtype: torch.dtype) -> Params:
         """``n`` stacked Mamba2 blocks."""
@@ -133,13 +147,26 @@ class LM:
     # ------------------------------------------------------------------
     # loss (train)
     # ------------------------------------------------------------------
-    def _block_train(self, lp: Params, h: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, lp: Params, h: torch.Tensor):
+        """The block's FFN with its residual on ``h`` (after attention):
+        (h + FFN(norm(h)), the MoE layer's aux loss or None for SwiGLU)."""
+        c = self.cfg
+        x = rms_norm(lp["ln2"], h, c.norm_eps)
+        if "moe" not in lp:
+            return h + swiglu(lp["mlp"], x), None
+        y, aux = moe_mod.moe_ffn(lp["moe"], x, num_experts=c.num_experts,
+                                 experts_per_token=c.experts_per_token,
+                                 capacity_factor=c.capacity_factor, routes=self.routes)
+        return h + y, aux
+
+    def _block_train(self, lp: Params, h: torch.Tensor):
+        """An attention + FFN block for the loss: (h, aux or None)."""
         c = self.cfg
         h = h + attn.attention_train(
             lp["attn"], rms_norm(lp["ln1"], h, c.norm_eps),
             attention=self.attention, attention_bwd=self.attention_bwd,
             **self._attn_kwargs())
-        return h + swiglu(lp["mlp"], rms_norm(lp["ln2"], h, c.norm_eps))
+        return self._ffn(lp, h)
 
     def _mamba(self, lp: Params, h: torch.Tensor,
                cache: Params | None = None) -> torch.Tensor:
@@ -154,19 +181,21 @@ class LM:
     def loss(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
         """batch: tokens [B,S], labels [B,S] (labels < 0 are masked). The
         mean token cross-entropy through the training attention and SSD
-        scan, and the reference's metrics (``moe_aux`` is 0 in the dense,
-        ssm and hybrid families). The blocks run in ``_stack``'s order; the
+        scan plus 0.01 x ``moe_aux``, the MoE layers' aux losses summed over
+        the stack (0 in the dense, ssm and hybrid families), and the
+        reference's metrics. The blocks run in ``_stack``'s order; the
         hybrid's shared block runs under autograd at each call, so its
         gradients sum over the calls."""
         h = embed(params["embed"], batch["tokens"], self.dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for kind, lp, _ in self._stack(params, None):
             block = self._mamba if kind == "ssm" else self._block_train
-            if self.remat:
-                h = checkpoint(block, lp, h, use_reentrant=False)
-            else:
-                h = block(lp, h)
+            out = (checkpoint(block, lp, h, use_reentrant=False) if self.remat
+                   else block(lp, h))
+            h, a = (out, None) if kind == "ssm" else out
+            if a is not None:
+                aux = aux + a
         xent = softmax_xent(self._logits(params, h), batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=xent.device)
         return xent + 0.01 * aux, {"xent": xent, "moe_aux": aux}
 
     # ------------------------------------------------------------------
@@ -181,8 +210,8 @@ class LM:
 
     def _stack(self, params: Params, cache: Params | None):
         """(kind, layer params, its cache slice or None) for each block in
-        the order the stack runs them; kind is "attn" (attention + SwiGLU)
-        or "ssm" (a Mamba2 block). The hybrid family runs each group of
+        the order the stack runs them; kind is "attn" (attention + SwiGLU or
+        MoE FFN) or "ssm" (a Mamba2 block). The hybrid family runs each group of
         ``hybrid_attn_period`` Mamba blocks, then the shared attention block
         on the group's own KV cache slot, and the tail blocks last. The
         stacked trees are taken apart by ``unstack``, so the loss's gradient
@@ -193,7 +222,7 @@ class LM:
         def sub(key, i):
             return None if cache is None else layer(cache[key], i)
 
-        if c.family == "dense":
+        if c.family in ("dense", "moe"):
             for i in range(c.num_layers):
                 yield "attn", layers[i], sub("kv", i)
             return
@@ -227,8 +256,7 @@ class LM:
                 attention=self.attention, **self._attn_kwargs())
             if sl is not None:
                 self._fill_cache(sl, k, v, S)
-            h = h + a
-            h = h + swiglu(lp["mlp"], rms_norm(lp["ln2"], h, c.norm_eps))
+            h, _ = self._ffn(lp, h + a)
         return h
 
     def _fill_cache(self, kv_slice: Params, k, v, S: int) -> None:
@@ -259,8 +287,13 @@ class LM:
         """One pass over the prompt: returns (f32 logits of the last position
         [B, vocab], a cache of ``max_seq`` positions (default S) holding
         every attention block's rotated k/v at 0..S-1 and every Mamba
-        block's f32 state after S tokens and conv windows). Equals stepping
-        ``decode_step`` over the prompt from an empty cache."""
+        block's f32 state after S tokens and conv windows). In the dense,
+        ssm and hybrid families it equals stepping ``decode_step`` over the
+        prompt from an empty cache. In the moe family it does only where no
+        (token, choice) pair is dropped: the MoE layer routes the prompt in
+        groups of up to 1024 tokens with a capacity a group, and a decode
+        step routes its B tokens as one group, whose capacity at the
+        configs' factor is ~1 slot an expert."""
         B, S = tokens.shape
         cache = self.decode_init(B, max_seq or S,
                                  dtype=cache_dtype or self.dtype)
@@ -294,7 +327,7 @@ class LM:
 
         if c.family == "ssm":
             return {"ssm": ssm(c.num_layers)}
-        if c.family == "dense":
+        if c.family in ("dense", "moe"):
             return {"kv": kv(c.num_layers)}
         groups, rem = divmod(c.num_layers, c.hybrid_attn_period)
         cache = {"ssm": ssm(groups * c.hybrid_attn_period), "kv": kv(groups)}
@@ -317,6 +350,5 @@ class LM:
             a = attn.attention_decode(
                 lp["attn"], rms_norm(lp["ln1"], x, c.norm_eps), sl, pos,
                 **self._attn_kwargs())
-            h = x + a
-            x = h + swiglu(lp["mlp"], rms_norm(lp["ln2"], h, c.norm_eps))
+            x, _ = self._ffn(lp, x + a)
         return self._logits(params, x)[:, 0, :], cache

@@ -556,6 +556,72 @@ def test_reduced_hybrid_on_card_matches_cpu(cuda, over):
         torch.testing.assert_close(leaf.cpu(), want[path], rtol=1e-4, atol=1e-4)
 
 
+# ---------------------------------------------------------------------------
+# the MoE layer and the gradient compression (plain torch on the card)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,E,E_pad,k,cf,dtype", [
+    (2, 1024, 32, 32, 8, 1.25, "float32"),   # granite-1b's routing, two groups
+    (4, 1, 32, 32, 8, 1.25, "float32"),      # a decode step: C = 1
+    (3, 500, 40, 48, 8, 0.5, "float32"),     # granite-3b's 40 padded to 48; drops
+    (2, 256, 32, 32, 8, 1.25, "bfloat16"),   # the served dtype
+])
+def test_moe_ffn_on_card_matches_cpu(cuda, B, S, E, E_pad, k, cf, dtype):
+    """``moe_ffn`` on the card against the CPU from the same weights and
+    inputs: the same routes, out within f32 (bf16) rounding of the largest
+    |value|, the same aux loss."""
+    from repro_torch.models import layers, moe
+
+    d, d_ff = 64, 32
+    p = moe.moe_init(torch.Generator().manual_seed(0), d, d_ff, E, E_pad)
+    p = layers.cast_params(p, getattr(torch, dtype))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((B, S, d), dtype=np.float32))
+    x = x.to(getattr(torch, dtype))
+    out = {}
+    for dev in ("cpu", cuda):
+        routes = []
+        y, aux = moe.moe_ffn({n: t.to(dev) for n, t in p.items()}, x.to(dev), num_experts=E,
+                             experts_per_token=k, capacity_factor=cf, routes=routes)
+        out[str(dev)] = (y.float().cpu(), aux.cpu(), [(i.cpu(), s.cpu()) for i, s in routes])
+    (cy, caux, croutes), (gy, gaux, groutes) = out["cpu"], out[str(cuda)]
+    for (ci, cs), (gi, gs) in zip(croutes, groutes):
+        assert torch.equal(ci, gi) and torch.equal(cs, gs)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert float((gy - cy).abs().max()) <= tol * float(cy.abs().max())
+    torch.testing.assert_close(gaux, caux, rtol=1e-5, atol=1e-6)
+
+
+def test_compression_on_card_equals_cpu(cuda):
+    """The four compression functions and the stacked all-reduce's
+    residuals on the card give the CPU's bits (each op rounds once, in the
+    same order). The mean sums 7 rows, which the card's reduction adds in
+    another order than the CPU's: within f32 rounding."""
+    from repro_torch.comms import compression as c
+
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy(rng.standard_normal((64, 3000), dtype=np.float32))
+    g = g * (1.5 ** torch.arange(64.0) / 1e3)[:, None]
+    r = torch.from_numpy(rng.standard_normal((64, 3000), dtype=np.float32)) * 0.01
+    # 64 scales: CUDA's division by a Python scalar (a product with its
+    # reciprocal) missed the CPU's scale by an ulp in about one call in ten
+    cases = [(c.ef_int8_compress, (g[i], r[i])) for i in range(64)]
+    for fn, args in cases + [(c.topk_compress, (g[2], r[2], 50))]:
+        want = fn(*args)
+        got = fn(*(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args))
+        for w, t in zip(want, got):
+            assert torch.equal(t.cpu(), w)
+    q, scale, _ = c.ef_int8_compress(g[1], r[1])
+    assert torch.equal(c.ef_int8_decompress(q.to(cuda), scale.to(cuda)).cpu(),
+                       c.ef_int8_decompress(q, scale))
+    vals, idx, _ = c.topk_compress(g[2], r[2], 50)
+    assert torch.equal(c.topk_decompress(vals.to(cuda), idx.to(cuda), (3000,)).cpu(),
+                       c.topk_decompress(vals, idx, (3000,)))
+    want_mean, want_res = c.error_feedback_all_reduce({"g": g[:7]}, {"g": r[:7]})  # dp 7
+    mean, res = c.error_feedback_all_reduce({"g": g[:7].to(cuda)}, {"g": r[:7].to(cuda)})
+    assert torch.equal(res["g"].cpu(), want_res["g"])
+    torch.testing.assert_close(mean["g"].cpu(), want_mean["g"], rtol=1e-6, atol=1e-9)
+
+
 def _tree(flat: dict) -> dict:
     out: dict = {}
     for path, t in flat.items():

@@ -49,6 +49,8 @@ def test_scan_covers_the_package():
     assert {"checkpoint/__init__.py", "checkpoint/checkpointer.py", "runtime/__init__.py",
             "runtime/fault_tolerance.py"} <= rel
     assert {f"runtime/{m}.py" for m in COPIED["runtime"]} <= rel
+    assert {"models/moe.py", "comms/compression.py", "configs/granite_moe_1b_a400m.py",
+            "configs/granite_moe_3b_a800m.py"} <= rel
     # every CUDA source is built, the SSD backward's among them
     csrc = {p.stem for p in (ROOT / "src/repro_torch/kernels/csrc").glob("*.cu")}
     assert set(build.SOURCES) == csrc and "ssd_scan_bwd" in csrc
@@ -175,7 +177,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-370m", "chatglm3-6b",
-                                  "internlm2-20b", "h2o-danube-3-4b", "zamba2-7b"])
+                                  "internlm2-20b", "h2o-danube-3-4b", "zamba2-7b",
+                                  "granite-moe-1b-a400m", "granite-moe-3b-a800m"])
 def test_serve_runs_on_cpu_when_asked(capsys, arch):
     assert serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "8",
@@ -189,15 +192,19 @@ def test_registry_holds_only_ported_archs():
     assert get_config("llama3.2-1b").family == "dense"
     assert get_config("mamba2-370m").family == "ssm"
     assert get_config("zamba2-7b").family == "hybrid"
+    assert get_config("granite-moe-1b-a400m").family == "moe"
+    assert get_config("granite-moe-3b-a800m").family == "moe"
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("granite-moe-1b-a400m")
+        get_config("whisper-medium")
 
 
 def test_other_families_not_ported():
     cfg = get_config("llama3.2-1b").reduced()
-    for fam in ("moe", "encdec", "vlm"):
+    for fam in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError):
             LM(cfg.reduced(family=fam), device="cpu")
+    for arch in ("granite-moe-1b-a400m", "granite-moe-3b-a800m"):
+        assert LM(get_config(arch).reduced(), device="cpu").cfg.family == "moe"
 
 
 def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
