@@ -13,8 +13,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the card at the test shapes
    (head_dim 112 and 120 included), strided views of a fused projection,
    the serving shape and the served shapes of chatglm3-6b (16 query heads
-   a KV head) and zamba2-7b (MHA at hd 112), each call counted on the
-   route that the table names;
+   a KV head) and zamba2-7b (MHA at hd 112), whisper-medium's (the encoder
+   non-causal at a ragged 1500 x 1500, cross-attention at T != S, the
+   decoder's causal 448) and llava-next-34b's (a GQA group of 7 at hd 128,
+   3904 positions), each call counted on the route that the table names;
    then time both at the serving shape beside the plain version, the bound
    and, as a yardstick the port never calls,
    ``torch.nn.functional.scaled_dot_product_attention``; and the mma route
@@ -203,6 +205,25 @@ WINDOW_PROMPT = 6144
 
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
 SLICE_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 32, 8, 64)  # B, S, H, KV, hd
+# the encdec and vlm families. whisper-medium decodes a 416-token prompt and
+# 32 new tokens (448 positions, its published text context) over 1500 stub
+# audio frames; llava-next-34b puts 2880 stub image patches ahead of a
+# 1024-token prompt (3936 positions with the 32 new tokens)
+WHISPER_PROMPT = 416
+WHISPER_TEXT = WHISPER_PROMPT + SERVE_NEW
+WHISPER_FRAMES = 1500
+LLAVA_PATCHES = 2880
+LLAVA_SEQ = LLAVA_PATCHES + SERVE_PROMPT  # positions of a llava prefill
+# the attention shapes these serve and train at (B, S, T, H, KV, hd, causal):
+# whisper's encoder (non-causal, 1500 x 1500, ragged), decoder self-attention
+# (causal) and cross-attention (non-causal, T != S), llava's causal GQA at a
+# group of 7 (one row; the plain version's f32 scores take 3.4 GB a row)
+ENCDEC_VLM_SHAPES = {
+    "whisper encoder": (SERVE_BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 16, 16, 64, False),
+    "whisper cross": (SERVE_BATCH, WHISPER_TEXT, WHISPER_FRAMES, 16, 16, 64, False),
+    "whisper decoder": (SERVE_BATCH, WHISPER_TEXT, WHISPER_TEXT, 16, 16, 64, True),
+    "llava": (1, LLAVA_SEQ, LLAVA_SEQ, 56, 8, 128, True),
+}
 
 CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
     (1, 128, 128, 4, 4, 32, "float32", dict(causal=True)),            # MHA
@@ -265,6 +286,12 @@ CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
     # (wgmma in bf16, mma in f32)
     (4, 1024, 1024, 24, 8, 64, "bfloat16", dict(causal=True)),
     (4, 1024, 1024, 24, 8, 64, "float32", dict(causal=True)),
+    # the encdec and vlm shapes: whisper's encoder, cross- and decoder
+    # self-attention in bf16 (wgmma) and f32 (mma), llava's group of 7 at
+    # hd 128 in bf16 (wgmma) and f32 (mma)
+    *[(B, S, T, H, KV, hd, dt, dict(causal=causal))
+      for B, S, T, H, KV, hd, causal in ENCDEC_VLM_SHAPES.values()
+      for dt in ("bfloat16", "float32")],
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
      "float32", dict(causal=True)),                                   # the slice, f32
     (SLICE_SHAPE[0], SLICE_SHAPE[1], SLICE_SHAPE[1], *SLICE_SHAPE[2:],
@@ -334,6 +361,12 @@ BWD_CASES = [
     (1, 64, 8, 2, 2, 32, "bfloat16", dict(causal=True, window=4)),    # empty rows
     (1, 300, 200, 4, 2, 20, "float32", dict(causal=True)),            # hd padded to 32
     (1, 130, 130, 4, 2, 100, "bfloat16", dict(causal=True, window=50, softcap=20.0)),
+    # the encdec and vlm training shapes: non-causal at a ragged T = 1500,
+    # T != S, and llava's GQA group of 7 at hd 128 (one row), in bf16; the
+    # whisper shapes in f32 too
+    *[(B, S, T, H, KV, hd, dt, dict(causal=causal))
+      for B, S, T, H, KV, hd, causal in ENCDEC_VLM_SHAPES.values()
+      for dt in (("bfloat16", "float32") if H == 16 else ("bfloat16",))],
     # granite-moe-1b-a400m's training shape: 16 query heads on 8 KV heads
     (TRAIN_SHAPE[0], TRAIN_SHAPE[1], TRAIN_SHAPE[1], 16, 8, 64, "bfloat16",
      dict(causal=True)),
@@ -423,6 +456,32 @@ MOE_TRAIN_ARCH = MOE_ARCHS[0]
 # f32 summation order flips reroutes its token from there on, and the
 # gradient leaves of the full 24 layers differ by rel-L2 ~0.07 (PERF.md §6)
 MOE_F32_GRAD_LAYERS = 6
+# llava-next-34b trains at full width and the most layers whose training
+# state leaves this much of the card (``llava_train_layers``): activations
+# at 4 x 3904 positions with remat (the f32 logits and their gradient alone
+# take 2.1 GB), AdamW's per-leaf temporaries (a few copies of the largest
+# leaf, 587 MB a layer) and the plain comparison's dense f32 scores and
+# probabilities at one row (3.4 GB each, before AdamW's moments exist)
+LLAVA_TRAIN_RESERVE = 30e9
+LLAVA_NO_F32 = ("its plain backward's dense f32 scores take 13.7 GB a tensor at 4 rows, "
+                "and the f32 first step is held at whisper-medium's and the other families'")
+# whisper-medium's bf16 logits, rel-L2, against the plain attention: as
+# LOGITS_REL_TOL, over 24 encoder and 24 decoder layers (0.0203 and, for
+# decode against a longer prefill, 0.0144; the causal-encoder fault 1.36)
+ENCDEC_BF16_REL_TOL = LOGITS_REL_TOL
+# llava-next-34b's bf16 logits, rel-L2: 60 random-weight layers at d_model
+# 7168 compound bf16 rounding to 0.0376 (prefill against the plain
+# attention) and 0.0406 (decode against a longer prefill, whose attention
+# keeps its probabilities in f32 where decode's rounds them to bf16) on
+# NVIDIA H100 80GB HBM3, 700.00 W, near LOGITS_REL_TOL; the planted GQA
+# fault reads 1.43 and decode at the wrong position 1.01, so the limit sits
+# at twice the readings, and the f32 repeat (5e-5) carries the check
+VLM_BF16_REL_TOL = 0.1
+# llava-next-34b's f32 repeat keeps the full width and this many of its 60
+# layers: all 60 take 137.6 GB in f32
+LLAVA_F32_LAYERS = 8
+LLAVA_F32_WHY = (f"{LLAVA_F32_LAYERS} of them keep the f32 prefills (the products without "
+                 f"TF32) to seconds each")
 # the compression phase: train_lm's model whose gradient tree is
 # compressed, its ranks stacked, rank r's gradients scaled by 2^(r - 4);
 # the error-feedback steps of the drift check and its limit
@@ -592,12 +651,13 @@ def bound_terms(terms: dict) -> str:
     return ", ".join(f"{key.removesuffix('_ms')} {ms * 1e3:.2f} us" for key, ms in terms.items())
 
 
-def attention_inputs(torch, gen, dev, shape, dt):
-    """q [B, S, H, hd], k and v [B, S, KV, hd] of type ``dt``, and their
-    [B, heads, S, hd] copies for SDPA."""
+def attention_inputs(torch, gen, dev, shape, dt, T=None):
+    """q [B, S, H, hd], k and v [B, T, KV, hd] (T = S unless given) of type
+    ``dt``, and their [B, heads, S or T, hd] copies for SDPA."""
     B, S, H, KV, hd = shape
+    T = T or S
     qkv = [torch.randn(s, generator=gen, device=dev).to(getattr(torch, dt))
-           for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+           for s in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd))]
     return qkv, [x.transpose(1, 2).contiguous() for x in qkv]
 
 
@@ -686,13 +746,19 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_pair(torch, fns: dict, reps: int) -> dict:
-    """Median ms of each function over three rounds in turns."""
+def time_turns(torch, fns: dict) -> dict:
+    """Median ms of each function over three rounds in turns, so drift hits
+    all alike: ``fns`` maps a name to (function, launches a round)."""
     got = {name: [] for name in fns}
     for _ in range(3):
-        for name, fn in fns.items():
+        for name, (fn, reps) in fns.items():
             got[name].append(time_ms(torch, fn, reps))
     return {name: statistics.median(vals) for name, vals in got.items()}
+
+
+def time_pair(torch, fns: dict, reps: int) -> dict:
+    """``time_turns`` at ``reps`` launches a round for every function."""
+    return time_turns(torch, {name: (fn, reps) for name, fn in fns.items()})
 
 
 def compare(got, want, tol: float) -> tuple[float, bool]:
@@ -1287,11 +1353,7 @@ def backward_phase(torch, dev, gen, fa, ops, flash_attention_ref,
            "plain": (lambda: flash_attention_bwd_ref(q, k, v, o, do, causal=True), 3),
            "sdpa_bwd": (lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
                                                     retain_graph=True), 20)}
-    times = {name: [] for name in fns}
-    for _ in range(3):  # in turns
-        for name, (fn, reps) in fns.items():
-            times[name].append(time_ms(torch, fn, reps))
-    times = {name: statistics.median(vals) for name, vals in times.items()}
+    times = time_turns(torch, fns)
     bound = attention_bwd_bound(q, k, True, 0)
     print(f"  training shape {TRAIN_SHAPE} bfloat16 causal: kernel {times['kernel']:.4f} ms, "
           f"plain {times['plain']:.4f} ms, sdpa backward {times['sdpa_bwd']:.4f} ms "
@@ -1331,6 +1393,53 @@ def backward_phase(torch, dev, gen, fa, ops, flash_attention_ref,
           f"({bound_terms(bound32[4])}); kernel {f32['kernel'] / bound32[0]:.2f}x its bound")
     return dict(err=got_err, ms=times["kernel"], plain_ms=times["plain"],
                 library_ms=times["sdpa_bwd"], bound=bound)
+
+
+def encdec_vlm_kernel_phase(torch, dev, gen, fa, ops, flash_attention_ref,
+                            flash_attention_bwd_ref) -> None:
+    """The flash forward and backward at ``ENCDEC_VLM_SHAPES`` (checked
+    against their plain versions in the kernel phases above), timed beside
+    their plain versions, their bounds and SDPA's forward and backward
+    (``enable_gqa``, a yardstick the port never calls): bf16 at every shape,
+    f32 (the mma route and the backward in 3xTF32) at whisper's. Printed,
+    not in the kernels line."""
+    phase("flash kernels at the encdec and vlm shapes")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, (B, S, T, H, KV, hd, causal) in ENCDEC_VLM_SHAPES.items():
+        for dt in ("bfloat16", "float32") if H == 16 else ("bfloat16",):
+            (q, k, v), (qt, kt, vt) = attention_inputs(torch, gen, dev, (B, S, H, KV, hd),
+                                                       dt, T)
+            o = ops.flash_attention(q, k, v, causal=causal)
+            do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+            qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+            ot = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+            dot = do.transpose(1, 2).contiguous()
+            tol = F32_TOL if dt == "float32" else BF16_TOL
+            torch.testing.assert_close(ot.detach().transpose(1, 2).float(), o.float(),
+                                       rtol=tol, atol=tol)
+            big = B * H * S * T > 5e8  # the plain versions' f32 scores take GBs
+            got = time_turns(torch, {
+                "kernel": (lambda: ops.flash_attention(q, k, v, causal=causal), 20),
+                "plain": (lambda: flash_attention_ref(q, k, v, causal=causal), 1 if big else 3),
+                "sdpa": (lambda: sdpa(qt.detach(), kt.detach(), vt.detach(), is_causal=causal,
+                                      enable_gqa=True), 20),
+                "bwd": (lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal), 10),
+                "plain_bwd": (lambda: flash_attention_bwd_ref(q, k, v, o, do, causal=causal), 1),
+                "sdpa_bwd": (lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                         retain_graph=True), 10)})
+            for what, bound, kernel, plain, lib in (
+                    ("forward", attention_bound(q, k, v, causal, 0), "kernel", "plain", "sdpa"),
+                    ("backward", attention_bwd_bound(q, k, causal, 0), "bwd", "plain_bwd",
+                     "sdpa_bwd")):
+                route = fa.route(q.dtype, hd) if what == "forward" else "bwd"
+                print(f"  {name} {(B, S, T, H, KV, hd)} {dt} {'causal' if causal else 'non-causal'}"
+                      f", {what} ({route}): kernel {got[kernel]:.4f} ms, plain {got[plain]:.4f} "
+                      f"ms, sdpa {got[lib]:.4f} ms ({got[kernel] / got[lib]:.2f}x SDPA); bound "
+                      f"{bound[0] * 1e3:.2f} us by {bound[1]} ({bound[2] / 1e9:.2f} GFLOP, "
+                      f"{bound_terms(bound[4])}); kernel at {bound[2] / got[kernel] / 1e9:.2f} "
+                      f"TFLOP/s, {got[kernel] / bound[0]:.2f}x its bound")
+            del q, k, v, o, do, qt, kt, vt, ot, dot
+            torch.cuda.empty_cache()
 
 
 def training_phase(torch, dev, get_config, LM, fa, flash_attention_ref,
@@ -1510,11 +1619,7 @@ def ssd_bwd_phase(torch, dev, gen, ops, ssd, ssd_scan_bwd_ref) -> dict:
         del first
         fns = {"ms": (lambda: ops.ssd_scan_bwd(*ins, chunk=chunk), 10),
                "plain_ms": (lambda: ssd_scan_bwd_ref(*ins, chunk=chunk), 2)}
-        times = {name: [] for name in fns}
-        for _ in range(3):  # in turns
-            for name, (fn, reps) in fns.items():
-                times[name].append(time_ms(torch, fn, reps))
-        times = {name: statistics.median(vals) for name, vals in times.items()}
+        times = time_turns(torch, fns)
         bound = ssd_bwd_bound(ins[0], ins[3], chunk)
         calls = 3
         by_name = trace.traced(lambda: [fns["ms"][0]() for _ in range(calls)], dev)["by_name"]
@@ -1539,21 +1644,27 @@ def ssd_bwd_phase(torch, dev, gen, ops, ssd, ssd_scan_bwd_ref) -> dict:
 
 
 def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None = None,
-                          f32_layers: int | None = None) -> dict:
-    """Training steps of ``arch`` (the ssm, hybrid or moe family) on the card
-    at full width, ``layers`` of its layers if given: bf16 compute, f32
-    master params and AdamW state, remat per block, 4 x 1024 tokens a step.
-    The first step (the warm-up) beside the same step through the chunked
-    plain scan, its autograd backward and the plain attention; the same
-    first step in f32 (at ``f32_layers`` if given), where every SSM
-    gradient leaf (every leaf of a moe model, the router's included) is
-    held to ``SSM_GRAD_REL_TOL``; then ``TRAIN_STEPS`` timed steps with
-    every kernel's launches counted exactly, and one traced step (a moe
-    step split into dispatch/combine, experts, attention and other).
-    Returns the launches."""
+                          f32_layers: int | None = None, seq: int = TRAIN_SHAPE[1],
+                          plain_rows: int | None = None, no_f32: str = "",
+                          why: str = "") -> dict:
+    """Training steps of ``arch`` (the ssm, hybrid, moe, encdec or vlm
+    family) on the card at full width, ``layers`` of its layers if given
+    (``why`` says why): bf16 compute, f32 master params and AdamW state,
+    remat per block, 4 x ``seq`` tokens a step (behind 4 x 2880 stub
+    patches in the vlm, over 4 x 1500 stub frames in the encdec family).
+    The first step's loss beside the same step through the chunked plain
+    scan, its autograd backward and the plain attention (on the first
+    ``plain_rows`` rows if given: the plain attention's dense f32 scores of
+    every row do not fit beside the model); unless ``no_f32`` says why not,
+    the same first step in f32 (at ``f32_layers`` if given), where every SSM gradient leaf
+    (every leaf of a moe or encdec model, the router's, the encoder's and
+    the cross-attention's included) is held to ``SSM_GRAD_REL_TOL``; then
+    ``TRAIN_STEPS`` timed steps with every kernel's launches counted
+    exactly, and one traced step (a moe step split into dispatch/combine,
+    experts, attention and other). Returns the launches."""
     from repro_torch.bridge import named_leaves
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import _batch_for_step
+    from repro_torch.data.pipeline import _batch_for_step, stub_inputs
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import (
         flash_attention_bwd_ref,
@@ -1572,14 +1683,18 @@ def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None 
     label = f"train {arch}" + (f" layers={cfg.num_layers}" if layers else "")
     phase(label)
     torch.cuda.empty_cache()
-    B, S = TRAIN_SHAPE[:2]
+    B, S = TRAIN_SHAPE[0], seq
+    if why:
+        print(f"  {cfg.num_layers} of {full.num_layers} layers: {why}")
     # the comparison steps run the chunked plain scan (the token-by-token
     # recurrence holds the kernel in the kernel phases), without remat: the
     # same values, and each plain scan once a block instead of twice
     plain_kw = dict(attention=flash_attention_ref, attention_bwd=flash_attention_bwd_ref,
                     ssd_scan=ssd_chunked_ref, ssd_scan_bwd=ssd_scan_bwd_ref)
-    batches = [{key: torch.from_numpy(val).to(dev, torch.int64) for key, val in
-                _batch_for_step(DATA_SEED, step, B, S, cfg.vocab_size).items()}
+    batches = [{**{key: torch.from_numpy(val).to(dev, torch.int64) for key, val in
+                   _batch_for_step(DATA_SEED, step, B, S, cfg.vocab_size).items()},
+                **{key: torch.from_numpy(val).to(dev) for key, val in
+                   stub_inputs(cfg, B, DATA_SEED + step).items()}}
                for step in range(1 + TRAIN_STEPS)]
 
     def model(c):
@@ -1604,22 +1719,29 @@ def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None 
         del q, k, v, o, do, got
 
     lm, params = model(cfg)
+    stub_shapes = "".join(f" + {key} {tuple(x.shape)}" for key, x in batches[0].items()
+                          if key not in ("tokens", "labels"))
     print(f"{cfg.name}: {count_params(params)} params (f32 master weights), compute "
           f"{cfg.dtype}, {cfg.num_layers} of {full.num_layers} layers, d_model {cfg.d_model}, "
-          f"batch {B} x {S} tokens, remat per block")
-    plain_loss, grads = loss_and_grads(LM(cfg, device=dev, **plain_kw), params,
-                                       batches[0])
+          f"batch {B} x {S} tokens{stub_shapes}, remat per block")
+    first = batches[0] if plain_rows is None else rows(batches[0], plain_rows)
+    plain_loss, grads = loss_and_grads(LM(cfg, device=dev, **plain_kw), params, first)
     plain_loss, plain_gnorm = float(plain_loss), float(global_norm(grads))
     del grads
+    loss, grads = loss_and_grads(lm, params, first)
+    loss, gnorm = float(loss), float(global_norm(grads))
+    if plain_rows is not None:  # the warm-up step on the whole batch
+        del grads
+        _, grads = loss_and_grads(lm, params, batches[0])
     opt = adamw_init(params)
     lr = cosine_schedule(3e-4, warmup=20, total=100)
-    loss, grads = loss_and_grads(lm, params, batches[0])
-    loss, gnorm = float(loss), float(global_norm(grads))
     adamw_update(params, grads, opt, lr=lr)
     del grads
     rel_loss = abs(loss - plain_loss) / abs(plain_loss)
-    plain_what = "attention" if cfg.is_moe else "scan, scan backward and attention"
-    print(f"  first step, kernels vs plain {plain_what}: loss {loss:.6f} vs "
+    plain_what = ("attention" if cfg.family in ("moe", "encdec", "vlm")
+                  else "scan, scan backward and attention")
+    print(f"  first step{f' on {plain_rows} row(s)' if plain_rows else ''}, kernels vs plain "
+          f"{plain_what}: loss {loss:.6f} vs "
           f"{plain_loss:.6f} (rel {rel_loss:.3g}, tol {TRAIN_LOSS_REL_TOL}); grad norm "
           f"{gnorm:.6f} vs {plain_gnorm:.6f} (rel {abs(gnorm - plain_gnorm) / plain_gnorm:.3g})")
     if not (rel_loss <= TRAIN_LOSS_REL_TOL and finite(loss, gnorm)):
@@ -1657,9 +1779,9 @@ def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None 
           " ".join(f"{name}_launches_per_step={n / TRAIN_STEPS:g}"
                    for name, n in launches.items()))
     L = cfg.num_layers
-    attn_blocks = (L if cfg.is_moe else
-                   L // cfg.hybrid_attn_period if cfg.family == "hybrid" else 0)
-    ssd_blocks = 0 if cfg.is_moe else L
+    attn_blocks = {"moe": L, "vlm": L, "hybrid": L // max(cfg.hybrid_attn_period, 1),
+                   "encdec": cfg.encoder_layers + 2 * L}.get(cfg.family, 0)
+    ssd_blocks = L if cfg.family in ("ssm", "hybrid") else 0
     route = fa.route(torch.bfloat16, cfg.head_dim)
     want = {"ssd_scan": 2 * ssd_blocks, "ssd_scan_bwd": ssd_blocks,
             "flash_attention": 2 * attn_blocks,
@@ -1669,8 +1791,8 @@ def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None 
     want = {name: n * TRAIN_STEPS for name, n in want.items()}
     if launches != want:
         fail(f"launches over {TRAIN_STEPS} {arch} training steps {launches}, want {want} (the "
-             f"scan and the attention once a block and again in remat's recompute, each "
-             f"backward once)")
+             f"scan and the attention (self and cross) once a block and again in remat's "
+             f"recompute, each backward once)")
     if not finite(*losses):
         fail(f"a {arch} training step's loss is not finite")
 
@@ -1693,6 +1815,10 @@ def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None 
             + f" of {total / 1e3:.3f} ms of kernels")
     del lm, params, opt
     torch.cuda.empty_cache()
+    if no_f32:
+        print(f"  no f32 repeat: {no_f32}")
+        print(f"{label}: phase took {time.perf_counter() - t_phase:.1f} s")
+        return launches
 
     # the first step again in f32, where rounding does not hide a fault
     def f32_first_step(layers32: int) -> tuple:
@@ -1708,7 +1834,7 @@ def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None 
         rel32 = abs(float(loss32) - float(plain32)) / abs(float(plain32))
         rels = {".".join(path): rel_l2(gk, gp) for (path, gk), (_, gp) in
                 zip(named_leaves(g_kernel), named_leaves(g_plain))
-                if cfg.is_moe or "ssd" in path}
+                if cfg.family in ("moe", "encdec") or "ssd" in path}
         # remat's recompute appends a second set of routes: the forward's first
         flips = (routes_differ(lm32.routes[:layers32], plain32_lm.routes)[0]
                  if cfg.is_moe else None)
@@ -1718,8 +1844,10 @@ def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None 
 
     def leaves(rels: dict) -> str:
         worst = max(rels, key=rels.get)
-        return (", ".join(f"{path.split('.')[-1]} {rel:.3g}" for path, rel in rels.items()
-                          if path.startswith("layers.")) + f"; worst {worst} {rels[worst]:.3g}")
+        return (", ".join(f"{path.removeprefix('layers.')} {rel:.3g}"
+                          for path, rel in rels.items()
+                          if path.startswith(("layers.", "enc_layers.")))
+                + f"; worst {worst} {rels[worst]:.3g}")
 
     if cfg.is_moe:
         # at full depth the kernel and the plain attention's f32 summation
@@ -1740,7 +1868,7 @@ def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None 
     worst = max(rels.values())
     print(f"  f32 first step, kernels vs plain: loss rel {rel32:.3g}; "
           + (f"pairs to another expert by layer {flips} (must be 0); " if cfg.is_moe else "")
-          + f"{'every' if cfg.is_moe else 'SSM'} gradient leaf, rel-L2 (tol "
+          + f"{'SSM' if 'ssd' in ''.join(rels) else 'every'} gradient leaf, rel-L2 (tol "
           f"{SSM_GRAD_REL_TOL}): {leaves(rels)}")
     if cfg.is_moe and sum(flips):
         fail(f"the f32 {arch} step at {L32} layers routes the kernels' forward unlike the "
@@ -1750,6 +1878,21 @@ def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None 
              f"the plain kernels'")
     print(f"{label}: phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def llava_train_layers(cfg, card_bytes: int) -> tuple[int, str]:
+    """(N, why): the most of llava-next-34b's layers whose f32 weights,
+    gradients and two AdamW moments (16 bytes a parameter) leave
+    ``LLAVA_TRAIN_RESERVE`` bytes of the card for the rest."""
+    outer = dataclasses.replace(cfg, num_layers=0).param_count()
+    per_layer = dataclasses.replace(cfg, num_layers=1).param_count() - outer
+    n = int((card_bytes - LLAVA_TRAIN_RESERVE - 16 * outer) // (16 * per_layer))
+    why = (f"the most whose f32 weights, gradients and AdamW moments (16 bytes a parameter: "
+           f"{16 * outer / 1e9:.2f} GB for the embedding and unembedding, "
+           f"{16 * per_layer / 1e9:.2f} GB a layer) leave {LLAVA_TRAIN_RESERVE / 1e9:.0f} GB of "
+           f"the card's {card_bytes / 1e9:.2f} GB for activations, AdamW's per-leaf "
+           f"temporaries and the plain comparison")
+    return n, why
 
 
 def finite(*values) -> bool:
@@ -1807,10 +1950,31 @@ def window_fault():
 
 
 def gqa_fault():
-    """(what, LM keywords) of the planted fault the moe logits checks must fail."""
+    """(what, LM keywords) of the planted fault the moe and vlm logits checks
+    must fail."""
     from repro_torch.kernels import ops
     return ("KV heads rotated by one (a wrong GQA head map)",
             dict(attention=kv_heads_rotated(ops.flash_attention)))
+
+
+def bidirectional_made_causal(attention):
+    """``attention`` with a planted fault: every non-causal self-attention
+    (S = T: the encdec encoder's) run causally, so a frame sees only the
+    frames before it; cross-attention (S != T) is left as it is."""
+    def faulty(q, k, v, *, causal=True, **kw):
+        return attention(q, k, v, causal=causal or q.shape[1] == k.shape[1], **kw)
+    return faulty
+
+
+def encoder_fault():
+    """(what, LM keywords) of the planted fault the encdec logits checks must fail."""
+    from repro_torch.kernels import ops
+    return ("the encoder run causally",
+            dict(attention=bidirectional_made_causal(ops.flash_attention)))
+
+
+def rows(stub: dict, n: int) -> dict:
+    return {name: x[:n] for name, x in stub.items()}
 
 
 def routes_differ(a: list, b: list) -> tuple[list[int], list[int]]:
@@ -1838,13 +2002,21 @@ def flash_want(fa, wgmma: int = 0, mma: int = 0) -> dict:
 
 
 def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
-                  out: dict | None = None, fault=None) -> None:
+                  out: dict | None = None, fault=None, stub: dict | None = None,
+                  plain_rows: int | None = None) -> None:
     """Prefill logits against the same forward on the plain version(s), and
-    decode at position S from the prefilled cache against a prefill of S+1
-    tokens, both by rel-L2. The prefill logits and first token are the
-    served run's ``out``, or a fresh prefill's without it. With ``fault``
-    (what, LM keywords that plant it), that forward must miss the plain one
-    by more than ``tol``: the check can fail a wrong kernel. In the moe
+    decode at position P + S from the prefilled cache against a prefill of
+    S+1 tokens, both by rel-L2. ``stub`` is the family's stub input
+    (``frames`` or ``patches``, P of the latter ahead of the S tokens; P = 0
+    without); the encdec's cache holds the cross k/v. The prefill logits
+    and first token are the served run's ``out``, or a fresh prefill's
+    without it. ``plain_rows``: the plain forward (and the fault's) on the
+    first rows only, where the plain attention's dense f32 scores of every
+    row do not fit beside the model. With ``fault`` (what, LM keywords that
+    plant it), that forward must miss the plain one by more than ``tol``:
+    the check can fail a wrong kernel. With patches, decode from position
+    S (the patches left out of the count) must miss the longer prefill by
+    more than ``tol``. In the moe
     family the (token, choice) routes that differ between the kernel and
     the plain prefill are counted by layer (the routed kernel prefill must
     repeat the served one's logits bit for bit); in the first layer, ahead
@@ -1854,24 +2026,29 @@ def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
     (``MOE_BF16_REL_TOL``)."""
     import torch
 
+    from repro_torch.launch.serve import prefix_len
     from repro_torch.models import LM
 
     dev = lm.device
     S = prompts.shape[1]
+    stub = stub or {}
+    P = prefix_len(stub)
+    n = plain_rows or prompts.shape[0]
     with torch.inference_mode():
         plain = LM(cfg, device=dev, **plain_kw)
         plain.routes = [] if cfg.is_moe else None
-        plain_logits, _ = plain.prefill(params, prompts)
+        plain_logits = plain.prefill(params, prompts[:n], **rows(stub, n))[0]
         if out is None:
-            got, _ = lm.prefill(params, prompts)
+            got = lm.prefill(params, prompts, **stub)[0]
             tok0 = got.argmax(-1)
         else:
             got, tok0 = out["prefill_logits"], out["tokens"][:, 0]
+        got_all, got = got, got[:n]
         if cfg.is_moe:
             lm.routes = []
-            routed, _ = lm.prefill(params, prompts)
+            routed = lm.prefill(params, prompts)[0]
             kernel_routes, lm.routes = lm.routes, None
-            if not torch.equal(routed, got):
+            if not torch.equal(routed, got_all):
                 fail(f"{cfg.name} {cfg.dtype}: two kernel prefills gave different logits")
             experts, diff = routes_differ(kernel_routes, plain.routes)
             per_layer = kernel_routes[0][0].numel()
@@ -1889,7 +2066,8 @@ def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
             del routed, kernel_routes
         plain_routes, plain.routes = plain.routes, None
         e_plain = rel_l2(got, plain_logits)
-        print(f"  {cfg.dtype}, {tuple(prompts.shape)} prompt: prefill vs plain "
+        with_stub = "".join(f" with {k} {tuple(x[:n].shape)}" for k, x in stub.items())
+        print(f"  {cfg.dtype}, {tuple(prompts[:n].shape)} prompt{with_stub}: prefill vs plain "
               f"{'/'.join(plain_kw)}: rel_l2={e_plain:.3g} "
               f"max_abs={float((got - plain_logits).abs().max()):.3g} (tol rel_l2 {tol})")
         if not e_plain <= tol:
@@ -1899,7 +2077,7 @@ def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
             what, fault_kw = fault
             fault_lm = LM(cfg, device=dev, **fault_kw)
             fault_lm.routes = [] if cfg.is_moe else None
-            faulty, _ = fault_lm.prefill(params, prompts)
+            faulty = fault_lm.prefill(params, prompts[:n], **rows(stub, n))[0]
             e_fault = rel_l2(faulty, plain_logits)
             print(f"  {cfg.dtype}: planted fault ({what}) vs plain: rel_l2={e_fault:.3g} "
                   f"(must exceed {tol})")
@@ -1920,34 +2098,49 @@ def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
         if cfg.is_moe:
             dec = LM(dataclasses.replace(
                 cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token), device=dev)
-        _, cache = dec.prefill(params, prompts, max_seq=S + 1)
-        step_logits, _ = dec.decode_step(params, cache, tok0, S)
+        _, cache = dec.prefill(params, prompts, max_seq=P + S + 1, **stub)
+        step_logits = dec.decode_step(params, cache, tok0, P + S)[0]
         del cache
-        longer, _ = dec.prefill(params, torch.cat([prompts, tok0[:, None]], 1))
+        longer = dec.prefill(params, torch.cat([prompts, tok0[:, None]], 1), **stub)[0]
         e_cache = rel_l2(step_logits, longer)
-        print(f"  {cfg.dtype}: decode_step at {S} vs prefill of {S + 1}"
+        print(f"  {cfg.dtype}: decode_step at {P + S} vs prefill of {S + 1}"
+              f"{f' tokens after {P} patches' if P else ''}"
+              f"{' (the cross cache from the prefill)' if 'frames' in stub else ''}"
               f"{f' at capacity factor {dec.cfg.capacity_factor:g}' if cfg.is_moe else ''}: "
               f"rel_l2={e_cache:.3g} max_abs={float((step_logits - longer).abs().max()):.3g} "
               f"(tol rel_l2 {tol})")
         if not e_cache <= tol:
             fail(f"{cfg.name} {cfg.dtype} decode from the prefilled cache disagrees with "
                  f"a longer prefill")
+        if P:  # a decode that forgets the patches ahead of the prompt
+            _, cache = dec.prefill(params, prompts, max_seq=P + S + 1, **stub)
+            wrong = dec.decode_step(params, cache, tok0, S)[0]
+            del cache
+            e_wrong = rel_l2(wrong, longer)
+            print(f"  {cfg.dtype}: decode_step at {S} (the patches left out of the position) "
+                  f"vs prefill of {S + 1}: rel_l2={e_wrong:.3g} (must exceed {tol})")
+            if not e_wrong > tol:
+                fail(f"the {cfg.name} {cfg.dtype} decode check passes a decode at the wrong "
+                     f"position")
 
 
-def serve_counted(cfg, lm, params, prompts, want: dict) -> tuple[dict, dict]:
-    """Serve ``prompts`` with every counter of ``want`` set to 0 just before
-    the run and read just after; fail unless each counted ``want[counter]``
-    launches. Returns the served output and the counts."""
+def serve_counted(cfg, lm, params, prompts, want: dict,
+                  stub: dict | None = None) -> tuple[dict, dict]:
+    """Serve ``prompts`` (over the family's ``stub`` input) with every
+    counter of ``want`` set to 0 just before the run and read just after;
+    fail unless each counted ``want[counter]`` launches. Returns the served
+    output and the counts."""
     import torch
 
     from repro_torch.launch.serve import report, serve
 
     dev = lm.device
-    serve(lm, params, prompts, 2)  # warm-up: cuBLAS and allocator start-up
+    stub = stub or {}
+    serve(lm, params, prompts, 2, **stub)  # warm-up: cuBLAS and allocator start-up
     for counter in want:
         counter.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
-    out = serve(lm, params, prompts, SERVE_NEW)
+    out = serve(lm, params, prompts, SERVE_NEW, **stub)
     launches = {counter: counter.launches for counter in want}
     peak = torch.cuda.max_memory_allocated(dev)
     print(report(out))
@@ -1962,13 +2155,13 @@ def serve_counted(cfg, lm, params, prompts, want: dict) -> tuple[dict, dict]:
             fail(f"{counter.__name__} launched {launches[counter]} times in one "
                  f"{cfg.name} {cfg.dtype} serve of {cfg.num_layers} layers, want {n}")
     toks = out["tokens"]
-    if toks.shape != (SERVE_BATCH, SERVE_NEW + 1) or not (
+    if toks.shape != (prompts.shape[0], SERVE_NEW + 1) or not (
             (toks >= 0) & (toks < cfg.vocab_size)).all():
         fail(f"bad generated tokens: shape {tuple(toks.shape)}")
     for key in ("prefill_logits", "last_logits"):
-        if out[key].shape != (SERVE_BATCH, cfg.vocab_size) or \
+        if out[key].shape != (prompts.shape[0], cfg.vocab_size) or \
                 out[key].dtype != torch.float32 or not torch.isfinite(out[key]).all():
-            fail(f"{key}: want finite f32 [{SERVE_BATCH}, {cfg.vocab_size}]")
+            fail(f"{key}: want finite f32 [{prompts.shape[0]}, {cfg.vocab_size}]")
     return out, launches
 
 
@@ -1993,21 +2186,27 @@ def init_model(cfg):
 
 def check_serving(arch: str, want: dict, plain_kw: dict, rel_tol: float, *,
                   f32_tol: float | None = None, fault=None, want_f32: dict | None = None,
-                  f32_layers: int | None = None,
-                  long_prompt: int | None = None) -> tuple[dict, dict | None]:
+                  f32_layers: int | None = None, f32_why: str | None = None,
+                  long_prompt: int | None = None, prompt_len: int = SERVE_PROMPT,
+                  plain_rows: int | None = None) -> tuple[dict, dict | None]:
     """Serve ``arch`` at full width with its kernels' launches counted
     (``want``: counter -> launches the run must make), then the correctness
-    checks. With ``f32_tol`` the logits checks are repeated on the model in
-    f32, where rounding does not hide a fault, at ``f32_layers`` of its
-    layers if given (full width), on a served f32 run counted like the
-    first if ``want_f32`` is given; ``fault`` plants a fault that the bf16
-    check must fail. ``long_prompt``: the checks again, in both dtypes, on
-    one prompt of that many tokens, with the sliding window left out as the
-    planted fault. Last, the reduced model on the card against the CPU.
-    Returns the launches of the served runs."""
+    checks, on ``SERVE_BATCH`` prompts of ``prompt_len`` tokens (over the
+    family's seeded stub input: whisper's frames, llava's patches). With
+    ``f32_tol`` the logits checks are repeated on the model in f32, where
+    rounding does not hide a fault, at ``f32_layers`` of its layers if
+    given (full width; ``f32_why`` says why the depth is cut), on a served
+    f32 run counted like the first if ``want_f32`` is given; ``fault``
+    plants a fault that the bf16 check must fail; ``plain_rows``: the plain
+    forward on that many rows (``logits_checks``). ``long_prompt``: the
+    checks again, in both dtypes, on one prompt of that many tokens, with
+    the sliding window left out as the planted fault. Last, the reduced
+    model on the card against the CPU. Returns the launches of the served
+    runs."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import stub_inputs
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models import LM
 
@@ -2017,11 +2216,14 @@ def check_serving(arch: str, want: dict, plain_kw: dict, rel_tol: float, *,
     cfg = get_config(arch)
     lm, params = init_model(cfg)
     prompts = torch.from_numpy(
-        make_prompts(SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, 0)).to(dev)
+        make_prompts(SERVE_BATCH, prompt_len, cfg.vocab_size, 0)).to(dev)
+    stub = to_device({name: torch.from_numpy(x) for name, x in
+                      stub_inputs(cfg, SERVE_BATCH, 0).items()}, dev)
     long_prompts = None if long_prompt is None else torch.from_numpy(
         make_prompts(1, long_prompt, cfg.vocab_size, 2)).to(dev)
-    out, launches = serve_counted(cfg, lm, params, prompts, want)
-    logits_checks(cfg, lm, params, prompts, plain_kw, rel_tol, out=out, fault=fault)
+    out, launches = serve_counted(cfg, lm, params, prompts, want, stub)
+    logits_checks(cfg, lm, params, prompts, plain_kw, rel_tol, out=out, fault=fault,
+                  stub=stub, plain_rows=plain_rows)
     if long_prompts is not None:
         logits_checks(cfg, lm, params, long_prompts, plain_kw, rel_tol, fault=window_fault())
     del lm, params, out
@@ -2032,12 +2234,14 @@ def check_serving(arch: str, want: dict, plain_kw: dict, rel_tol: float, *,
         if cfg32.num_layers != cfg.num_layers:
             print(f"  f32 repeat at full width and {cfg32.num_layers} of {cfg.num_layers} "
                   f"layers: the f32 weights of all {cfg.num_layers} "
-                  f"({cfg.param_count() * 4 / 1e9:.1f} GB) do not fit the card")
+                  f"({cfg.param_count() * 4 / 1e9:.1f} GB) do not fit the card"
+                  + (f"; {f32_why}" if f32_why else ""))
         lm32, params32 = init_model(cfg32)
         out32 = None
         if want_f32 is not None:
-            out32, launches32 = serve_counted(cfg32, lm32, params32, prompts, want_f32)
-        logits_checks(cfg32, lm32, params32, prompts, plain_kw, f32_tol, out=out32)
+            out32, launches32 = serve_counted(cfg32, lm32, params32, prompts, want_f32, stub)
+        logits_checks(cfg32, lm32, params32, prompts, plain_kw, f32_tol, out=out32,
+                      stub=stub, plain_rows=plain_rows)
         if long_prompts is not None:
             logits_checks(cfg32, lm32, params32, long_prompts, plain_kw, f32_tol,
                           fault=window_fault())
@@ -2050,8 +2254,10 @@ def check_serving(arch: str, want: dict, plain_kw: dict, rel_tol: float, *,
         cpu_params = cpu_lm.init(0)
         gpu_params = to_device(cpu_params, dev)
         small_tokens = torch.from_numpy(make_prompts(2, 100, small.vocab_size, 1))
-        want_small = cpu_lm.forward_logits(cpu_params, small_tokens)
-        got = gpu_lm.forward_logits(gpu_params, small_tokens.to(dev)).cpu()
+        small_stub = {name: torch.from_numpy(x) for name, x in stub_inputs(small, 2, 1).items()}
+        want_small = cpu_lm.forward_logits(cpu_params, small_tokens, **small_stub)
+        got = gpu_lm.forward_logits(gpu_params, small_tokens.to(dev),
+                                    **to_device(small_stub, dev)).cpu()
         e_small, ok = compare(got, want_small, REDUCED_F32_TOL)
         print(f"  reduced f32 model ({small.num_layers} layers; its kernels at the reduced "
               f"shape), card vs CPU: max_abs_err={e_small:.3g} (rtol = atol = {REDUCED_F32_TOL})")
@@ -2095,6 +2301,29 @@ def moe_serving_phases(fa, flash_attention_ref) -> None:
         check_serving(arch, flash_want(fa, wgmma=L), dict(attention=flash_attention_ref),
                       MOE_BF16_REL_TOL, f32_tol=LLAMA_F32_REL_TOL, fault=gqa_fault(),
                       want_f32=flash_want(fa, mma=L))
+
+
+def encdec_vlm_serving_phases(fa, flash_attention_ref) -> None:
+    """whisper-medium at full width and depth in bf16 (the wgmma route: 72
+    launches a prefill, the encoder's 24, the decoder's 24 self- and 24
+    cross-attention) and f32 (the mma route), the encoder run causally as
+    the planted fault; llava-next-34b at full width and all 60 layers in
+    bf16 (60 wgmma launches a prefill) and at ``LLAVA_F32_LAYERS`` in f32,
+    the plain forward on one row, the GQA fault, and decode at the wrong
+    position."""
+    from repro_torch.configs import get_config
+
+    w = get_config("whisper-medium")
+    whisper = w.encoder_layers + 2 * w.num_layers
+    check_serving("whisper-medium", flash_want(fa, wgmma=whisper),
+                  dict(attention=flash_attention_ref), ENCDEC_BF16_REL_TOL,
+                  f32_tol=LLAMA_F32_REL_TOL, fault=encoder_fault(),
+                  want_f32=flash_want(fa, mma=whisper), prompt_len=WHISPER_PROMPT)
+    L = get_config("llava-next-34b").num_layers
+    check_serving("llava-next-34b", flash_want(fa, wgmma=L), dict(attention=flash_attention_ref),
+                  VLM_BF16_REL_TOL, f32_tol=LLAMA_F32_REL_TOL, fault=gqa_fault(),
+                  want_f32=flash_want(fa, mma=LLAVA_F32_LAYERS), f32_layers=LLAVA_F32_LAYERS,
+                  f32_why=LLAVA_F32_WHY, plain_rows=1)
 
 
 def dp_phase(torch, dev, fa) -> None:
@@ -2642,11 +2871,7 @@ def main() -> int:
         "plain_f32": (kernel_fn(flash_attention_ref, "float32"), 5),
         "sdpa_f32": (sdpa_fn("float32"), 20),
     }
-    times = {name: [] for name in timed}
-    for _ in range(3):  # in turns, so drift hits all alike
-        for name, (fn, reps) in timed.items():
-            times[name].append(time_ms(torch, fn, reps))
-    times = {name: statistics.median(vals) for name, vals in times.items()}
+    times = time_turns(torch, timed)
     bounds = {dt: attention_bound(*slice_in[dt][0], True, 0) for dt in slice_in}
     for dt, route_ms, label in (("bfloat16", "wgmma", "wgmma"),
                                 ("bfloat16", "mma_bf16", "mma (bf16, a yardstick)"),
@@ -2663,8 +2888,8 @@ def main() -> int:
           f"mma kernel on the same bf16 inputs, {times['wgmma'] / times['sdpa_bf16']:.2f}x "
           f"SDPA's time, {times['wgmma'] / bounds['bfloat16'][0]:.2f}x its bound")
     print(f"  mma route, f32: {times['sdpa_f32'] / times['mma']:.2f}x faster than SDPA f32")
-    # peak memory while serving counts the model alone (fn: the last closure)
-    del timed, slice_in, fn
+    # peak memory while serving counts the model alone
+    del timed, slice_in
 
     # the wgmma route at head_dim 128 (chatglm3, internlm2, llava), the same
     # B, S, H, KV, and the mma route in bf16 at the yardstick shapes, beside
@@ -2778,6 +3003,8 @@ def main() -> int:
     # 5. the backward kernel against its plain version -----------------------
     bwd = backward_phase(torch, dev, gen, fa, ops, flash_attention_ref, flash_attention_bwd_ref)
     ssd_bwd = ssd_bwd_phase(torch, dev, gen, ops, ssd, ssd_scan_bwd_ref)
+    encdec_vlm_kernel_phase(torch, dev, gen, fa, ops, flash_attention_ref,
+                            flash_attention_bwd_ref)
 
     # 6. and 7. serve each model through its kernels ------------------------
     layers = get_config("llama3.2-1b").num_layers
@@ -2790,7 +3017,13 @@ def main() -> int:
         fault=scan_fault())
     serving_phases(fa, ssd, flash_attention_ref, ssd_scan_ref)
     moe_serving_phases(fa, flash_attention_ref)
+    encdec_vlm_serving_phases(fa, flash_attention_ref)
     family_training_phase(torch, dev, fa, ssd, MOE_TRAIN_ARCH)
+    family_training_phase(torch, dev, fa, ssd, "whisper-medium", seq=WHISPER_TEXT)
+    llava_layers, why = llava_train_layers(get_config("llava-next-34b"),
+                                           torch.cuda.mem_get_info(dev)[1])
+    family_training_phase(torch, dev, fa, ssd, "llava-next-34b", layers=llava_layers,
+                          seq=SERVE_PROMPT, plain_rows=1, no_f32=LLAVA_NO_F32, why=why)
     compression_phase(torch, dev)
 
     # 8. train full-width llama3.2-1b, mamba2-370m and zamba2-7b at 13

@@ -29,6 +29,22 @@ def _batch_for_step(seed: int, step: int, batch: int, seq: int,
     return {"tokens": tokens, "labels": labels}
 
 
+def stub_inputs(cfg, batch: int, seed: int) -> dict[str, np.ndarray]:
+    """The frontend stubs' embeddings for ``cfg`` (a ``ModelConfig``), seeded
+    N(0, 1) in f32: ``frames`` [batch, encoder_seq, d_model] for the encdec
+    family (whisper's audio frames after its conv frontend), ``patches``
+    [batch, num_patches, d_model] for the vlm (llava's anyres image
+    patches), nothing for the others. The model casts them to its compute
+    dtype, as the reference's ``.astype(dtype)`` does."""
+    shape = {"encdec": ("frames", cfg.encoder_seq),
+             "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+    if shape is None:
+        return {}
+    name, n = shape
+    rng = np.random.default_rng(seed)
+    return {name: rng.standard_normal((batch, n, cfg.d_model), dtype=np.float32)}
+
+
 def synthetic_lm_batches(seed: int, batch: int, seq: int, vocab: int):
     """Infinite deterministic iterator of {tokens, labels} numpy batches."""
     step = 0

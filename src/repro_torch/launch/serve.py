@@ -3,11 +3,13 @@
 kernel), then decoded greedily from the KV and SSM caches. Counterpart of
 ``repro/launch/serve.py`` and ``examples/serve_batch.py``. ``--arch`` takes
 llama3.2-1b, chatglm3-6b, internlm2-20b, h2o-danube-3-4b (dense),
-granite-moe-1b-a400m, granite-moe-3b-a800m (moe), mamba2-370m (ssm) and
-zamba2-7b (hybrid). The reference prefills by stepping the decoder over the
-prompt; this one-pass prefill routes a moe model's prompt in groups of up
-to 1024 tokens, so it equals that stepping only where no expert's capacity
-drops a choice (``LM.prefill``).
+granite-moe-1b-a400m, granite-moe-3b-a800m (moe), mamba2-370m (ssm),
+zamba2-7b (hybrid), whisper-medium (encdec: the prompt decodes over seeded
+stub audio frames) and llava-next-34b (vlm: seeded stub image patches ahead
+of the prompt, ``data.pipeline.stub_inputs``). The reference prefills by
+stepping the decoder over the prompt; this one-pass prefill routes a moe
+model's prompt in groups of up to 1024 tokens, so it equals that stepping
+only where no expert's capacity drops a choice (``LM.prefill``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --batch 4 --prompt-len 1024 --new-tokens 32
@@ -16,6 +18,8 @@ drops a choice (``LM.prefill``).
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --prompt-len 32 --new-tokens 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+        --prompt-len 416
 
 Times are host-clock spans that end in a device synchronise; the first call
 in a process includes the kernel build (or load) and library start-up.
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import stub_inputs
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
 
@@ -39,27 +44,36 @@ def make_prompts(batch: int, prompt_len: int, vocab: int, seed: int) -> np.ndarr
     return np.random.default_rng(seed).integers(0, vocab, (batch, prompt_len))
 
 
+def prefix_len(stub: dict) -> int:
+    """Positions ahead of the prompt: the vlm's ``patches``, none otherwise."""
+    return stub["patches"].shape[1] if "patches" in stub else 0
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 @torch.inference_mode()
-def serve(lm: LM, params, prompts: torch.Tensor, new_tokens: int) -> dict:
-    """Prefill ``prompts`` [B, S], then ``new_tokens`` greedy decode steps.
-    Returns the B x (new_tokens + 1) generated tokens (the first from the
-    prefill logits), the prefill and last logits, and the two spans."""
+def serve(lm: LM, params, prompts: torch.Tensor, new_tokens: int, **stub) -> dict:
+    """Prefill ``prompts`` [B, S] (behind the vlm's ``patches``, over the
+    encdec's ``frames``: the family's stub input as a keyword), then
+    ``new_tokens`` greedy decode steps from position P + S (P patches, 0
+    without). Returns the B x (new_tokens + 1) generated tokens (the first
+    from the prefill logits), the prefill and last logits, and the two
+    spans."""
     B, S = prompts.shape
+    start = S + prefix_len(stub)
     dev = lm.device
     _sync(dev)
     t0 = time.perf_counter()
-    prefill_logits, cache = lm.prefill(params, prompts, max_seq=S + new_tokens)
+    prefill_logits, cache = lm.prefill(params, prompts, max_seq=start + new_tokens, **stub)
     tok = prefill_logits.argmax(-1)
     _sync(dev)
     t1 = time.perf_counter()
     generated, logits = [tok], prefill_logits
     for i in range(new_tokens):
-        logits, cache = lm.decode_step(params, cache, tok, S + i)
+        logits, cache = lm.decode_step(params, cache, tok, start + i)
         tok = logits.argmax(-1)
         generated.append(tok)
     _sync(dev)
@@ -67,13 +81,14 @@ def serve(lm: LM, params, prompts: torch.Tensor, new_tokens: int) -> dict:
     return {"tokens": torch.stack(generated, dim=1),
             "prefill_logits": prefill_logits, "last_logits": logits,
             "prefill_s": t1 - t0, "decode_s": t2 - t1,
-            "batch": B, "prompt_len": S, "new_tokens": new_tokens}
+            "batch": B, "prompt_len": S, "prefix_len": start - S, "new_tokens": new_tokens}
 
 
 def report(out: dict) -> str:
     B, S, n = out["batch"], out["prompt_len"], out["new_tokens"]
     dec = out["decode_s"]
-    return (f"prefill: {B}x{S} tokens in {out['prefill_s'] * 1e3:.2f} ms\n"
+    after = f" after {out['prefix_len']} patches" if out.get("prefix_len") else ""
+    return (f"prefill: {B}x{S} tokens{after} in {out['prefill_s'] * 1e3:.2f} ms\n"
             f"decode: {n} steps x {B} seqs in {dec * 1e3:.2f} ms "
             f"({dec * 1e3 / max(n, 1):.3f} ms/step, "
             f"{B * n / dec if dec > 0 else 0.0:,.1f} tok/s)")
@@ -103,7 +118,9 @@ def main(argv=None) -> int:
           f"{cfg.dtype}, batch={args.batch} on {where}")
     prompts = torch.from_numpy(make_prompts(
         args.batch, args.prompt_len, cfg.vocab_size, args.seed)).to(device)
-    out = serve(lm, params, prompts, args.new_tokens)
+    stub = {name: torch.from_numpy(x).to(device)
+            for name, x in stub_inputs(cfg, args.batch, args.seed).items()}
+    out = serve(lm, params, prompts, args.new_tokens, **stub)
     print(report(out))
     for b in range(min(args.batch, 2)):
         print(f"  seq {b}: {out['tokens'][b, :10].tolist()} ...")

@@ -1,21 +1,26 @@
 """Where serving time goes on the card: the serve workload of
-``chip_smoke.py`` (a full-width model, batch 4, prompts of 1024 tokens)
-under ``torch.profiler``, one phase at a time.
+``chip_smoke.py`` (a full-width model, batch 4, prompts of 1024 tokens;
+``--prompt-len`` sets another) under ``torch.profiler``, one phase at a
+time.
 
     PYTHONPATH=src python -m repro_torch.launch.trace                     # llama3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.trace --arch mamba2-370m
     PYTHONPATH=src python -m repro_torch.launch.trace --arch zamba2-7b   # the hybrid
     PYTHONPATH=src python -m repro_torch.launch.trace --arch granite-moe-1b-a400m  # moe
     PYTHONPATH=src python -m repro_torch.launch.trace --arch granite-moe-3b-a800m
+    PYTHONPATH=src python -m repro_torch.launch.trace --arch whisper-medium --prompt-len 416
+    PYTHONPATH=src python -m repro_torch.launch.trace --arch llava-next-34b  # vlm
     PYTHONPATH=src python -m repro_torch.launch.trace --dtype float32    # llama in f32
 
-After one untraced warm-up, traces one prefill and then 8 greedy decode
-steps, each phase in its own profiler session, and prints per phase:
-host wall time (ending in a synchronise), device-busy time (the union of
-the kernels' intervals), the busy share, device time by kind (the flash
-attention kernels of both routes, the SSD scan's kernels, matrix products,
-everything else), by range (a moe model's dispatch, experts and combine,
-forward and backward) and the top kernels.
+After one untraced warm-up, traces one prefill (over whisper's stub audio
+frames, behind llava's stub image patches: ``data.pipeline.stub_inputs``)
+and then 8 greedy decode steps, each phase in its own profiler session,
+and prints per phase: host wall time (ending in a synchronise),
+device-busy time (the union of the kernels' intervals), the busy share,
+device time by kind (the flash attention kernels of both routes, the SSD
+scan's kernels, matrix products, everything else), by range (a moe
+model's dispatch, experts and combine, forward and backward) and the top
+kernels.
 Needs a card; exits non-zero if the profiler records no kernel.
 """
 
@@ -32,8 +37,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import stub_inputs
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import make_prompts, serve
+from repro_torch.launch.serve import make_prompts, prefix_len, serve
 from repro_torch.models import LM
 
 _FLASH = re.compile(r"flash_fwd_(wgmma|mma|wide)_kernel")
@@ -169,6 +175,8 @@ BATCH, PROMPT_LEN, DECODE_STEPS, SEED, TOP = 4, 1024, 8, 0, 8
 def main(argv=()) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--prompt-len", type=int, default=PROMPT_LEN,
+                    help="tokens a prompt (whisper-medium: 416, of its 448-token context)")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     help="serve in this dtype instead of the config's")
     args = ap.parse_args(argv)
@@ -178,24 +186,28 @@ def main(argv=()) -> int:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     lm = LM(cfg, device=device)
     params = lm.init(SEED)
-    B, S, n = BATCH, PROMPT_LEN, DECODE_STEPS
+    B, S, n = BATCH, args.prompt_len, DECODE_STEPS
     prompts = torch.from_numpy(
         make_prompts(B, S, cfg.vocab_size, SEED)).to(device)
+    stub = {name: torch.from_numpy(x).to(device)
+            for name, x in stub_inputs(cfg, B, SEED).items()}
+    start = S + prefix_len(stub)
     print(f"{cfg.name} ({cfg.dtype}) on {torch.cuda.get_device_name(device)}: batch {B}, "
-          f"prompt {S}, {n} decode steps")
-    serve(lm, params, prompts, 2)  # warm-up
+          f"prompt {S}, {n} decode steps"
+          + "".join(f", {name} {tuple(x.shape)}" for name, x in stub.items()))
+    serve(lm, params, prompts, 2, **stub)  # warm-up
 
     with torch.inference_mode():
         state = {}
 
         def prefill():
             state["logits"], state["cache"] = lm.prefill(
-                params, prompts, max_seq=S + n)
+                params, prompts, max_seq=start + n, **stub)
 
         def decode():
             tok = state["logits"].argmax(-1)
             for i in range(n):
-                logits, _ = lm.decode_step(params, state["cache"], tok, S + i)
+                logits, _ = lm.decode_step(params, state["cache"], tok, start + i)
                 tok = logits.argmax(-1)
 
         print_phase("prefill", traced(prefill, device), 1, TOP)

@@ -1,7 +1,8 @@
 """GQA attention, ported from ``repro/models/attention.py``: prefill through
 the flash-attention kernel, training through the forward and backward
 flash kernels in one autograd function, and decode against a KV cache in
-plain torch."""
+plain torch; the encoder-decoder family's cross-attention the same three
+ways."""
 
 from __future__ import annotations
 
@@ -194,3 +195,46 @@ def attention_decode(
         mask = gqa_scores_mask(1, T, causal=True, offset=pos, device=x.device)
     out = attend(q, cache["k"], cache["v"], mask, softcap=softcap).to(x.dtype)
     return out.reshape(B, 1, num_heads * head_dim) @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (the encdec family's decoder over the encoder's output)
+# ---------------------------------------------------------------------------
+
+def encode_cross_kv(p: Params, enc_out: torch.Tensor, *, num_kv_heads: int,
+                    head_dim: int):
+    """One decoder layer's cross-attention k and v of the encoder output
+    [B,T,d]: ([B,T,KV,hd], [B,T,KV,hd]), no RoPE."""
+    k = _split_heads(enc_out @ p["wk"].to(enc_out.dtype), num_kv_heads, head_dim)
+    v = _split_heads(enc_out @ p["wv"].to(enc_out.dtype), num_kv_heads, head_dim)
+    return k, v
+
+
+def cross_attention(
+    p: Params,
+    x: torch.Tensor,  # [B, S, d] decoder activations
+    enc_kv: tuple[torch.Tensor, torch.Tensor],  # ([B,T,KV,hd], [B,T,KV,hd])
+    *,
+    num_heads: int,
+    head_dim: int,
+    attention=None,
+    attention_bwd=None,
+) -> torch.Tensor:
+    """Every decoder query over every encoder frame: no RoPE on either side
+    and no mask, the function of the reference's ``cross_attention`` (its
+    ``attend`` with an all-zero [S, T] mask). Returns out [B,S,d]. With
+    ``attention``, q goes through it with causal=False at T != S (prefill);
+    with ``attention_bwd`` too, through ``flash_attention_train`` (the
+    loss); with neither, through ``attend`` (decode over the cached k/v)."""
+    B, S, _ = x.shape
+    q = _split_heads(x @ p["wq"].to(x.dtype), num_heads, head_dim)
+    k, v = enc_kv
+    if attention is None:
+        mask = torch.zeros((S, k.shape[1]), dtype=torch.float32, device=x.device)
+        out = attend(q, k, v, mask).to(x.dtype)
+    elif attention_bwd is None:
+        out = attention(q, k, v, causal=False)
+    else:
+        out = flash_attention_train(q, k, v, causal=False, attention=attention,
+                                    attention_bwd=attention_bwd)
+    return out.reshape(B, S, num_heads * head_dim) @ p["wo"].to(x.dtype)

@@ -15,17 +15,36 @@ import torch.nn.functional as F
 Params = dict[str, Any]
 
 
+# a stacked leaf whose f32 draw would take more bytes than this is drawn a
+# layer at a time: llava-next-34b's [60, 7168, 20480] MLP leaves (35.2 GB
+# in f32). Every other leaf of the configs (the largest, internlm2-20b's
+# MLP leaves, 19.3 GB) is drawn whole, so its random weights stay the bits
+# they were.
+WHOLE_DRAW_BYTES = 24 << 30
+
+
 def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0,
           dtype: torch.dtype = torch.float32):
     """N(0, 1) * scale drawn in f32 on the generator's device and stored in
     ``dtype``; scale defaults to 1/sqrt(shape[0]) (fan-in). ``stack > 0``
     draws that many independent weights of ``shape`` on a leading layer
-    axis. The cast follows the draw at once, so a model's init holds at
-    most one f32 leaf beside its weights in ``dtype``."""
+    axis: in one draw, or one layer at a time into the stacked output where
+    the whole f32 draw would exceed ``WHOLE_DRAW_BYTES``. Each draw is
+    cast at once, so a model's init holds at most one f32 draw beside its
+    weights in ``dtype``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     full = (stack, *shape) if stack else tuple(shape)
-    return torch.randn(full, generator=gen, device=gen.device,
-                       dtype=torch.float32).mul_(scale).to(dtype)
+
+    def draw(size):
+        return torch.randn(size, generator=gen, device=gen.device,
+                           dtype=torch.float32).mul_(scale)
+
+    if math.prod(full) * 4 <= WHOLE_DRAW_BYTES:
+        return draw(full).to(dtype)
+    out = torch.empty(full, dtype=dtype, device=gen.device)
+    for w in out:
+        w.copy_(draw(tuple(shape)))
+    return out
 
 
 # leaves the reference uses in f32 whatever the compute dtype: RMSNorm

@@ -19,6 +19,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # * max |want| per gradient, and the cases where H is no power of two and the
 # backward groups heads; one copy, the card check's
 from chip_smoke import SSD_BWD_GROUP_CASES, SSD_BWD_TOL  # noqa: E402
+# the attention shapes whisper-medium and llava-next-34b serve and train at
+# (B, S, T, H, KV, hd, causal): whisper's encoder (non-causal, a ragged T of
+# 1500), cross- (T != S) and decoder self-attention, llava's GQA group of 7
+from chip_smoke import ENCDEC_VLM_SHAPES  # noqa: E402
 
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -100,6 +104,10 @@ def _qkv(device, dtype, B, S, T, H, KV, hd, seed=9):
         (1, 64, 8, 2, 2, hd, dt, dict(causal=True, window=4)),       # empty rows
     )],
     (1, 40, 40, 2, 1, 257, "float32", dict(causal=True)),
+    # the encdec and vlm shapes, bf16 (wgmma) and f32 (mma)
+    *[(B, S, T, H, KV, hd, dt, dict(causal=causal))
+      for B, S, T, H, KV, hd, causal in ENCDEC_VLM_SHAPES.values()
+      for dt in ("bfloat16", "float32")],
     # padded widths (257: no multiple of 8), more than 512 columns (two and
     # eight column slices of the grid), each in f32 and bf16
     *[case for dt in ("float32", "bfloat16") for case in (
@@ -453,6 +461,10 @@ BWD_CASES = [
     (1, 300, 200, 4, 2, 20, "float32", dict(causal=True)),            # hd padded to 32
     (1, 130, 130, 4, 2, 100, "bfloat16", dict(causal=True, window=50, softcap=20.0)),
     (4, 1024, 1024, 32, 8, 64, "bfloat16", dict(causal=True)),        # llama's training shape
+    # the encdec and vlm training shapes: bf16, and f32 at whisper's
+    *[(B, S, T, H, KV, hd, dt, dict(causal=causal))
+      for B, S, T, H, KV, hd, causal in ENCDEC_VLM_SHAPES.values()
+      for dt in (("bfloat16", "float32") if H == 16 else ("bfloat16",))],
 ]
 
 
@@ -554,6 +566,58 @@ def test_reduced_hybrid_on_card_matches_cpu(cuda, over):
     want = dict(named_leaves(want_cache))
     for path, leaf in named_leaves(got_cache):
         torch.testing.assert_close(leaf.cpu(), want[path], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-34b"])
+def test_reduced_encdec_vlm_on_card_matches_cpu(cuda, arch):
+    """The reduced whisper (encoder, decoder self- and cross-attention
+    through the kernel) and llava (patches ahead of the tokens) in f32 on
+    the card against the same params on the CPU: forward logits, the
+    prefilled cache (whisper's cross k/v included), a decode step, and the
+    loss with every gradient leaf through the forward and backward
+    kernels."""
+    from repro_torch.bridge import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import stub_inputs
+    from repro_torch.models import LM
+
+    cfg = get_config(arch).reduced(dtype="float32", encoder_seq=40, num_patches=37)
+    cpu_lm, card_lm = LM(cfg, device="cpu"), LM(cfg, device=cuda)
+    params = cpu_lm.init(0)
+    card_params = _tree({path: t.to(cuda) for path, t in named_leaves(params)})
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 60)))
+    stub = {k: torch.from_numpy(v) for k, v in stub_inputs(cfg, 2, 5).items()}
+    card_stub = {k: v.to(cuda) for k, v in stub.items()}
+    blocks = (cfg.encoder_layers + 2 * cfg.num_layers if cfg.family == "encdec"
+              else cfg.num_layers)
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    with torch.inference_mode():
+        before = tfa.flash_attention.launches
+        got = card_lm.forward_logits(card_params, tokens.to(cuda), **card_stub)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention.launches - before == blocks
+        torch.testing.assert_close(got.cpu(), cpu_lm.forward_logits(params, tokens, **stub),
+                                   rtol=1e-4, atol=1e-4)
+        _, got_cache = card_lm.prefill(card_params, tokens.to(cuda), max_seq=P + 61,
+                                       **card_stub)
+        _, want_cache = cpu_lm.prefill(params, tokens, max_seq=P + 61, **stub)
+        want = dict(named_leaves(want_cache))
+        for path, leaf in named_leaves(got_cache):
+            torch.testing.assert_close(leaf.cpu(), want[path], rtol=1e-4, atol=1e-4)
+        got_step, _ = card_lm.decode_step(card_params, got_cache, tokens[:, 0].to(cuda), P + 60)
+        want_step, _ = cpu_lm.decode_step(params, want_cache, tokens[:, 0], P + 60)
+        torch.testing.assert_close(got_step.cpu(), want_step, rtol=1e-4, atol=1e-4)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1), **stub}
+    grads = {}
+    for name, lm, tree, dev in (("cpu", cpu_lm, params, "cpu"),
+                                ("card", card_lm, card_params, cuda)):
+        leaves = [t.detach().clone().requires_grad_(True) for _, t in named_leaves(tree)]
+        loss, _ = lm.loss(_tree(dict(zip([p for p, _ in named_leaves(tree)], leaves))),
+                          {k: v.to(dev) for k, v in batch.items()})
+        grads[name] = (loss.detach().cpu(), [g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    torch.testing.assert_close(grads["card"][0], grads["cpu"][0], rtol=1e-4, atol=1e-4)
+    for (path, _), g, w in zip(named_leaves(params), grads["card"][1], grads["cpu"][1]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=str(path))
 
 
 # ---------------------------------------------------------------------------

@@ -50,14 +50,14 @@ def _close(got, want, tol=TOL):
 # config copy
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + ("whisper-medium", "llava-next-34b"))
 def test_config_copy_matches_reference(arch):
     j, t = jget_config(arch), tget_config(arch)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert j.param_count() == t.param_count()
     assert dataclasses.asdict(j.reduced()) == dataclasses.asdict(t.reduced())
     assert j.reduced().param_count() == t.reduced().param_count()
-    assert t.family == "dense"
+    assert t.family == {"whisper-medium": "encdec", "llava-next-34b": "vlm"}.get(arch, "dense")
 
 
 def test_dense_configs_take_the_kernel_routes_they_are_checked_on():

@@ -10,7 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import resolve_device  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import REGISTRY, get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
@@ -178,7 +178,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-370m", "chatglm3-6b",
                                   "internlm2-20b", "h2o-danube-3-4b", "zamba2-7b",
-                                  "granite-moe-1b-a400m", "granite-moe-3b-a800m"])
+                                  "granite-moe-1b-a400m", "granite-moe-3b-a800m",
+                                  "whisper-medium", "llava-next-34b"])
 def test_serve_runs_on_cpu_when_asked(capsys, arch):
     assert serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "8",
@@ -188,23 +189,27 @@ def test_serve_runs_on_cpu_when_asked(capsys, arch):
     assert "prefill: 2x8 tokens" in out and "decode: 3 steps x 2 seqs" in out
 
 
-def test_registry_holds_only_ported_archs():
-    assert get_config("llama3.2-1b").family == "dense"
-    assert get_config("mamba2-370m").family == "ssm"
-    assert get_config("zamba2-7b").family == "hybrid"
-    assert get_config("granite-moe-1b-a400m").family == "moe"
-    assert get_config("granite-moe-3b-a800m").family == "moe"
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_config("whisper-medium")
+def test_registry_holds_every_reference_arch():
+    from repro.configs import REGISTRY as REFERENCE
+
+    assert sorted(REGISTRY) == sorted(REFERENCE) and len(REGISTRY) == 10
+    for arch in REGISTRY:
+        assert get_config(arch).family == REFERENCE[arch].family
+    assert get_config("whisper-medium").family == "encdec"
+    assert get_config("llava-next-34b").family == "vlm"
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-2")
 
 
-def test_other_families_not_ported():
-    cfg = get_config("llama3.2-1b").reduced()
-    for fam in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError):
-            LM(cfg.reduced(family=fam), device="cpu")
-    for arch in ("granite-moe-1b-a400m", "granite-moe-3b-a800m"):
-        assert LM(get_config(arch).reduced(), device="cpu").cfg.family == "moe"
+def test_lm_takes_all_six_families():
+    from repro_torch.models.transformer import FAMILIES
+
+    assert FAMILIES == ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+    assert {get_config(arch).family for arch in REGISTRY} == set(FAMILIES)
+    for arch in REGISTRY:
+        assert LM(get_config(arch).reduced(), device="cpu").cfg.family in FAMILIES
+    with pytest.raises(ValueError, match="unknown family"):
+        LM(get_config("llama3.2-1b").reduced(family="rnn"), device="cpu")
 
 
 def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
