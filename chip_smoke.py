@@ -134,8 +134,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    fixes, executed; a repair that must refuse (every boundary link cut)
    and its failure count; fig_repair_512 gated, lowered and run at 256 f32
    a shard;
-13. print one JSON line of per-kernel numbers;
-14. print the result line ``{"ok": true, "device": {...}}`` last.
+13. the planner examples (``repro_torch.examples``): synthesize_pod's and
+   quickstart's output; quickstart's All-Gather over group (0, 3, 12) of
+   the 4x4 mesh on 16 ranks stacked on the card, NPU 0 gathering [1, 4,
+   13], held bit for bit (the members' inputs in group order, zeros at the
+   13 other NPUs, the numpy interpreter's bits), with its last round
+   dropped as a planted fault that must fail; then the same plan carrying
+   one llama3.2-1b layer's bf16 weights (20.27 M a member), held the same
+   way, timed beside the plain gather and its rounds' bytes;
+14. serve_batch: the example at its defaults on the card, every step's
+   logits held to a CPU run of ``serve_stepped``; then full-width
+   llama3.2-1b, 4 prompts of 128 tokens stepped through ``decode_step``
+   and 32 greedy tokens, in bf16 and f32: the stepped logits against the
+   one-pass prefill through the flash kernel (16 launches of the wgmma
+   route in bf16, of the mma route in f32), the prompt stepped at
+   positions shifted by one as a planted fault in bf16, the stepped and
+   one-pass prefill ms, decode ms a step and tokens/s;
+15. print one JSON line of per-kernel numbers;
+16. print the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of jax or of the JAX package ``repro``.
 """
@@ -530,6 +546,16 @@ REPAIR_SCALE_PAYLOAD = 256  # f32 a shard of fig_repair_512's all-gather
 # repair of a planned reduce_scatter over three_level(2, 2, 2) stops on a
 # bare AssertionError under this event
 SEED_60973_EVENT = {"failed_links": [11, 18, 20], "failed_npus": [5]}
+# the examples phase: quickstart's All-Gather over group (0, 3, 12) of the
+# 4x4 mesh, NPU d holding d + 1, gathers this at NPU 0; then the same plan
+# carries one layer of GATHER_ARCH in bf16, split over the 3 members
+QUICKSTART_GATHERED = [1.0, 4.0, 13.0]
+GATHER_ARCH = "llama3.2-1b"
+# the serve_batch phase: the example at its defaults (batch, prompt, new
+# tokens; reduced llama3.2-1b in f32), then full-width llama3.2-1b stepped
+# over SERVE_BATCH prompts of STEPPED_PROMPT tokens and STEPPED_NEW tokens
+SERVE_BATCH_DEFAULTS = (4, 32, 16)
+STEPPED_PROMPT, STEPPED_NEW = 128, 32
 
 
 # ptxas -v lines: the entry a block of lines is about, its registers and spills
@@ -2748,6 +2774,328 @@ def checkpoint_phase(torch, dev, fa, smi_line: str) -> None:
     print(f"checkpoint and recovery: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def gathered_exactly(torch, out, x, group) -> bool:
+    """Whether the stacked All-Gather output ``out`` [n, g, *S] holds the
+    rows of ``x`` [n, *S] of ``group``, in group order, at each member, and
+    exact zeros at every other rank, bit for bit."""
+    want = x[list(group)].view(torch.uint8)
+    for d in range(out.shape[0]):
+        got = out[d].view(torch.uint8)
+        if not (torch.equal(got, want) if d in group else not bool(got.any())):
+            return False
+    return True
+
+
+def last_round_dropped(prog):
+    """A planted fault: (``prog`` without its last round, its buffer plan)."""
+    from repro_torch.comms import plan_buffers
+    from repro_torch.core.translate import PpermuteProgram
+
+    cut = PpermuteProgram(prog.num_devices, prog.rounds[:-1], dict(prog.chunk_holders),
+                          dict(prog.chunk_dests))
+    return cut, plan_buffers(cut)
+
+
+def quickstart_gather_checks(torch, dev) -> None:
+    """quickstart's All-Gather over group (0, 3, 12) of the 4x4 mesh, NPU d
+    holding d + 1, on 16 ranks stacked on ``dev``: NPU 0 gathers
+    ``QUICKSTART_GATHERED``, every member the members' inputs in group
+    order and the 13 other NPUs exact zeros, bit for bit, and the numpy
+    round interpreter's bits; the same program with its last round dropped
+    must fail the check."""
+    import numpy as np
+
+    from repro_torch.comms import interpret_collective, pccl_all_gather, synthesize_program
+    from repro_torch.core import CollectiveRequest
+    from repro_torch.examples.quickstart import GROUP
+    from repro_torch.topology import mesh2d
+
+    topo = mesh2d(4, 4)
+    req = CollectiveRequest("all_gather", group=GROUP)
+    n = len(topo.npus)
+    x = (torch.arange(n, dtype=torch.float32, device=dev) + 1.0)[:, None]
+    out = pccl_all_gather(x, topo, req)
+    got = out.cpu().numpy()
+    interp = interpret_collective("all_gather", x.cpu().numpy(), topo, req)
+    if got[GROUP[0], :, 0].tolist() != QUICKSTART_GATHERED:
+        fail(f"quickstart's All-Gather: NPU {GROUP[0]} gathered {got[GROUP[0], :, 0].tolist()}, "
+             f"want {QUICKSTART_GATHERED}")
+    if not gathered_exactly(torch, out, x, GROUP):
+        fail("quickstart's All-Gather: the members' inputs in group order at each member "
+             "and zeros elsewhere, bit for bit, do not hold")
+    if not np.array_equal(got.view(np.uint32), interp.view(np.uint32)):
+        fail("quickstart's All-Gather differs from the numpy round interpreter")
+    prog, _ = synthesize_program(topo, req)
+    faulty = pccl_all_gather(x, topo, req, program=last_round_dropped(prog))
+    if gathered_exactly(torch, faulty, x, GROUP):
+        fail("quickstart's All-Gather check passes a planted fault (the last round dropped)")
+    wrong = [d for d in GROUP if not torch.equal(faulty[d], out[d])]
+    print(f"  quickstart's All-Gather on {n} stacked ranks on {dev}: NPU {GROUP[0]} gathered "
+          f"{QUICKSTART_GATHERED}, every member the group's inputs in group order and the "
+          f"{n - len(GROUP)} other NPUs zeros, bit for bit, and the numpy interpreter's bits; "
+          f"planted fault (the last of {prog.num_rounds} rounds dropped): NPUs {wrong} "
+          f"gather {[faulty[d, :, 0].tolist() for d in wrong]}, the check fails as it must")
+
+
+def examples_phase(torch, dev) -> None:
+    """The planner examples on the card's host and device: synthesize_pod's
+    and quickstart's output, quickstart's All-Gather held bit for bit
+    (``quickstart_gather_checks``), then the same plan carrying one
+    ``GATHER_ARCH`` layer's bf16 weights split over the group's members,
+    held bit for bit (and the layer reassembled at each member) with the
+    last round dropped as the planted fault, timed beside the plain gather
+    and the rounds' bytes over the card's memory rate."""
+    import torch.nn.functional as F
+
+    from repro_torch.bridge import named_leaves
+    from repro_torch.comms import pccl_all_gather, synthesize_program
+    from repro_torch.configs import get_config
+    from repro_torch.core import CollectiveRequest
+    from repro_torch.examples import quickstart, synthesize_pod
+    from repro_torch.launch import trace
+    from repro_torch.models import LM
+    from repro_torch.topology import mesh2d
+
+    t0 = time.perf_counter()
+    phase("examples")
+    synthesize_pod.main()
+    print()
+    quickstart.main([])
+    quickstart_gather_checks(torch, dev)
+
+    group = list(quickstart.GROUP)
+    g = len(group)
+    cfg = dataclasses.replace(get_config(GATHER_ARCH), num_layers=1)
+    layer = torch.cat([leaf.reshape(-1).to(torch.bfloat16) for _, leaf in
+                       named_leaves(LM(cfg, device=dev).init(0)["layers"])])
+    E = -(-layer.numel() // g)
+    topo = mesh2d(4, 4)
+    req = CollectiveRequest("all_gather", group=quickstart.GROUP)
+    n = len(topo.npus)
+    prog, plan = synthesize_program(topo, req)
+    chunk_bytes = E * 2
+    buf_bytes = n * plan.buffer_slots * chunk_bytes
+    out_bytes = n * g * chunk_bytes
+    print(f"  one {GATHER_ARCH} layer: {layer.numel()} bf16 parameters, {E} a member "
+          f"({chunk_bytes / 1e6:.1f} MB); {prog.num_rounds} rounds, {prog.num_sends} sends, "
+          f"{plan.buffer_slots} slots a rank; reckoned: the buffer {n} x {plan.buffer_slots} "
+          f"x {chunk_bytes / 1e6:.1f} MB = {buf_bytes / 1e9:.3f} GB, the output "
+          f"[{n}, {g}, {E}] {out_bytes / 1e9:.3f} GB")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # the other NPUs hold noise, which must reach no output
+    x = torch.randn((n, E), generator=gen, device=dev).to(torch.bfloat16)
+    x[group] = F.pad(layer, (0, g * E - layer.numel())).view(g, E)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    out = pccl_all_gather(x, topo, req)
+    torch.cuda.synchronize(dev)
+    call_peak = torch.cuda.max_memory_allocated(dev) - held
+    if not gathered_exactly(torch, out, x, group):
+        fail(f"the {GATHER_ARCH} layer's All-Gather is not bit-exact")
+    for m in group:
+        if not torch.equal(out[m].reshape(-1)[:layer.numel()].view(torch.int16),
+                           layer.view(torch.int16)):
+            fail(f"NPU {m} did not reassemble the {GATHER_ARCH} layer")
+    del out
+    faulty = pccl_all_gather(x, topo, req, program=last_round_dropped(prog))
+    if gathered_exactly(torch, faulty, x, group):
+        fail(f"the {GATHER_ARCH} layer's All-Gather check passes a planted fault (the last "
+             f"round dropped)")
+    del faulty
+
+    def plain():
+        got = torch.zeros((n, g, E), dtype=x.dtype, device=dev)
+        got[group] = x[group]
+        return got
+
+    times = time_turns(torch, {"pccl": (lambda: pccl_all_gather(x, topo, req), 3),
+                               "plain": (plain, 3)})
+    rounds_bytes = executor_bytes(plan, chunk_bytes)
+    bound_ms = rounds_bytes / PEAK_BYTES * 1e3
+    io_bytes = (g + n * g) * chunk_bytes  # the members' rows read, the output written
+    # the call beside its rounds: zeros for the buffer, the input put in
+    # (read, write), the output gathered (read, write) and masked (read, write)
+    call_bytes = rounds_bytes + (n * plan.buffer_slots + 2 * n + 4 * n * g) * chunk_bytes
+    traced = trace.traced(lambda: pccl_all_gather(x, topo, req), dev)
+    print(f"  {GATHER_ARCH} layer All-Gather on {n} stacked ranks: bit-exact at every rank, "
+          f"the layer reassembled at NPUs {group}; planted fault (the last round dropped) "
+          f"fails the check; the call's peak {call_peak / 1e9:.3f} GB above its input "
+          f"(reckoned {(buf_bytes + out_bytes) / 1e9:.3f} GB)")
+    print(f"  {GATHER_ARCH} layer All-Gather: {times['pccl']:.3f} ms a call (median of 3 "
+          f"rounds of 3, CUDA events); the plain gather {times['plain']:.3f} ms; bound "
+          f"{bound_ms:.3f} ms by the rounds' bytes ({rounds_bytes / 1e9:.3f} GB at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s; {times['pccl'] / bound_ms:.2f}x); the call "
+          f"{call_bytes / 1e9:.3f} GB ({call_bytes / times['pccl'] / 1e9:.3f} TB/s of modelled "
+          f"traffic); the function's input and output {io_bytes / 1e9:.3f} GB "
+          f"({io_bytes / PEAK_BYTES * 1e3:.3f} ms)")
+    trace.print_phase(f"  {GATHER_ARCH} layer All-Gather, one call traced", traced, 1, 6)
+    print(f"examples: gather_ms={times['pccl']:.3f} plain_ms={times['plain']:.3f} "
+          f"bound_ms={bound_ms:.3f} rounds_bytes={rounds_bytes} call_bytes={call_bytes} "
+          f"buffer_bytes={buf_bytes} call_peak={call_peak} B launches={traced['launches']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del x, layer
+    torch.cuda.empty_cache()
+
+
+def stepped_agree(got: dict, want: dict, S: int, tol: float) -> tuple[float, bool, int]:
+    """Two ``serve_stepped`` runs of S prompt tokens: their logits allclose
+    (rtol = atol = ``tol``) at every step up to the first generated token
+    that differs, and a token may differ only where ``want``'s top two
+    logits lie within ``2 * tol * (1 + |top|)`` (a near-tie; the two then
+    decode other sequences). Returns (the largest abs error over those
+    steps, whether both hold, the tokens a row compared)."""
+    got_t, want_t = got["tokens"].cpu(), want["tokens"].cpu()
+    differ = (got_t != want_t).any(0).nonzero()
+    first = int(differ[0]) if len(differ) else want_t.shape[1]
+    steps = S + first  # logits 0 .. S - 1 + first give tokens 0 .. first
+    want_l = want["logits"][:, :steps].cpu().float()
+    err, ok = compare(got["logits"][:, :steps].cpu(), want_l, tol)
+    if first < want_t.shape[1]:
+        top = want_l[:, S - 1 + first].topk(2, -1).values
+        rows = got_t[:, first] != want_t[:, first]
+        near = (top[:, 0] - top[:, 1]) <= 2 * tol * (1 + top[:, 0].abs())
+        ok = ok and bool(near[rows].all())
+    return err, ok, first
+
+
+def shifted_prompt_logits(lm, params, prompts):
+    """A planted fault: the prompt stepped at positions 1 .. S instead of
+    0 .. S - 1, slot 0 of the cache left empty; the logits of every step
+    [B, S, vocab]."""
+    import torch
+
+    B, S = prompts.shape
+    with torch.inference_mode():
+        cache = lm.decode_init(B, S + 1, dtype=torch.float32)
+        return torch.stack([lm.decode_step(params, cache, prompts[:, t], t + 1)[0]
+                            for t in range(S)], dim=1)
+
+
+def stepped_checks(cfg, lm, params, prompts, new_tokens: int, tol: float, want: dict,
+                   fault: bool = False) -> dict:
+    """serve_batch's ``serve_stepped`` of ``prompts`` [B, S] and
+    ``new_tokens``, with no flash launch, against the one-pass prefill:
+    the last prompt step's logits against ``LM.prefill`` and every prompt
+    step's against ``LM.forward_logits``, both through the flash kernel
+    (each counter of ``want`` counts its launches in each), by rel-L2 within
+    ``tol``. With ``fault``, the prompt stepped at positions shifted by one
+    must miss every prompt step's logits by more than ``tol``. Prints the
+    stepped prefill's ms beside the one-pass prefill's (median of 3, host
+    clock and a synchronise), decode ms a step and tokens/s. Returns the
+    numbers."""
+    import torch
+
+    from repro_torch.examples.serve_batch import serve_stepped
+    from repro_torch.launch.serve import synchronize
+
+    dev = lm.device
+    B, S = prompts.shape
+    serve_stepped(lm, params, prompts[:, :4], 2)  # warm-up: library start-up
+    for counter in want:
+        counter.launches = 0
+    out = serve_stepped(lm, params, prompts, new_tokens)
+    stepped = {c.__name__: c.launches for c in want if c.launches}
+    if stepped:
+        fail(f"{cfg.name} {cfg.dtype}: the stepped serve launched flash kernels {stepped}")
+    toks = out["tokens"]
+    if toks.shape != (B, new_tokens) or not ((toks >= 0) & (toks < cfg.vocab_size)).all() \
+            or not torch.isfinite(out["logits"]).all():
+        fail(f"{cfg.name} {cfg.dtype}: bad stepped serve, tokens {tuple(toks.shape)}")
+    def counted(run):
+        for counter in want:
+            counter.launches = 0
+        got = run()
+        synchronize(dev)
+        launches = {c.__name__: c.launches for c in want}
+        if launches != {c.__name__: n for c, n in want.items()}:
+            fail(f"{cfg.name} {cfg.dtype}: flash launches {launches} in one pass, want "
+                 f"{ {c.__name__: n for c, n in want.items()} }")
+        return got
+
+    with torch.inference_mode():
+        one_pass = counted(lambda: lm.prefill(params, prompts)[0])
+        every = counted(lambda: lm.forward_logits(params, prompts))
+        spans = []
+        for _ in range(3):
+            synchronize(dev)
+            t0 = time.perf_counter()
+            lm.prefill(params, prompts)
+            synchronize(dev)
+            spans.append(time.perf_counter() - t0)
+    e_last = rel_l2(out["logits"][:, S - 1], one_pass)
+    e_all = rel_l2(out["logits"][:, :S], every)
+    print(f"  {cfg.dtype}: stepped prefill vs LM.prefill at the last of {S} positions: "
+          f"rel_l2={e_last:.3g}; every prompt step vs forward_logits: rel_l2={e_all:.3g} "
+          f"(tol rel_l2 {tol}); flash launches a pass "
+          f"{ {c.__name__: n for c, n in want.items() if n} }, none stepped")
+    if not (e_last <= tol and e_all <= tol):
+        fail(f"{cfg.name} {cfg.dtype}: the stepped prefill disagrees with the one-pass prefill")
+    if fault:
+        shifted = shifted_prompt_logits(lm, params, prompts)
+        f_all, f_last = rel_l2(shifted, every), rel_l2(shifted[:, -1], one_pass)
+        print(f"  {cfg.dtype}: planted fault (the prompt stepped at positions 1..{S}): every "
+              f"prompt step rel_l2={f_all:.3g}, the last {f_last:.3g} (must exceed {tol})")
+        if not f_all > tol:
+            fail(f"{cfg.name} {cfg.dtype}: the stepped prefill check passes a planted fault "
+                 f"(positions shifted by one)")
+        del shifted
+    res = {"stepped_prefill_ms": out["prefill_s"] * 1e3,
+           "one_pass_prefill_ms": statistics.median(spans) * 1e3,
+           "decode_ms": out["decode_s"] * 1e3 / max(new_tokens - 1, 1),
+           "tok_s": B * (new_tokens - 1) / out["decode_s"] if out["decode_s"] > 0 else 0.0,
+           "rel_last": e_last, "rel_all": e_all}
+    print(f"serve_batch {cfg.name} {cfg.dtype} layers={cfg.num_layers} {B}x{S}: "
+          f"stepped_prefill_ms={res['stepped_prefill_ms']:.3f} "
+          f"one_pass_prefill_ms={res['one_pass_prefill_ms']:.3f} "
+          f"decode_ms_per_step={res['decode_ms']:.3f} decode_tok_per_s={res['tok_s']:.1f} "
+          f"({new_tokens - 1} steps)")
+    return res
+
+
+def serve_batch_phase(torch, dev, fa) -> None:
+    """serve_batch at its defaults on the card (reduced llama3.2-1b, f32),
+    every step's logits held to a CPU run of ``serve_stepped`` on the same
+    params; then full-width llama3.2-1b stepped in bf16 (the wgmma route's
+    16 launches a one-pass prefill) and f32 (the mma route's), each against
+    the one-pass prefill (``stepped_checks``), the shifted positions planted
+    in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_batch
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import LM
+
+    t0 = time.perf_counter()
+    phase("serve_batch")
+    serve_batch.main([])
+    B, S, new = SERVE_BATCH_DEFAULTS
+    small = get_config("llama3.2-1b").reduced(dtype="float32")
+    cpu_lm, gpu_lm = LM(small, device="cpu"), LM(small, device=dev)
+    params = cpu_lm.init(serve_batch.WEIGHT_SEED)
+    prompts = torch.from_numpy(make_prompts(B, S, small.vocab_size, serve_batch.PROMPT_SEED))
+    want = serve_batch.serve_stepped(cpu_lm, params, prompts, new)
+    got = serve_batch.serve_stepped(gpu_lm, to_device(params, dev), prompts.to(dev), new)
+    err, ok, first = stepped_agree(got, want, S, REDUCED_F32_TOL)
+    print(f"  reduced f32 at the defaults {SERVE_BATCH_DEFAULTS}, card vs CPU: every step's "
+          f"logits max_abs_err={err:.3g} (rtol = atol = {REDUCED_F32_TOL}), tokens equal over "
+          f"{first} of {new} a row")
+    if not ok:
+        fail("serve_batch's stepped serve on the card disagrees with the CPU")
+    cfg = get_config("llama3.2-1b")
+    L = cfg.num_layers
+    for c, tol, want in ((cfg, LOGITS_REL_TOL, flash_want(fa, wgmma=L)),
+                         (dataclasses.replace(cfg, dtype="float32"), LLAMA_F32_REL_TOL,
+                          flash_want(fa, mma=L))):
+        lm, params = init_model(c)
+        prompts = torch.from_numpy(make_prompts(
+            SERVE_BATCH, STEPPED_PROMPT, c.vocab_size, serve_batch.PROMPT_SEED)).to(dev)
+        stepped_checks(c, lm, params, prompts, STEPPED_NEW, tol, want,
+                       fault=c.dtype == "bfloat16")
+        del lm, params
+        torch.cuda.empty_cache()
+    print(f"serve_batch: phase took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3041,7 +3389,11 @@ def main() -> int:
     D = collective_phase(torch, dev, get_config, LM)
     plan_repair_phase(torch, dev, D)
 
-    # 13. per-kernel numbers ------------------------------------------------
+    # 13. the planner examples; 14. serve_batch's stepped serving ----------
+    examples_phase(torch, dev)
+    serve_batch_phase(torch, dev, fa)
+
+    # 15. per-kernel numbers ------------------------------------------------
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: {total_s:.1f} s in all, {total_s - build_s:.1f} s without the build")
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
@@ -3121,7 +3473,7 @@ def main() -> int:
         "bound_by": ssd_bwd["bound"][1],
         "library_ms": None,
     }]}))
-    # 14. result -------------------------------------------------------------
+    # 16. result -------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -49,7 +49,7 @@ def prefix_len(stub: dict) -> int:
     return stub["patches"].shape[1] if "patches" in stub else 0
 
 
-def _sync(device: torch.device) -> None:
+def synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -65,18 +65,18 @@ def serve(lm: LM, params, prompts: torch.Tensor, new_tokens: int, **stub) -> dic
     B, S = prompts.shape
     start = S + prefix_len(stub)
     dev = lm.device
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     prefill_logits, cache = lm.prefill(params, prompts, max_seq=start + new_tokens, **stub)
     tok = prefill_logits.argmax(-1)
-    _sync(dev)
+    synchronize(dev)
     t1 = time.perf_counter()
     generated, logits = [tok], prefill_logits
     for i in range(new_tokens):
         logits, cache = lm.decode_step(params, cache, tok, start + i)
         tok = logits.argmax(-1)
         generated.append(tok)
-    _sync(dev)
+    synchronize(dev)
     t2 = time.perf_counter()
     return {"tokens": torch.stack(generated, dim=1),
             "prefill_logits": prefill_logits, "last_logits": logits,

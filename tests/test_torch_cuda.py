@@ -694,3 +694,25 @@ def _tree(flat: dict) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = t
     return out
+
+
+def test_quickstart_all_gather_on_card(cuda):
+    """quickstart's All-Gather over group (0, 3, 12) of the 4x4 mesh on 16
+    ranks stacked on the card, NPU d holding d + 1: every member gathers
+    [1, 4, 13] and the 13 other NPUs zeros, bit for bit, as the numpy round
+    interpreter does; the same program on the CPU gives the same bits."""
+    from repro_torch.comms import interpret_collective, pccl_all_gather
+    from repro_torch.core import CollectiveRequest
+    from repro_torch.examples.quickstart import GROUP
+    from repro_torch.topology import mesh2d
+
+    topo = mesh2d(4, 4)
+    req = CollectiveRequest("all_gather", group=GROUP)
+    x = (torch.arange(16, dtype=torch.float32) + 1.0)[:, None]
+    got = pccl_all_gather(x.to(cuda), topo, req).cpu()
+    want = np.zeros((16, 3, 1), np.float32)
+    want[list(GROUP)] = [[1.0], [4.0], [13.0]]
+    assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+    interp = interpret_collective("all_gather", x.numpy(), topo, req)
+    assert np.array_equal(got.numpy().view(np.uint32), interp.view(np.uint32))
+    assert torch.equal(got, pccl_all_gather(x, topo, req))

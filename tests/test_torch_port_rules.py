@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import REGISTRY, get_config  # noqa: E402
+from repro_torch.examples import quickstart, serve_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
@@ -51,6 +52,8 @@ def test_scan_covers_the_package():
     assert {f"runtime/{m}.py" for m in COPIED["runtime"]} <= rel
     assert {"models/moe.py", "comms/compression.py", "configs/granite_moe_1b_a400m.py",
             "configs/granite_moe_3b_a800m.py"} <= rel
+    assert {"examples/__init__.py", "examples/quickstart.py", "examples/synthesize_pod.py",
+            "examples/serve_batch.py"} <= rel
     # every CUDA source is built, the SSD backward's among them
     csrc = {p.stem for p in (ROOT / "src/repro_torch/kernels/csrc").glob("*.cu")}
     assert set(build.SOURCES) == csrc and "ssd_scan_bwd" in csrc
@@ -174,6 +177,13 @@ def test_entry_points_raise_without_cuda(no_cuda):
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--arch", arch, "--reduced", "--prompt-len", "4",
                         "--new-tokens", "1"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve_batch.main(["--arch", arch, "--prompt-len", "4", "--new-tokens", "1"])
+        assert serve_batch.main(["--arch", arch, "--batch", "1", "--prompt-len", "4",
+                                 "--new-tokens", "1", "--device", "cpu"]) == 0
+    for device in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            quickstart.main(device)
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-370m", "chatglm3-6b",
