@@ -150,8 +150,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    route in bf16, of the mma route in f32), the prompt stepped at
    positions shifted by one as a planted fault in bf16, the stepped and
    one-pass prefill ms, decode ms a step and tokens/s;
-15. print one JSON line of per-kernel numbers;
-16. print the result line ``{"ok": true, "device": {...}}`` last.
+15. the sharding policy: (a) ``LM(policy=)`` on a one-rank NCCL group and
+   a data = 1 x model = 1 mesh, full-width llama3.2-1b in bf16 with its
+   params as DTensors: prefill of 4 x 1024, 32 greedy decode steps and one
+   training step (f32 master weights), each bit for bit the same as
+   without the policy, the flash launches counted exactly, the times with
+   and without it; (b) ``pad_heads`` at model = 16 with
+   ``bridge.pad_head_params``: granite-moe-3b-a800m at full depth (24 -> 32
+   heads, experts 40 -> 48) and llava-next-34b at 8 of its 60 layers (56 ->
+   64 heads), the padded model against the unpadded one over the prefill
+   and 8 decode steps in bf16 and f32 (f32 rel-L2 <= 1e-5; bf16 at the
+   serving phases' limits, moe's first-layer route flips too); the
+   reference's layout (pad heads appended, zero wo rows) as a planted fault
+   that must fail the f32 check; the wgmma route at both padded attention
+   shapes (GQA groups 4 and 8) timed beside SDPA and its bound;
+16. print one JSON line of per-kernel numbers;
+17. print the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of jax or of the JAX package ``repro``.
 """
@@ -555,6 +569,29 @@ GATHER_ARCH = "llama3.2-1b"
 # tokens; reduced llama3.2-1b in f32), then full-width llama3.2-1b stepped
 # over SERVE_BATCH prompts of STEPPED_PROMPT tokens and STEPPED_NEW tokens
 SERVE_BATCH_DEFAULTS = (4, 32, 16)
+# the sharding policy phase: (a) LM(policy=) on a one-rank NCCL group and a
+# data = 1 x model = 1 mesh, full-width llama3.2-1b in bf16, held bit for
+# bit to LM without a policy; (b) pad_heads at model = 16, the padded model
+# with pad_head_params weights against the unpadded one: granite-moe-3b-a800m
+# at full depth (24 -> 32 heads, experts 40 -> 48), llava-next-34b at its f32
+# repeat's 8 layers (56 -> 64 heads), prefill and 8 decode steps in bf16 and
+# f32. A pad head adds exact zeros, so f32 differs only by the order of the
+# wo products' sums; bf16 is held to the serving phases' limits (moe: the
+# first layer's route flips as well)
+POLICY_ARCH = "llama3.2-1b"
+PAD_TP = 16
+PAD_CASES = (("granite-moe-3b-a800m", None), ("llava-next-34b", LLAVA_F32_LAYERS))
+PAD_DECODE = 8
+PAD_F32_REL_TOL = 1e-5
+# f32 at the cases' depth is held to the serving phases' f32 limit: the
+# card's f32 products at other shapes (K = 32 vs 24 heads x hd in wo, 48 vs
+# 40 experts) round apart by ~1e-7 a layer, which depth compounds past 1e-5
+# and which flips granite's routes in later layers. The phase prints that
+# floor: the unpadded model at half the batch against its own rows. The
+# 1e-5 limit is held where neither reaches it: granite at 1 layer, llava at 2
+PAD_F32_LAYERS = {"granite-moe-3b-a800m": 1, "llava-next-34b": 2}
+PAD_BF16_REL_TOL = {"granite-moe-3b-a800m": MOE_BF16_REL_TOL,
+                    "llava-next-34b": VLM_BF16_REL_TOL}
 STEPPED_PROMPT, STEPPED_NEW = 128, 32
 
 
@@ -3096,6 +3133,315 @@ def serve_batch_phase(torch, dev, fa) -> None:
     print(f"serve_batch: phase took {time.perf_counter() - t0:.1f} s")
 
 
+def one_rank_nccl_group(torch):
+    """A one-rank NCCL process group on card 0 (a file rendezvous in a
+    temporary directory, no port); returns the function that ends it."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    where = tempfile.mkdtemp()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{where}/rendezvous", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+
+    def end():
+        dist.destroy_process_group()
+        shutil.rmtree(where, ignore_errors=True)
+    return end
+
+
+def full(x):
+    """A DTensor's whole value; a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def served_logits(torch, lm, params, prompts, new: int) -> tuple[list, float, float]:
+    """Prefill ``prompts`` and ``new`` greedy decode steps: (the prefill's
+    and each step's f32 logits, prefill ms, decode ms a step)."""
+    from repro_torch.launch.serve import synchronize
+
+    dev = lm.device
+    S = prompts.shape[1]
+    with torch.inference_mode():
+        synchronize(dev)
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, prompts, max_seq=S + new)
+        out = [full(logits)]
+        synchronize(dev)
+        t1 = time.perf_counter()
+        for i in range(new):
+            logits, cache = lm.decode_step(params, cache, out[-1].argmax(-1), S + i)
+            out.append(full(logits))
+        synchronize(dev)
+        t2 = time.perf_counter()
+    return out, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / new
+
+
+def train_grads(torch, lm, params, batch: dict) -> tuple:
+    """One loss and its gradient of every leaf: (loss, {path: grad}, ms)."""
+    from repro_torch.bridge import named_leaves
+    from repro_torch.launch.serve import synchronize
+
+    def leaf(t):
+        if isinstance(t, dict):
+            return {k: leaf(v) for k, v in t.items()}
+        return t.detach().requires_grad_(True)
+
+    params = leaf(params)
+    synchronize(lm.device)
+    t0 = time.perf_counter()
+    loss, _ = lm.loss(params, batch)
+    loss.backward()
+    synchronize(lm.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    return loss.detach(), {path: full(p.grad) for path, p in named_leaves(params)}, ms
+
+
+def policy_path_checks(torch, dev, fa, smi_line: str) -> dict:
+    """(a): ``LM(policy=)`` at data = 1 x model = 1 on a one-rank NCCL group,
+    full-width llama3.2-1b in bf16: the params are DTensors, the flash
+    kernels take their local shards; prefill of SERVE_BATCH x SERVE_PROMPT,
+    SERVE_NEW greedy decode steps and one training step (f32 master
+    weights) each bit for bit the same as without the policy, the flash
+    launches of the policy's runs counted exactly. Returns the times."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.bridge import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import _batch_for_step
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.sharding import ShardingPolicy
+    from repro_torch.models import LM
+
+    end = one_rank_nccl_group(torch)
+    try:
+        cfg = get_config(POLICY_ARCH)
+        pol = ShardingPolicy(make_test_mesh(data=1, model=1), cfg)
+        plain, lm = LM(cfg, device=dev), LM(cfg, device=dev, policy=pol)
+        params = plain.init(0)
+        placed = pol.param_shardings(params)
+        leaves = named_leaves(placed)
+        if not all(isinstance(x, DTensor) for _, x in leaves):
+            fail("the policy's params are not all DTensors")
+        print(f"  {cfg.name} {cfg.dtype}: {len(leaves)} param leaves placed as DTensors on a "
+              f"{dict(pol.mesh.axis_sizes)} NCCL mesh, e.g. layers.attn.wq "
+              f"{placed['layers']['attn']['wq'].placements}")
+        prompts = torch.from_numpy(make_prompts(SERVE_BATCH, SERVE_PROMPT,
+                                                cfg.vocab_size, 0)).to(dev)
+        L = cfg.num_layers
+        served_logits(torch, plain, params, prompts, 2)  # warm-up
+        served_logits(torch, lm, placed, prompts, 2)
+        want, plain_prefill, plain_decode = served_logits(torch, plain, params, prompts,
+                                                          SERVE_NEW)
+        counters = flash_want(fa, wgmma=L)
+        for c in counters:
+            c.launches = 0
+        got, pol_prefill, pol_decode = served_logits(torch, lm, placed, prompts, SERVE_NEW)
+        counted = {c: c.launches for c in counters}
+        if counted != counters:
+            fail(f"flash launches of the policy's serve {({c.__name__: n for c, n in counted.items()})}"
+                 f", want {({c.__name__: n for c, n in counters.items()})}")
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        print(f"  serve {SERVE_BATCH}x{SERVE_PROMPT} + {SERVE_NEW} steps: prefill logits "
+              f"bit-equal {same[0]}, decode steps bit-equal {sum(same[1:])} of {SERVE_NEW}; "
+              f"flash_attention_wgmma launches {counted[fa.flash_attention_wgmma]} (want {L})")
+        if not all(same):
+            fail("the policy's serve is not bit-equal to the serve without it")
+        del got, want, placed, params
+        torch.cuda.empty_cache()
+
+        params = plain.init(0, param_dtype=torch.float32)
+        placed = pol.param_shardings(params)
+        raw = _batch_for_step(0, 0, SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        train_grads(torch, plain, params, batch)  # warm-up
+        want_loss, want_grads, plain_step = train_grads(torch, plain, params, batch)
+        train_grads(torch, lm, placed, batch)
+        fwd_bwd = (fa.flash_attention_wgmma, fa.flash_attention_bwd)
+        for c in fwd_bwd:
+            c.launches = 0
+        got_loss, got_grads, pol_step = train_grads(torch, lm, placed, batch)
+        counted = [c.launches for c in fwd_bwd]
+        same = [torch.equal(got_grads[k], w) for k, w in want_grads.items()]
+        print(f"  train step {SERVE_BATCH}x{SERVE_PROMPT} (f32 master weights, bf16 compute): "
+              f"loss {float(got_loss):.6f} bit-equal {torch.equal(got_loss, want_loss)}, "
+              f"gradient leaves bit-equal {sum(same)} of {len(same)}; launches forward "
+              f"{counted[0]}, backward {counted[1]} (want {L} each)")
+        if counted != [L, L]:
+            fail(f"flash launches of the policy's train step {counted}, want {[L, L]}")
+        if not (torch.equal(got_loss, want_loss) and all(same)):
+            fail("the policy's training step is not bit-equal to the step without it")
+        times = dict(prefill_ms=(plain_prefill, pol_prefill),
+                     decode_ms=(plain_decode, pol_decode), step_ms=(plain_step, pol_step))
+        print(f"  host cost of DTensor ({smi_line}), without / with the policy: " + ", ".join(
+            f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in times.items()))
+        del placed, params, want_grads, got_grads
+    finally:
+        end()
+    torch.cuda.empty_cache()
+    return times
+
+
+def padded_head_checks(torch, dev, fa) -> dict:
+    """(b): each of ``PAD_CASES`` padded by ``pad_heads`` at model =
+    ``PAD_TP`` and carried by ``pad_head_params``: prefill and
+    ``PAD_DECODE`` steps of the padded model against the unpadded one, the
+    padded prefill's flash launches counted, in the moe family the first
+    layer's routes compared. Three runs a model (``pad_runs``): bf16 and
+    f32 at the case's depth, and f32 at ``PAD_F32_LAYERS``, where the
+    1e-5 limit holds; there the reference's layout (pad heads appended, wo
+    rows zero) must fail it. At the case's depth in f32 the unpadded model
+    is also served at half the batch, its rows held to its own batch-4
+    rows: the floor that the card's f32 products set. Returns {(arch,
+    dtype, layers): worst rel-L2}."""
+    from repro_torch.bridge import pad_head_params
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import stub_inputs
+    from repro_torch.launch.serve import make_prompts, synchronize
+    from repro_torch.launch.sharding import pad_heads
+    from repro_torch.models import LM
+
+    worst = {}
+    for arch, layers in PAD_CASES:
+        for dt, L, tol in pad_runs(arch, layers or get_config(arch).num_layers):
+            cfg = dataclasses.replace(get_config(arch), dtype=dt, num_layers=L)
+            padded = pad_heads(cfg, PAD_TP)
+            lm = LM(cfg, device=dev)
+            plm = LM(padded, device=dev, ep_degree=PAD_TP if cfg.is_moe else 1)
+            params = lm.init(0)
+            experts = plm.e_pad if cfg.is_moe else None
+            carried = pad_head_params(params, cfg, padded, experts=experts)
+            prompts = torch.from_numpy(make_prompts(SERVE_BATCH, SERVE_PROMPT,
+                                                    cfg.vocab_size, 0)).to(dev)
+            stub = to_device({k: torch.from_numpy(x) for k, x in
+                              stub_inputs(cfg, SERVE_BATCH, 0).items()}, dev)
+            start = (stub["patches"].shape[1] if stub else 0) + SERVE_PROMPT
+            want_launch = flash_want(fa, **{"wgmma" if dt == "bfloat16" else "mma": L})
+            exact = tol == PAD_F32_REL_TOL
+            label = f"{arch} layers={L} {dt}"
+            with torch.inference_mode():
+                if cfg.is_moe:
+                    lm.routes, plm.routes = [], []
+                for c in want_launch:
+                    c.launches = 0
+                pl, pc = plm.prefill(carried, prompts, max_seq=start + PAD_DECODE, **stub)
+                synchronize(dev)
+                counted = {c: c.launches for c in want_launch}
+                if counted != want_launch:
+                    fail(f"padded {label}: flash launches "
+                         f"{({c.__name__: n for c, n in counted.items()})}")
+                ul, uc = lm.prefill(params, prompts, max_seq=start + PAD_DECODE, **stub)
+                unpadded = ul
+                errs = [rel_l2(pl, ul)]
+                flips = None
+                if cfg.is_moe:
+                    per_layer = lm.routes[0][0].numel()
+                    flips = routes_differ(plm.routes, lm.routes)[0]
+                    lm.routes = plm.routes = None
+                tok = ul.argmax(-1)
+                for i in range(PAD_DECODE):
+                    ul, uc = lm.decode_step(params, uc, tok, start + i)
+                    pl, pc = plm.decode_step(carried, pc, tok, start + i)
+                    errs.append(rel_l2(pl, ul))
+                    tok = ul.argmax(-1)
+                del pc, uc
+                first = flips[0] / per_layer if flips is not None else 0.0
+                print(f"  {label}: {cfg.num_heads} -> {padded.num_heads} heads (GQA group "
+                      f"{cfg.num_heads // cfg.num_kv_heads} -> "
+                      f"{padded.num_heads // padded.num_kv_heads})"
+                      f"{f', experts {cfg.num_experts} -> {experts}' if experts else ''}: "
+                      f"padded vs unpadded rel_l2 prefill {errs[0]:.3g}, {PAD_DECODE} decode "
+                      f"steps max {max(errs[1:]):.3g} (tol {tol}); flash launches a padded "
+                      f"prefill {counted[fa.flash_attention]}"
+                      + (f"; pairs routed to another expert, by layer {flips} (the first "
+                         f"layer's share {first:.3g}, tol {MOE_FIRST_LAYER_ROUTES})"
+                         if flips is not None else ""))
+                if not max(errs) <= tol or not first <= MOE_FIRST_LAYER_ROUTES:
+                    fail(f"the padded {label} disagrees with the unpadded model")
+                worst[(arch, dt, L)] = max(errs)
+                if dt == "float32" and not exact:  # the floor: the same model, other shapes
+                    half = SERVE_BATCH // 2
+                    own = lm.prefill(params, prompts[:half], **rows(stub, half))[0]
+                    print(f"  {label}: the unpadded model's prefill at batch {half} against "
+                          f"its own batch-{SERVE_BATCH} rows: rel_l2 "
+                          f"{rel_l2(own, unpadded[:half]):.3g} (printed, no limit)")
+                if exact:
+                    appended = pad_head_params(params, cfg, padded, experts=experts,
+                                               positions=list(range(cfg.num_heads)))
+                    e_fault = rel_l2(plm.prefill(appended, prompts, **stub)[0],
+                                     lm.prefill(params, prompts, **stub)[0])
+                    print(f"  {label}: planted fault (the reference's layout: pad heads "
+                          f"appended, wo rows zero) vs unpadded: rel_l2={e_fault:.3g} (must "
+                          f"exceed {tol})")
+                    if not e_fault > tol:
+                        fail(f"the padded {label} check passes the appended layout")
+                    del appended
+            del lm, plm, params, carried, pl, ul, unpadded
+            torch.cuda.empty_cache()
+    return worst
+
+
+def pad_runs(arch: str, layers: int) -> list:
+    """(dtype, layers, rel-L2 limit) of each padded-model run of ``arch``."""
+    return [("bfloat16", layers, PAD_BF16_REL_TOL[arch]),
+            ("float32", layers, LLAMA_F32_REL_TOL),
+            ("float32", PAD_F32_LAYERS[arch], PAD_F32_REL_TOL)]
+
+
+def padded_wgmma_times(torch, dev, fa, smi_line: str) -> dict:
+    """The wgmma route at the padded models' attention shapes (GQA groups 4
+    and 8), bf16 causal, against its plain version, timed beside SDPA and
+    its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch.sharding import pad_heads
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for arch, _ in PAD_CASES:
+        cfg = pad_heads(get_config(arch), PAD_TP)
+        S = SERVE_PROMPT + (LLAVA_PATCHES if cfg.family == "vlm" else 0)
+        shape = (SERVE_BATCH, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        (q, k, v), (qt, kt, vt) = attention_inputs(torch, gen, dev, shape, "bfloat16")
+        before = fa.flash_attention_wgmma.launches
+        got = ops.flash_attention(q, k, v, causal=True)
+        if fa.flash_attention_wgmma.launches != before + 1:
+            fail(f"the padded {arch} shape {shape} did not go to the wgmma route")
+        n = 1 if cfg.family == "vlm" else SERVE_BATCH  # the plain f32 scores of a row
+        err, ok = compare(got[:n], flash_attention_ref(q[:n], k[:n], v[:n], causal=True),
+                          BF16_TOL)
+        if not ok:
+            fail(f"the wgmma route disagrees with its plain version at {shape}")
+        pair = {"kernel": lambda: ops.flash_attention(q, k, v, causal=True),
+                "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)}
+        ms = time_pair(torch, pair, 20)
+        bound = attention_bound(q, k, v, True, 0)
+        print(f"  wgmma route at padded {arch} {shape} bfloat16 causal ({smi_line}): kernel "
+              f"{ms['kernel']:.4f} ms, sdpa {ms['sdpa']:.4f} ms "
+              f"({ms['kernel'] / ms['sdpa']:.2f}x); max_abs_err {err:.3g} on {n} row(s); "
+              f"bound {bound[0] * 1e3:.2f} us by {bound[1]} ({bound_terms(bound[4])}); "
+              f"{ms['kernel'] / bound[0]:.2f}x its bound")
+        out[arch] = dict(ms, shape=shape, err=err, bound=bound[0])
+        del q, k, v, qt, kt, vt, pair
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharding_policy_phase(torch, dev, fa, smi_line: str) -> None:
+    """The policy path at model = 1 (a), pad_heads at model = 16 (b)."""
+    t0 = time.perf_counter()
+    phase("sharding policy")
+    policy_path_checks(torch, dev, fa, smi_line)
+    padded_head_checks(torch, dev, fa)
+    padded_wgmma_times(torch, dev, fa, smi_line)
+    print(f"sharding policy: phase took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3393,7 +3739,10 @@ def main() -> int:
     examples_phase(torch, dev)
     serve_batch_phase(torch, dev, fa)
 
-    # 15. per-kernel numbers ------------------------------------------------
+    # 15. the sharding policy: LM(policy=) and pad_heads ----------------------
+    sharding_policy_phase(torch, dev, fa, smi_line)
+
+    # 16. per-kernel numbers ------------------------------------------------
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: {total_s:.1f} s in all, {total_s - build_s:.1f} s without the build")
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
@@ -3473,7 +3822,7 @@ def main() -> int:
         "bound_by": ssd_bwd["bound"][1],
         "library_ms": None,
     }]}))
-    # 16. result -------------------------------------------------------------
+    # 17. result -------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

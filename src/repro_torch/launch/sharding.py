@@ -1,15 +1,313 @@
-"""Mesh-axis collective planning, ported from ``repro/launch/sharding.py``.
+"""Sharding rules and mesh-axis collective planning, ported from
+``repro/launch/sharding.py``.
+
+Strategy, as the reference's: Megatron-style tensor parallelism on the
+"model" axis + ZeRO/FSDP sharding of the complementary weight dim on the
+"data" axis + pure data parallelism on the "pod" axis, with sequence
+parallelism (residual activations sharded on seq over "model") bounding
+activation memory.
+
+A spec is a tuple with one entry a tensor dimension: an axis name, a tuple
+of axis names (split major to minor) or None, the entries of the
+reference's ``PartitionSpec``. :class:`ShardingPolicy` reads only the
+mesh's axis names and sizes, so the specs of a production mesh are
+computed without its ranks; :meth:`ShardingPolicy.placements` turns a spec
+into DTensor placements on the mesh's ``DeviceMesh``.
+
+``pad_heads`` is a text copy of the reference's (lines 30-39). Padding
+does not keep a model's function by itself, whatever the reference's
+module docstring says: ``attention_init`` draws a random ``wo`` for every
+head, the pad heads included, and padding regroups GQA (head ``h`` reads KV
+head ``h // (H / KV)``). ``bridge.pad_head_params`` carries an unpadded
+model's weights into the padded config so that the function is kept.
 
 ``MeshCollectivePlanner`` (the reference's lines 216-406) is a text copy:
 it differs from the reference's only in its import lines, and
-``tests/test_torch_port_rules.py`` holds it to that. It imports no jax; the
-reference's module does at its top, for ``ShardingPolicy``, which is not
-ported yet.
+``tests/test_torch_port_rules.py`` holds it to that. This module imports
+no jax.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from dataclasses import dataclass
+
 import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+
+
+def P(*dims) -> tuple:
+    """A spec: one entry a dimension (the reference's ``PartitionSpec``)."""
+    return tuple(dims)
+
+
+def pad_heads(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """Pad num_heads up to a multiple of tp (keeping GQA grouping legal)."""
+    h = cfg.num_heads
+    if h % tp == 0 or cfg.family == "ssm":
+        return cfg
+    hp = ((h + tp - 1) // tp) * tp
+    # keep grouping divisible: hp must be a multiple of kv heads
+    while hp % cfg.num_kv_heads:
+        hp += tp
+    return dataclasses.replace(cfg, num_heads=hp)
+
+
+def _tree_map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _tree_map_with_path(fn, v, (*path, k)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+@dataclass(eq=False)
+class ShardingPolicy:
+    """The reference's rules on a :class:`repro_torch.launch.mesh.Mesh`.
+    The spec methods read the mesh's names and sizes only; the methods that
+    place, move or take apart tensors need its ``DeviceMesh``."""
+
+    mesh: object
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        names = tuple(self.mesh.axis_names)
+        sizes = dict(zip(names, self.mesh.shape))
+        self.tp = "model" if "model" in names else None
+        self.tp_size = sizes.get("model", 1)
+        dp = tuple(a for a in ("pod", "data") if a in names)
+        self.dp = dp if len(dp) > 1 else (dp[0] if dp else None)
+        self.dp_size = int(np.prod([sizes[a] for a in ("pod", "data")
+                                    if a in names]))
+        self.fsdp = "data" if "data" in names else None
+        self.fsdp_size = sizes.get("data", 1)
+        self.all_axes = names
+        self.total = int(np.prod(self.mesh.shape))
+
+    # -- helpers -----------------------------------------------------------
+    def _div(self, dim: int, axis, size: int):
+        """axis if dim divides evenly, else None (replicate)."""
+        return axis if axis is not None and dim % size == 0 and size > 1 else None
+
+    # -- parameter specs ----------------------------------------------------
+    def param_spec(self, path: tuple, leaf) -> tuple:
+        """The spec of the parameter at ``path`` (dict keys) of ``leaf``'s
+        shape: the reference's rules, line for line."""
+        cfg = self.cfg
+        names = [getattr(k, "key", getattr(k, "name", str(k))) for k in path]
+        last = names[-1]
+        shape = leaf.shape
+        stacked = ("layers" in names or "enc_layers" in names
+                   or "tail_layers" in names)
+        pre = (None,) if stacked else ()
+        tp, fsdp = self.tp, self.fsdp
+
+        def spec(*dims):
+            return P(*pre, *dims)
+
+        if last == "table":  # embedding [V, d]
+            v_ax = self._div(shape[0], tp, self.tp_size)
+            if v_ax:
+                return P(v_ax, self._div(shape[1], fsdp, self.fsdp_size))
+            return P(None, self._div(shape[1], fsdp, self.fsdp_size))
+        if names[-2] == "unembed":  # [d, V]
+            return P(self._div(shape[0], fsdp, self.fsdp_size),
+                     self._div(shape[1], tp, self.tp_size))
+        if last in ("wq",):
+            return spec(self._div(shape[-2], fsdp, self.fsdp_size),
+                        self._div(shape[-1], tp, self.tp_size))
+        if last in ("wk", "wv"):
+            kv_ok = cfg.num_kv_heads % self.tp_size == 0
+            return spec(self._div(shape[-2], fsdp, self.fsdp_size),
+                        tp if kv_ok and self.tp_size > 1 else None)
+        if last == "wo":
+            return spec(self._div(shape[-2], tp, self.tp_size),
+                        self._div(shape[-1], fsdp, self.fsdp_size))
+        if last in ("gate", "up"):
+            if len(shape) == len(pre) + 3:  # MoE experts [*, E, d, ffe]
+                return spec(self._div(shape[-3], tp, self.tp_size),
+                            self._div(shape[-2], fsdp, self.fsdp_size), None)
+            return spec(self._div(shape[-2], fsdp, self.fsdp_size),
+                        self._div(shape[-1], tp, self.tp_size))
+        if last == "down":
+            if len(shape) == len(pre) + 3:  # MoE [*, E, ffe, d]
+                return spec(self._div(shape[-3], tp, self.tp_size), None,
+                            self._div(shape[-1], fsdp, self.fsdp_size))
+            return spec(self._div(shape[-2], tp, self.tp_size),
+                        self._div(shape[-1], fsdp, self.fsdp_size))
+        if last == "router":
+            return spec(self._div(shape[-2], fsdp, self.fsdp_size), None)
+        if last in ("w_z", "w_x"):  # [*, d, d_inner] head-parallel
+            return spec(self._div(shape[-2], fsdp, self.fsdp_size),
+                        self._div(shape[-1], tp, self.tp_size))
+        if last in ("w_B", "w_C"):  # group-shared: replicate state dim
+            return spec(self._div(shape[-2], fsdp, self.fsdp_size), None)
+        if last == "w_dt":
+            return spec(self._div(shape[-2], fsdp, self.fsdp_size),
+                        self._div(shape[-1], tp, self.tp_size))
+        if last == "conv_x":
+            return spec(None, self._div(shape[-1], tp, self.tp_size))
+        if last in ("conv_B", "conv_C"):
+            return spec(None, None)
+        if last in ("dt_bias", "A_log", "D"):
+            return spec(self._div(shape[-1], tp, self.tp_size))
+        if last == "out_proj":  # [*, d_inner, d]
+            return spec(self._div(shape[-2], tp, self.tp_size),
+                        self._div(shape[-1], fsdp, self.fsdp_size))
+        if last == "norm_scale":
+            return spec(self._div(shape[-1], tp, self.tp_size))
+        if last == "scale":  # RMSNorm
+            return spec(None)
+        # default: replicate
+        return P(*((None,) * len(shape)))
+
+    def param_specs(self, params):
+        return _tree_map_with_path(self.param_spec, params)
+
+    def param_shardings(self, params):
+        """``params`` placed on the mesh: each leaf a DTensor split by its
+        spec (``distribute_tensor``; every rank passes the same tree)."""
+        from torch.distributed.tensor import distribute_tensor
+
+        return _tree_map_with_path(
+            lambda path, leaf: distribute_tensor(
+                leaf, self.device_mesh, self.placements(self.param_spec(path, leaf))),
+            params)
+
+    # -- activation specs ---------------------------------------------------
+    @property
+    def seq_spec(self) -> tuple:
+        """Residual stream [B, S, d]: batch on DP, seq on TP (Megatron SP)."""
+        return P(self.dp, self.tp, None)
+
+    def batch_spec(self, batch_size: int, seq_len: int) -> tuple:
+        """Token batches [B, S]."""
+        dp = self.dp if batch_size % self.dp_size == 0 else None
+        s = self.tp if seq_len % max(self.tp_size, 1) == 0 else None
+        return P(dp, s)
+
+    def token_spec(self, batch_size: int) -> tuple:
+        return P(self.dp if batch_size % self.dp_size == 0 else None)
+
+    def kv_cache_spec(self, batch_size: int, seq_len: int) -> tuple:
+        """[L, B, S, KV, hd]: batch on DP, seq on TP; batch-1 long-context
+        shards seq over every axis (256/512-way context parallelism)."""
+        if batch_size == 1:
+            all_sz = self.total
+            s = self.all_axes if seq_len % all_sz == 0 else (
+                self.tp if seq_len % self.tp_size == 0 else None)
+            return P(None, None, s, None, None)
+        dp = self.dp if batch_size % self.dp_size == 0 else None
+        s = self.tp if seq_len % max(self.tp_size, 1) == 0 else None
+        return P(None, dp, s, None, None)
+
+    def ssm_cache_spec(self, field: str, batch_size: int, leaf) -> tuple:
+        dp = self.dp if batch_size % self.dp_size == 0 else None
+        if field == "state":  # [L, B, H, P, N]
+            h = self.tp if leaf.shape[2] % max(self.tp_size, 1) == 0 else None
+            return P(None, dp, h, None, None)
+        if field == "conv_x":  # [L, B, K-1, d_inner]
+            c = self.tp if leaf.shape[3] % max(self.tp_size, 1) == 0 else None
+            return P(None, dp, None, c)
+        return P(None, dp, None, None)  # conv_B / conv_C
+
+    def cache_shardings(self, cache, batch_size: int):
+        """The spec of every leaf of a decode cache (shape-aware): the
+        reference's NamedShardings' specs."""
+
+        def spec_for(path, leaf):
+            if "kv" in path or "cross" in path:
+                return self.kv_cache_spec(batch_size, leaf.shape[2])
+            return self.ssm_cache_spec(path[-1], batch_size, leaf)
+
+        return _tree_map_with_path(spec_for, cache)
+
+    def logits_spec(self, batch_size: int) -> tuple:
+        dp = self.dp if batch_size % self.dp_size == 0 else None
+        v = self.tp if self.cfg.vocab_size % max(self.tp_size, 1) == 0 else None
+        return P(dp, v)
+
+    def collective_planner(self, topo, registry=None) -> "MeshCollectivePlanner":
+        """A planner for this policy's mesh over the physical fabric."""
+        return MeshCollectivePlanner(
+            topo,
+            dict(zip(self.mesh.axis_names, self.mesh.shape)),
+            registry=registry,
+        )
+
+    # -- DTensor placements ---------------------------------------------------
+    @property
+    def device_mesh(self):
+        return self.mesh.device_mesh
+
+    def placements(self, spec: tuple, partial=()) -> list:
+        """DTensor placements of ``spec``, one a mesh axis: ``Shard(i)`` on
+        the axis that splits dimension ``i``, ``Partial()`` on the axes
+        named in ``partial``, ``Replicate()`` elsewhere. A dimension split
+        over several axes lists them major to minor, as DTensor splits it
+        (a mesh axis further left splits first): the reference's order."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        out = []
+        for axis in self.all_axes:
+            dims = [i for i, e in enumerate(spec)
+                    if e == axis or (isinstance(e, tuple) and axis in e)]
+            if len(dims) > 1:
+                raise ValueError(f"axis {axis!r} splits dims {dims} of {spec}")
+            if axis in partial:
+                if dims:
+                    raise ValueError(f"axis {axis!r} both splits and sums {spec}")
+                out.append(Partial())
+            else:
+                out.append(Shard(dims[0]) if dims else Replicate())
+        for e in spec:
+            if isinstance(e, tuple) and list(e) != [a for a in self.all_axes if a in e]:
+                raise ValueError(f"{e} is not in the mesh's order {self.all_axes}")
+        return out
+
+    def constrain(self, x, spec: tuple):
+        """``x`` (a DTensor) moved to ``spec``."""
+        return x.redistribute(self.device_mesh, self.placements(spec))
+
+    def coordinate(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        return self.device_mesh.get_coordinate()[self.all_axes.index(axis)]
+
+    def from_local(self, x, spec: tuple, partial=()):
+        """The DTensor whose local shard on this rank is ``x``; a sum over
+        the ``partial`` axes."""
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(x, self.device_mesh, self.placements(spec, partial),
+                                  run_check=False)
+
+    def to_local(self, x, spec: tuple, split=()):
+        """``x`` (a DTensor) moved to ``spec``, then its local shard. The
+        gradient of the shard is taken as this rank's part of a sum over the
+        axes in ``split`` that ``spec`` replicates (each rank used the
+        tensor on its own tokens), and as the whole gradient on the others
+        (each rank computed the same thing)."""
+        tgt = self.placements(spec)
+        grad = self.placements(spec, partial=[a for a, p in zip(self.all_axes, tgt)
+                                              if a in split and p.is_replicate()])
+        return x.redistribute(self.device_mesh, tgt).to_local(grad_placements=grad)
+
+    def weight(self, w, split=()):
+        """The local weight of a DTensor param for one use: gathered over the
+        data-parallel axes (FSDP), split on "model" as its spec splits it;
+        its gradient summed over the ``split`` axes (``to_local``)."""
+        spec = self.spec_of(w)
+        return self.to_local(w, tuple(e if e == self.tp else None for e in spec), split)
+
+    def spec_of(self, x) -> tuple:
+        """The spec of a DTensor's placements (one axis a dimension)."""
+        spec = [None] * x.ndim
+        for axis, p in zip(self.all_axes, x.placements):
+            if p.is_shard():
+                d = p.dim % x.ndim
+                spec[d] = axis if spec[d] is None else (
+                    (*spec[d], axis) if isinstance(spec[d], tuple) else (spec[d], axis))
+        return tuple(spec)
+
 
 # ---------------------------------------------------------------------------
 # Mesh-axis collectives through the algorithm registry

@@ -72,6 +72,29 @@ def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, *, num_heads,
     return apply_rope(q, cos, sin, rot), apply_rope(k, cos, sin, rot), v
 
 
+def self_attention(p: Params, x: torch.Tensor, *, num_heads, num_kv_heads, head_dim,
+                   rope_theta, rotary_pct, causal, window, softcap, attention,
+                   attention_bwd=None, kv_heads=None):
+    """(out [B,S,d], rotated k [B,S,KV,hd], v) of full-sequence attention at
+    positions 0..S-1: through ``attention`` alone, or with ``attention_bwd``
+    through ``flash_attention_train``. ``num_kv_heads`` counts the KV heads
+    of ``p``'s wk/wv columns; ``kv_heads`` (a slice or an index list) picks
+    the ones the query heads read, where ``p`` is a tensor-parallel rank's
+    share: its query heads' wq columns and wo rows, and every KV head."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, torch.arange(S, device=x.device), num_heads=num_heads,
+                   num_kv_heads=num_kv_heads, head_dim=head_dim,
+                   rope_theta=rope_theta, rotary_pct=rotary_pct)
+    kq, vq = (k, v) if kv_heads is None else (k[:, :, kv_heads], v[:, :, kv_heads])
+    if attention_bwd is None:
+        out = attention(q, kq, vq, causal=causal, window=window, softcap=softcap)
+    else:
+        out = flash_attention_train(q, kq, vq, causal=causal, window=window,
+                                    softcap=softcap, attention=attention,
+                                    attention_bwd=attention_bwd)
+    return out.reshape(B, S, num_heads * head_dim) @ p["wo"].to(x.dtype), k, v
+
+
 def attention_prefill(
     p: Params,
     x: torch.Tensor,  # [B, S, d]
@@ -91,20 +114,17 @@ def attention_prefill(
     Returns (out [B,S,d], rotated k [B,S,KV,hd], v [B,S,KV,hd]) so that a
     caller can fill a KV cache. ``attention`` swaps the kernel for another
     function of the same signature (the plain version, in comparisons)."""
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)
-    q, k, v = _qkv(p, x, positions, num_heads=num_heads,
-                   num_kv_heads=num_kv_heads, head_dim=head_dim,
-                   rope_theta=rope_theta, rotary_pct=rotary_pct)
-    out = attention(q, k, v, causal=causal, window=window, softcap=softcap)
-    out = out.reshape(B, S, num_heads * head_dim) @ p["wo"].to(x.dtype)
-    return out, k, v
+    return self_attention(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
+                          head_dim=head_dim, rope_theta=rope_theta, rotary_pct=rotary_pct,
+                          causal=causal, window=window, softcap=softcap, attention=attention)
 
 
 class _FlashAttention(torch.autograd.Function):
     """o = fwd(q, k, v) with the gradient of bwd(q, k, v, o, do): the flash
     kernels on the card, their plain versions on the CPU (``kernels/ops``).
-    Saves q, k, v and o; the backward recomputes the probabilities."""
+    Saves q, k, v and o; the backward recomputes the probabilities. Under a
+    sharding policy q, k and v are a rank's local heads, plain tensors: the
+    DTensor steps around it stay outside, in autograd's graph."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, fwd, bwd):
@@ -150,14 +170,43 @@ def attention_train(
     custom VJP beyond) becomes one autograd function around the flash
     kernels at every S. ``attention`` / ``attention_bwd`` swap the kernels
     for the plain versions in comparisons."""
-    B, S, _ = x.shape
-    q, k, v = _qkv(p, x, torch.arange(S, device=x.device), num_heads=num_heads,
-                   num_kv_heads=num_kv_heads, head_dim=head_dim,
-                   rope_theta=rope_theta, rotary_pct=rotary_pct)
-    out = flash_attention_train(q, k, v, causal=causal, window=window,
-                                softcap=softcap, attention=attention,
-                                attention_bwd=attention_bwd)
-    return out.reshape(B, S, num_heads * head_dim) @ p["wo"].to(x.dtype)
+    return self_attention(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
+                          head_dim=head_dim, rope_theta=rope_theta, rotary_pct=rotary_pct,
+                          causal=causal, window=window, softcap=softcap,
+                          attention=attention, attention_bwd=attention_bwd)[0]
+
+
+def local_kv_heads(num_heads: int, num_kv_heads: int, first: int, count: int):
+    """Which KV heads query heads ``first .. first + count - 1`` read (head h
+    reads KV head h // (H / KV)), for a rank that holds every KV head: a
+    slice where they read equal contiguous groups, else an index a query
+    head."""
+    g = num_heads // num_kv_heads
+    kv = [h // g for h in range(first, first + count)]
+    n = kv[-1] - kv[0] + 1
+    if count % n == 0 and kv == [kv[0] + j // (count // n) for j in range(count)]:
+        return slice(kv[0], kv[0] + n)
+    return kv
+
+
+def attention_scores_partial(q, k, v, mask, *, softcap: float = 0.0):
+    """One rank's share of decode attention over its slice of the cache
+    positions (flash decoding): (o [B,S,H,hd] f32 unnormalised, m [B,S,H]
+    the running max, l [B,S,H] the sum of exp(s - m)); slices combine by
+    rescaling each with exp(m_i - max m). A slice whose positions are all
+    masked gives m = -inf, l = 0, o = 0."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    dt = torch.promote_types(q.dtype, k.dtype)
+    qg = q.to(dt).reshape(B, S, KV, H // KV, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.to(dt)).float() / math.sqrt(hd)
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = scores + mask
+    m = scores.amax(-1)  # [B, KV, g, S]
+    e = torch.exp(scores - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    o = torch.einsum("bkgst,btkh->bskgh", e, v.float()).reshape(B, S, H, hd)
+    return o, m.permute(0, 3, 1, 2).reshape(B, S, H), e.sum(-1).permute(0, 3, 1, 2).reshape(B, S, H)
 
 
 def attention_decode(

@@ -72,16 +72,16 @@ def layer(tree: Params, i: int) -> Params:
     return tree[i]
 
 
-def unstack(tree: Params) -> list[Params]:
+def unstack(tree: Params, unbind=None) -> list[Params]:
     """The layers of a stacked ``[L, ...]`` tree as views, by one ``unbind``
-    a leaf: its backward writes every layer's gradient into one stacked
-    tensor, where ``layer(tree, i)`` per layer would add ``L`` stack-sized
-    ones."""
+    a leaf (or ``unbind(leaf)``): its backward writes every layer's
+    gradient into one stacked tensor, where ``layer(tree, i)`` per layer
+    would add ``L`` stack-sized ones."""
     if isinstance(tree, dict):
-        per_key = {k: unstack(v) for k, v in tree.items()}
+        per_key = {k: unstack(v, unbind) for k, v in tree.items()}
         n = len(next(iter(per_key.values())))
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
-    return list(tree.unbind(0))
+    return list(tree.unbind(0) if unbind is None else unbind(tree))
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -193,9 +193,16 @@ def unembed_separate(p: Params, x: torch.Tensor) -> torch.Tensor:
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy of f32 ``logits`` [..., vocab]; labels < 0
     are masked (the reference's ``softmax_xent``)."""
+    nll, count = softmax_xent_sums(logits, labels)
+    return nll / count.clamp_min(1.0)
+
+
+def softmax_xent_sums(logits: torch.Tensor, labels: torch.Tensor):
+    """(summed token cross-entropy, count of unmasked labels) of
+    ``softmax_xent``, for a mean over tokens held by several ranks."""
     mask = (labels >= 0).to(torch.float32)
     labels = labels.clamp_min(0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None])[..., 0]
     nll = (logz - gold) * mask
-    return nll.sum() / mask.sum().clamp_min(1.0)
+    return nll.sum(), mask.sum()

@@ -63,11 +63,23 @@ def capacity_of(sg: int, num_experts: int, experts_per_token: int,
 
 def moe_ffn(p: Params, x: torch.Tensor, *, num_experts: int, experts_per_token: int,
             capacity_factor: float = 1.25, group_size: int = 1024,
-            routes: list | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+            routes: list | None = None, group: int | None = None,
+            experts: tuple[int, int] | None = None, aux_sums: bool = False):
     """x [B, S, d] -> (output [B, S, d] in x's dtype, f32 aux load-balancing
     loss). With ``routes`` (a list), appends this call's routing
     ``(expert_idx, slot)``, each [G, S_g, k]: the chosen experts in order,
     and each choice's place in its expert's queue (C where it was dropped).
+
+    Expert parallelism (a rank of a sharding policy's "model" axis):
+    ``experts`` = (first, E_pad) says that ``p``'s gate/up/down hold the
+    experts first .. first + E_local - 1 of E_pad; the output is then this
+    rank's part of a sum over the ranks, its experts' share. ``group``
+    fixes the tokens a routing group (default ``group_size_of(B, S,
+    group_size)``), for a rank that holds whole groups of a larger batch.
+    ``aux_sums``: return, in place of the aux loss, the sums it is made of
+    over this call's tokens (router probabilities [E] and top-k choices [E]
+    of the real experts, and the token count), for a caller that adds them
+    over ranks first.
 
     Routing: f32 logits (-inf for padded experts), softmax, the top k with
     ties to the lower index (as ``lax.top_k``), gates renormalised over
@@ -76,9 +88,10 @@ def moe_ffn(p: Params, x: torch.Tensor, *, num_experts: int, experts_per_token: 
     dropped. The three-operand combine is contracted in pairs, so no
     [G, S_g, k, E, C] tensor is built."""
     B, S, d = x.shape
-    E_pad = p["gate"].shape[0]
+    first, E_pad = experts or (0, p["gate"].shape[0])
+    E_loc = p["gate"].shape[0]
     k = experts_per_token
-    sg = group_size_of(B, S, group_size)
+    sg = group or group_size_of(B, S, group_size)
     G = B * S // sg
     xt = x.reshape(G, sg, d)
 
@@ -111,7 +124,7 @@ def moe_ffn(p: Params, x: torch.Tensor, *, num_experts: int, experts_per_token: 
 
         # dispatch / combine [G, S_g, E_pad, C]; a dropped pair's slot C is cut off
         cap = F.one_hot(slot, C + 1)[..., :C].to(x.dtype)
-        oh = onehot.to(x.dtype)
+        oh = (onehot if experts is None else onehot[..., first:first + E_loc]).to(x.dtype)
         dispatch = torch.einsum("gske,gskc->gsec", oh, cap)
         combine = torch.einsum("gske,gskc->gsec", oh * gate_vals.to(x.dtype)[..., None], cap)
         expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xt)
@@ -125,7 +138,16 @@ def moe_ffn(p: Params, x: torch.Tensor, *, num_experts: int, experts_per_token: 
         out = torch.einsum("gsec,egcd->gsd", combine, expert_out)
         # Switch-style aux loss over the real experts: the fraction of top-k
         # choices (before the capacity drop) times the mean router probability
+        if aux_sums:
+            return out.reshape(B, S, d), (probs[..., :num_experts].sum((0, 1)),
+                                          onehot[..., :num_experts].sum(2).float().sum((0, 1)),
+                                          G * sg)
         me = probs[..., :num_experts].mean((0, 1))
         ce = onehot[..., :num_experts].sum(2).float().mean((0, 1))
         aux = num_experts * (me * ce).sum()
     return out.reshape(B, S, d), aux
+
+
+def aux_from_sums(num_experts: int, prob_sum, choice_sum, tokens: int) -> torch.Tensor:
+    """The aux loss of ``moe_ffn`` from its ``aux_sums`` added over ranks."""
+    return num_experts * ((prob_sum / tokens) * (choice_sum / tokens)).sum()

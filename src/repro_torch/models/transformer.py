@@ -29,6 +29,8 @@ MoE layer's dense dispatch are plain torch, as in the reference.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -47,6 +49,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rms_norm_init,
     softmax_xent,
+    softmax_xent_sums,
     swiglu,
     swiglu_init,
     unembed,
@@ -63,7 +66,7 @@ class LM:
                  attention=kops.flash_attention,
                  attention_bwd=kops.flash_attention_bwd,
                  ssd_scan=kops.ssd_scan, ssd_scan_bwd=kops.ssd_scan_bwd,
-                 remat: bool = False):
+                 remat: bool = False, policy=None):
         """``device``: 'cuda' (the default; raises without a card) or 'cpu'.
         ``attention``, ``attention_bwd``, ``ssd_scan`` and ``ssd_scan_bwd``:
         the attention forward and backward and the SSD scan and its
@@ -73,7 +76,20 @@ class LM:
         as the reference's ``remat``. ``ep_degree``: the moe family's
         experts are padded to a multiple of it (``cfg.padded_experts``), as
         in the reference; 1 on one card. ``routes``: set it to a list and
-        each MoE layer appends its routing to it (``moe.moe_ffn``)."""
+        each MoE layer appends its routing to it (``moe.moe_ffn``).
+
+        ``policy`` (``launch.sharding.ShardingPolicy`` of this config, on a
+        mesh of the process group's size): ``init`` places the params on
+        its mesh, and ``loss``, ``forward_logits``, ``prefill`` and
+        ``decode_step`` run on DTensors, tensor-parallel on "model"
+        (Megatron: attention heads, SwiGLU columns, experts and the
+        vocabulary split; the residual stream sharded on sequence between
+        blocks), data-parallel on "pod" and "data" with the weights
+        gathered from their FSDP shards a use. Logits and caches come back
+        as DTensors; the loss is a plain scalar, the same on every rank.
+        The dense, moe and vlm families take any "model" size that divides
+        the heads (``pad_heads``); the ssm, hybrid and encdec families only
+        a "model" size of 1."""
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; known: {', '.join(FAMILIES)}")
         self.cfg = cfg
@@ -86,6 +102,9 @@ class LM:
         self.remat = remat
         self.e_pad = cfg.padded_experts(ep_degree) if cfg.is_moe else 0
         self.routes: list | None = None
+        self.policy = policy
+        if policy is not None:
+            self._check_policy()
 
     # ------------------------------------------------------------------
     # init
@@ -96,7 +115,8 @@ class LM:
         in ``param_dtype`` (f32 master weights for training), by default in
         the config dtype, each cast as soon as it is drawn; the leaves of
         ``layers.F32_LEAVES`` are f32 either way. Every use casts a weight
-        to the compute dtype, as the reference does."""
+        to the compute dtype, as the reference does. Under a policy the
+        params are placed on its mesh (``param_shardings``)."""
         c = self.cfg
         wd = param_dtype or self.dtype
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -123,7 +143,7 @@ class LM:
         }
         if not c.tie_embeddings:
             params["unembed"] = linear_init(gen, c.d_model, c.vocab_size, dtype=wd)
-        return params
+        return params if self.policy is None else self.policy.param_shardings(params)
 
     def _block_init(self, gen: torch.Generator, n: int, dtype: torch.dtype) -> Params:
         """``n`` stacked attention + FFN blocks (one unstacked if 0): SwiGLU
@@ -240,20 +260,25 @@ class LM:
         The vlm's logits are taken at the token positions only: the
         reference takes them over the whole (padded) sequence and masks the
         patch and pad labels, which leaves the same mean."""
+        if self.policy is not None:
+            return self._loss_tp(params, batch)
         h, enc = self._inputs(params, batch["tokens"], batch.get("frames"),
                               batch.get("patches"), train=True)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for kind, lp, _ in self._stack(params, None):
-            if kind == "ssm":
-                h = self._run(self._mamba, lp, h)
-                continue
-            h, a = (self._run(self._decoder_train, lp, h, enc) if kind == "dec"
-                    else self._run(self._block_train, lp, h))
+            h, a = self._train_block(kind, lp, h, enc)
             if a is not None:
                 aux = aux + a
         h = h[:, h.shape[1] - batch["tokens"].shape[1]:]  # the vlm's token positions
         xent = softmax_xent(self._logits(params, h), batch["labels"])
         return xent + 0.01 * aux, {"xent": xent, "moe_aux": aux}
+
+    def _train_block(self, kind: str, lp: Params, h: torch.Tensor, enc):
+        """One block of ``_stack`` for the loss: (h, the MoE aux or None)."""
+        if kind == "ssm":
+            return self._run(self._mamba, lp, h), None
+        return (self._run(self._decoder_train, lp, h, enc) if kind == "dec"
+                else self._run(self._block_train, lp, h))
 
     def _inputs(self, params: Params, tokens: torch.Tensor, frames, patches, *,
                 train: bool = False):
@@ -265,18 +290,23 @@ class LM:
         kernels take any length, and under the causal mask a padded tail
         reaches no real position, so nothing is padded here."""
         c = self.cfg
+        self._inputs_given(frames, patches)
         h = embed(params["embed"], tokens, self.dtype)
+        if c.family == "vlm":
+            h = torch.cat([patches.to(self.dtype), h], dim=1)
+        if c.family != "encdec":
+            return h, None
+        return h, self._encode(params, frames.to(self.dtype), train)
+
+    def _inputs_given(self, frames, patches) -> None:
+        """Raise unless the family's stub input, and only it, is given."""
+        c = self.cfg
         given = {"frames": frames is not None, "patches": patches is not None}
         wanted = {"frames": c.family == "encdec", "patches": c.family == "vlm"}
         if given != wanted:
             raise ValueError(f"the {c.family} family takes "
                              f"{[k for k, w in wanted.items() if w] or 'no stub inputs'}; "
                              f"got {[k for k, g in given.items() if g]}")
-        if c.family == "vlm":
-            h = torch.cat([patches.to(self.dtype), h], dim=1)
-        if c.family != "encdec":
-            return h, None
-        return h, self._encode(params, frames.to(self.dtype), train)
 
     def _encode(self, params: Params, frames: torch.Tensor, train: bool) -> torch.Tensor:
         """The encdec encoder over the stub frames [B,T,d]: bidirectional
@@ -314,7 +344,7 @@ class LM:
         stacked trees are taken apart by ``unstack``, so the loss's gradient
         of each is one stacked tensor."""
         c = self.cfg
-        layers = unstack(params["layers"])
+        layers = self._unstack(params["layers"])
 
         def sub(key, i):
             return None if cache is None else layer(cache[key], i)
@@ -338,7 +368,7 @@ class LM:
             for i in range(g * period, (g + 1) * period):
                 yield "ssm", layers[i], sub("ssm", i)
             yield "attn", params["shared_attn"], sub("kv", g)
-        tail = unstack(params["tail_layers"]) if "tail_layers" in params else []
+        tail = self._unstack(params["tail_layers"]) if "tail_layers" in params else []
         for i, lp in enumerate(tail):
             yield "ssm", lp, sub("ssm_tail", i)
 
@@ -349,32 +379,41 @@ class LM:
         each attention block's rotated k and v, each decoder block's cross
         k and v of ``enc``, and each Mamba block's SSM state and conv
         windows are written into it."""
-        c = self.cfg
-        L = h.shape[1]
         for kind, lp, sl in self._stack(params, cache):
-            if kind == "ssm":
-                h = self._mamba(lp, h, sl)
-                continue
-            a, k, v = attn.attention_prefill(
-                lp["attn"], rms_norm(lp["ln1"], h, c.norm_eps),
-                attention=self.attention, **self._attn_kwargs())
-            kv_slice = sl["kv"] if kind == "dec" and sl is not None else sl
-            if kv_slice is not None:
-                self._fill_cache(kv_slice, k, v, L)
-            h = h + a
-            if kind == "dec":
-                ck, cv = self._cross_kv(lp, enc)
-                if sl is not None:
-                    sl["cross"]["k"].copy_(ck)
-                    sl["cross"]["v"].copy_(cv)
-                h = h + attn.cross_attention(
-                    lp["xattn"], rms_norm(lp["ln_x"], h, c.norm_eps), (ck, cv),
-                    num_heads=c.num_heads, head_dim=c.head_dim, attention=self.attention)
-            h, _ = self._ffn(lp, h)
+            h = self._prefill_block(kind, lp, h, sl, enc)
         return h
 
-    def _fill_cache(self, kv_slice: Params, k, v, S: int) -> None:
-        T = kv_slice["k"].shape[1]
+    def _prefill_block(self, kind: str, lp: Params, h: torch.Tensor, sl, enc) -> torch.Tensor:
+        """One block of ``_stack`` at positions 0..L-1, filling its cache
+        slice ``sl`` if given."""
+        c = self.cfg
+        if kind == "ssm":
+            return self._mamba(lp, h, sl)
+        a, k, v = attn.attention_prefill(
+            lp["attn"], rms_norm(lp["ln1"], h, c.norm_eps),
+            attention=self.attention, **self._attn_kwargs())
+        kv_slice = sl["kv"] if kind == "dec" and sl is not None else sl
+        if kv_slice is not None:
+            self._fill_cache(kv_slice, k, v, h.shape[1])
+        h = h + a
+        if kind == "dec":
+            ck, cv = self._cross_kv(lp, enc)
+            if sl is not None:
+                sl["cross"]["k"].copy_(ck)
+                sl["cross"]["v"].copy_(cv)
+            h = h + attn.cross_attention(
+                lp["xattn"], rms_norm(lp["ln_x"], h, c.norm_eps), (ck, cv),
+                num_heads=c.num_heads, head_dim=c.head_dim, attention=self.attention)
+        return self._ffn(lp, h)[0]
+
+    def _fill_cache(self, kv_slice: Params, k, v, S: int, T: int | None = None,
+                    t0: int = 0) -> None:
+        """Write the rotated k/v of positions 0..S-1 into a cache of T slots
+        (a ring of the last T under a sliding window), of which
+        ``kv_slice`` holds slots t0 .. t0 + its length - 1 (a policy's
+        cache split on sequence; all T by default)."""
+        n = kv_slice["k"].shape[1]
+        T = T or n
         if self.cfg.sliding_window > 0:  # ring buffer: the last T positions
             pos = torch.arange(max(0, S - T), S, device=k.device)
             slots = pos % T
@@ -382,6 +421,9 @@ class LM:
             if S > T:
                 raise ValueError(f"prompt of {S} tokens exceeds cache of {T}")
             pos = slots = torch.arange(S, device=k.device)
+        if n != T:  # this rank's slots only
+            mine = (slots >= t0) & (slots < t0 + n)
+            pos, slots = pos[mine], slots[mine] - t0
         kv_slice["k"][:, slots] = k[:, pos].to(kv_slice["k"].dtype)
         kv_slice["v"][:, slots] = v[:, pos].to(kv_slice["v"].dtype)
 
@@ -395,7 +437,9 @@ class LM:
                        frames: torch.Tensor | None = None,
                        patches: torch.Tensor | None = None) -> torch.Tensor:
         """Inference prefill: tokens [B,S] (with the family's stub input)
-        -> the tokens' f32 logits [B,S,vocab]."""
+        -> the tokens' f32 logits [B,S,vocab] (a DTensor under a policy)."""
+        if self.policy is not None:
+            return self._forward_logits_tp(params, tokens, frames, patches)
         h, enc = self._inputs(params, tokens, frames, patches)
         h = self._body(params, h, None, enc)
         return self._logits(params, h[:, h.shape[1] - tokens.shape[1]:])
@@ -421,6 +465,8 @@ class LM:
         if frames is not None and frames.shape[1] != c.encoder_seq:
             raise ValueError(f"{frames.shape[1]} frames; the cross cache holds "
                              f"encoder_seq = {c.encoder_seq}")
+        if self.policy is not None:
+            return self._prefill_tp(params, tokens, frames, patches, max_seq, cache_dtype)
         h, enc = self._inputs(params, tokens, frames, patches)
         cache = self.decode_init(tokens.shape[0], max_seq or h.shape[1],
                                  dtype=cache_dtype or self.dtype)
@@ -438,7 +484,21 @@ class LM:
         window; the encdec decoder's ``cross`` k/v [L, B, encoder_seq, KV,
         hd] in ``dtype``, zero until a prefill fills them; ``ssm`` (and the
         hybrid tail's ``ssm_tail``) f32 state and conv windows whatever
-        ``dtype`` is."""
+        ``dtype`` is. Under a policy, each leaf a DTensor placed by
+        ``cache_shardings``."""
+        cache = self._cache(batch_size, max_seq, dtype)
+        if self.policy is None:
+            return cache
+        from torch.distributed.tensor import distribute_tensor
+
+        pol = self.policy
+        specs = pol.cache_shardings(cache, batch_size)
+        # each rank keeps its own shard of the zeros: nothing is sent
+        return _map_with_path(lambda path, leaf: distribute_tensor(
+            leaf, pol.device_mesh, pol.placements(_at(specs, path)), src_data_rank=None),
+            cache)
+
+    def _cache(self, batch_size: int, max_seq: int, dtype) -> Params:
         c = self.cfg
 
         def ssm(n):
@@ -468,23 +528,450 @@ class LM:
     def decode_step(self, params: Params, cache: Params, tokens: torch.Tensor,
                     pos: int):
         """tokens: [B] int; pos: absolute position. Returns (logits [B, vocab]
-        f32, cache); the cache is updated in place and returned."""
-        c = self.cfg
+        f32, cache); the cache is updated in place and returned. Under a
+        policy the logits are a DTensor split as ``logits_spec``."""
+        if self.policy is not None:
+            return self._decode_step_tp(params, cache, tokens, pos)
         x = embed(params["embed"], tokens[:, None], self.dtype)  # [B,1,d]
         for kind, lp, sl in self._stack(params, cache):
-            if kind == "ssm":
-                x = x + ssm_mod.ssd_decode_step(
-                    lp["ssd"], rms_norm(lp["ln"], x, c.norm_eps), sl,
-                    head_dim=c.ssm_head_dim, state=c.ssm_state)
-                continue
-            kv_slice = sl["kv"] if kind == "dec" else sl
-            x = x + attn.attention_decode(
-                lp["attn"], rms_norm(lp["ln1"], x, c.norm_eps), kv_slice, pos,
-                **self._attn_kwargs())
-            if kind == "dec":
-                x = x + attn.cross_attention(
-                    lp["xattn"], rms_norm(lp["ln_x"], x, c.norm_eps),
-                    (sl["cross"]["k"], sl["cross"]["v"]), num_heads=c.num_heads,
-                    head_dim=c.head_dim)
-            x, _ = self._ffn(lp, x)
+            x = self._decode_block(kind, lp, x, sl, pos)
         return self._logits(params, x)[:, 0, :], cache
+
+    def _decode_block(self, kind: str, lp: Params, x: torch.Tensor, sl, pos: int):
+        """One block of ``_stack`` for the token at ``pos``, writing its
+        cache slice ``sl`` in place."""
+        c = self.cfg
+        if kind == "ssm":
+            return x + ssm_mod.ssd_decode_step(
+                lp["ssd"], rms_norm(lp["ln"], x, c.norm_eps), sl,
+                head_dim=c.ssm_head_dim, state=c.ssm_state)
+        kv_slice = sl["kv"] if kind == "dec" else sl
+        x = x + attn.attention_decode(
+            lp["attn"], rms_norm(lp["ln1"], x, c.norm_eps), kv_slice, pos,
+            **self._attn_kwargs())
+        if kind == "dec":
+            x = x + attn.cross_attention(
+                lp["xattn"], rms_norm(lp["ln_x"], x, c.norm_eps),
+                (sl["cross"]["k"], sl["cross"]["v"]), num_heads=c.num_heads,
+                head_dim=c.head_dim)
+        return self._ffn(lp, x)[0]
+
+    # ------------------------------------------------------------------
+    # under a sharding policy
+    # ------------------------------------------------------------------
+    # The residual stream h is a DTensor between blocks, [B, L, d] split as
+    # ``_hspec``: batch on the data-parallel axes, sequence on "model"
+    # (the reference's ``seq_spec``) where they divide it. Inside a block
+    # each rank computes on local tensors: the kernels take plain CUDA
+    # tensors, a rank's own heads. The local weights come from
+    # ``ShardingPolicy.weight``, whose gradient is this rank's part of a
+    # sum over the axes on which ranks hold other tokens, heads or experts
+    # (``split``), and the whole of it where ranks repeat one computation.
+
+    def _check_policy(self) -> None:
+        c, pol = self.cfg, self.policy
+        if pol.cfg != c:
+            raise ValueError("the policy was made for another config")
+        if pol.tp is None:
+            raise ValueError(f"the mesh {pol.all_axes} has no 'model' axis")
+        if pol.mesh.device_type != self.device.type:
+            raise ValueError(f"a {pol.mesh.device_type} mesh for a model on {self.device}")
+        tp = pol.tp_size
+        if tp > 1 and c.family in ("ssm", "hybrid", "encdec"):
+            raise NotImplementedError(
+                f"the {c.family} family at model = {tp} is not ported yet (ROADMAP "
+                f"queue 1: ssm, hybrid and encdec at tp > 1); it takes a policy at "
+                f"model = 1")
+        if c.num_heads % tp:
+            raise ValueError(f"{c.num_heads} heads on model = {tp}: pad them first "
+                             f"(launch.sharding.pad_heads)")
+        if self.e_pad % tp:
+            raise ValueError(f"{self.e_pad} experts on model = {tp}: pass ep_degree={tp}")
+
+    def _unstack(self, tree: Params) -> list[Params]:
+        """``unstack``; under the policy, of DTensors: each leaf's local
+        shard is taken apart and each layer made a DTensor again (DTensor's
+        own view ops refuse to run in inference mode)."""
+        return unstack(tree, None if self.policy is None else _unbind_dtensor)
+
+    def _local(self, tree: Params, split=()) -> Params:
+        """Every weight of a param subtree as this rank's local tensor."""
+        if isinstance(tree, dict):
+            return {k: self._local(v, split) for k, v in tree.items()}
+        return self.policy.weight(tree, split)
+
+    def _hspec(self, B: int, L: int) -> tuple:
+        """The residual stream's spec: the reference's ``seq_spec`` less the
+        axes that do not divide B or L (the reference leaves those to
+        GSPMD)."""
+        pol = self.policy
+        return (pol.dp if B % pol.dp_size == 0 else None,
+                pol.tp if pol.tp_size > 1 and L % pol.tp_size == 0 else None, None)
+
+    def _constrain_seq(self, h):
+        """h in the residual stream's spec (the reference's constraint at
+        the same points of the stack)."""
+        if self.policy is None:
+            return h
+        return self.policy.constrain(h, self._hspec(*h.shape[:2]))
+
+    def _size(self, entry) -> int:
+        sizes = self.policy.mesh.axis_sizes
+        return math.prod(sizes[a] for a in _axes((entry,)))
+
+    def _index(self, entry) -> int:
+        """This rank's place among the ranks that split a dimension by
+        ``entry`` (major to minor)."""
+        pol, i = self.policy, 0
+        for a in _axes((entry,)):
+            i = i * pol.mesh.axis_sizes[a] + pol.coordinate(a)
+        return i
+
+    def _part(self, entry, n: int) -> slice:
+        """This rank's part of a dimension of ``n`` split by ``entry``."""
+        m = n // self._size(entry)
+        return slice(self._index(entry) * m, (self._index(entry) + 1) * m)
+
+    def _gather_heads(self, t: torch.Tensor, bdim) -> torch.Tensor:
+        """[B, S, heads, hd] split on heads over "model" -> every head."""
+        pol = self.policy
+        return pol.to_local(pol.from_local(t, (bdim, None, pol.tp, None)),
+                            (bdim, None, None, None))
+
+    def _embed_tp(self, table, tokens: torch.Tensor, bdim) -> torch.Tensor:
+        """Token embeddings of this rank's rows [B_loc, S, d], the same on
+        every "model" rank. A table split on vocabulary is looked up where
+        each rank holds the token's row and summed over "model"."""
+        pol = self.policy
+        tok = tokens[self._part(bdim, tokens.shape[0])]
+        bs = (bdim, None, None)
+        if pol.spec_of(table)[0] != pol.tp:
+            return embed({"table": pol.weight(table, _axes(bs))}, tok, self.dtype)
+        w = pol.weight(table, (*_axes(bs), pol.tp))  # [V_loc, d]
+        v0 = pol.coordinate(pol.tp) * w.shape[0]
+        mine = ((tok >= v0) & (tok < v0 + w.shape[0]))[..., None].to(self.dtype)
+        e = embed({"table": w}, (tok - v0).clamp(0, w.shape[0] - 1), self.dtype) * mine
+        return pol.to_local(pol.from_local(e, bs, partial=(pol.tp,)), bs)
+
+    def _inputs_tp(self, params: Params, tokens, frames, patches, train: bool = False):
+        """(h, a DTensor in ``_hspec``; this rank's rows of the encoder
+        output or None): ``_inputs`` under the policy."""
+        c, pol = self.cfg, self.policy
+        self._inputs_given(frames, patches)
+        B, S = tokens.shape
+        L = S + (patches.shape[1] if patches is not None else 0)
+        hs = self._hspec(B, L)
+        rows = self._part(hs[0], B)
+        h = self._embed_tp(params["embed"]["table"], tokens, hs[0])
+        if c.family == "vlm":
+            h = torch.cat([patches[rows].to(self.dtype), h], dim=1)
+        enc = None
+        if c.family == "encdec":  # model = 1: this rank's sequences, plain
+            local = self._local({k: params[k] for k in ("enc_layers", "enc_ln")},
+                                _axes(hs))
+            enc = self._encode(local, frames[rows].to(self.dtype), train)
+        return pol.constrain(pol.from_local(h, (hs[0], None, None)), hs), enc
+
+    def _attn_tp(self, p: Params, x_loc: torch.Tensor, hs: tuple, train: bool):
+        """Megatron attention: ``x_loc`` (normed, in ``hs``) gathered over
+        "model"; this rank's heads through the flash kernel(s); their wo
+        rows' products summed over "model" into ``hs``. Returns (out, the
+        rotated k and v of this rank's rows, [B_loc, L, KV_w, hd], KV_w the
+        KV heads of its wk columns: KV / model where wk is split, else all)."""
+        c, pol = self.cfg, self.policy
+        bs = (hs[0], None, None)
+        x = pol.to_local(pol.from_local(x_loc, hs), bs, split=(pol.tp,))
+        w = self._local(p, (*_axes(bs), pol.tp))
+        H = c.num_heads // pol.tp_size
+        first = pol.coordinate(pol.tp) * H
+        kv_w = w["wk"].shape[-1] // c.head_dim
+        sel = None
+        if kv_w == c.num_kv_heads:  # wk replicated: the KV heads these heads read
+            sel = attn.local_kv_heads(c.num_heads, c.num_kv_heads, first, H)
+            if sel == slice(0, kv_w):
+                sel = None
+        kw = {**self._attn_kwargs(), "num_heads": H, "num_kv_heads": kv_w}
+        out, k, v = attn.self_attention(
+            w, x, causal=True, attention=self.attention,
+            attention_bwd=self.attention_bwd if train else None, kv_heads=sel, **kw)
+        return pol.constrain(pol.from_local(out, bs, partial=(pol.tp,)), hs), k, v
+
+    def _mlp_tp(self, p: Params, x_loc: torch.Tensor, xs: tuple):
+        """SwiGLU of ``x_loc`` (in ``xs``) into ``xs``: column- then
+        row-parallel over "model" where gate/up split on d_ff, else on this
+        rank's tokens alone."""
+        pol = self.policy
+        if pol.spec_of(p["gate"])[-1] != pol.tp:
+            return pol.from_local(swiglu(self._local(p, _axes(xs)), x_loc), xs)
+        bs = (xs[0], None, None)
+        x = pol.to_local(pol.from_local(x_loc, xs), bs, split=(pol.tp,))
+        y = swiglu(self._local(p, (*_axes(bs), pol.tp)), x)
+        return pol.constrain(pol.from_local(y, bs, partial=(pol.tp,)), xs)
+
+    def _moe_tp(self, p: Params, x_loc: torch.Tensor, xs: tuple):
+        """The MoE layer of ``x_loc`` (in ``xs``) into ``xs``, with its aux
+        loss (the same on every rank). Experts split over "model"; each
+        rank routes every token of the routing groups it holds (its rows
+        where the groups fall within them, else every row) and runs its
+        own experts; their outputs sum over "model". The aux loss is made
+        of the router sums over all ranks' tokens."""
+        c, pol = self.cfg, self.policy
+        Bl, Sl, _ = x_loc.shape
+        B, S = Bl * self._size(xs[0]), Sl * self._size(xs[1])
+        sg = moe_mod.group_size_of(B, S)
+        rdim = xs[0] if (Bl * S) % sg == 0 else None  # whole groups a rank
+        rs = (rdim, None, None)
+        x = pol.to_local(pol.from_local(x_loc, xs), rs, split=(pol.tp,))
+        tp = pol.tp_size
+        plain = tp == 1 and self._size(rdim) == 1
+        w = self._local(p, (*_axes(rs), pol.tp))
+        y, aux = moe_mod.moe_ffn(
+            w, x, num_experts=c.num_experts, experts_per_token=c.experts_per_token,
+            capacity_factor=c.capacity_factor, routes=self.routes, group=sg,
+            experts=None if tp == 1 else (pol.coordinate(pol.tp) * w["gate"].shape[0],
+                                          self.e_pad),
+            aux_sums=not plain)
+        y = pol.constrain(pol.from_local(y, rs, partial=(pol.tp,)), xs)
+        if not plain:
+            prob, choice, n = aux
+            sums = pol.to_local(pol.from_local(torch.stack([prob, choice]), (None, None),
+                                               partial=_axes(rs)), (None, None))
+            aux = moe_mod.aux_from_sums(c.num_experts, sums[0], sums[1], n * self._size(rdim))
+            # every "model" rank holds the same aux: each adds 1/tp of it, so
+            # that its gradient reaches the router once
+            aux = pol.to_local(pol.from_local((aux / tp)[None], (None,),
+                                              partial=(pol.tp,)), (None,))[0]
+        return y, aux
+
+    def _ffn_tp(self, lp: Params, h, hs: tuple):
+        """(h + FFN(norm(h)), the MoE aux or None) under the policy."""
+        c = self.cfg
+        x = rms_norm(self._local(lp["ln2"], _axes(hs)), h.to_local(), c.norm_eps)
+        if "moe" in lp:
+            y, aux = self._moe_tp(lp["moe"], x, hs)
+            return h + y, aux
+        return h + self._mlp_tp(lp["mlp"], x, hs), None
+
+    def _kv_split(self, B: int, T: int) -> tuple[int, object]:
+        """(this rank's first cache slot, the sequence entry of
+        ``kv_cache_spec``) of a KV cache of T slots."""
+        entry = self.policy.kv_cache_spec(B, T)[2]
+        return self._index(entry) * (T // self._size(entry)), entry
+
+    def _block_tp(self, kind: str, lp: Params, h, sl, enc, train: bool,
+                  t0: int = 0, T: int = 0):
+        """One block of ``_stack`` under the policy, h a DTensor; ``sl`` this
+        rank's shard (slots t0 .. of T) of its cache slice, or None. Returns
+        (h, the MoE aux or None)."""
+        c, pol = self.cfg, self.policy
+        hs = self._hspec(*h.shape[:2])
+        if kind != "attn":  # model = 1 (_check_policy): the plain block, own rows
+            if kind == "dec" and sl is not None and sl["kv"]["k"].shape[1] != T:
+                raise NotImplementedError(f"a cache split on sequence in the {c.family} "
+                                          f"family")
+            lp, h_loc = self._local(lp, _axes(hs)), h.to_local()
+            if train:
+                h_loc, aux = self._train_block(kind, lp, h_loc, enc)
+            else:
+                h_loc, aux = self._prefill_block(kind, lp, h_loc, sl, enc), None
+            return pol.from_local(h_loc, hs), aux
+        x = rms_norm(self._local(lp["ln1"], _axes(hs)), h.to_local(), c.norm_eps)
+        a, k, v = self._attn_tp(lp["attn"], x, hs, train)
+        if sl is not None:
+            if k.shape[2] < c.num_kv_heads:
+                k, v = self._gather_heads(k, hs[0]), self._gather_heads(v, hs[0])
+            self._fill_cache(sl, k, v, h.shape[1], T, t0)
+        return self._ffn_tp(lp, h + a, hs)
+
+    def _body_tp(self, params: Params, h, cache: Params | None, enc, train: bool):
+        """``_body`` / the loss's stack under the policy (``cache``: a
+        DTensor cache to fill, or None): (h, aux sum)."""
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        t0 = T = 0
+        if cache is not None and "kv" in cache:
+            T = cache["kv"]["k"].shape[2]
+            t0, _ = self._kv_split(h.shape[0], T)
+        h = self._constrain_seq(h)
+        local = None if cache is None else _local_views(cache)
+        for kind, lp, sl in self._stack(params, local):
+            h, a = self._run(self._block_tp, kind, lp, h, sl, enc, train, t0, T)
+            if a is not None:
+                aux = aux + a
+            h = self._constrain_seq(h)
+        return h, aux
+
+    def _logits_tp(self, params: Params, h_loc: torch.Tensor, split=(),
+                   vocab: bool = False) -> torch.Tensor:
+        """f32 logits of this rank's positions ``h_loc`` [.., d]: over the
+        whole vocabulary (the reference's constraint on [B, S, V] logits,
+        sequence split), or with ``vocab`` this rank's part of it where
+        the unembedding splits it (``logits_spec``)."""
+        c, pol = self.cfg, self.policy
+        h = rms_norm(self._local(params["final_ln"], split), h_loc, c.norm_eps)
+        w = self._unembedding(params)
+        local = (pol.weight(w, split) if vocab else
+                 pol.to_local(w, (None, None), split))
+        return (unembed({"table": local}, h) if c.tie_embeddings
+                else unembed_separate({"w": local}, h))
+
+    def _unembedding(self, params: Params):
+        """The unembedding weight: the tied table [V, d] or ``unembed.w`` [d, V]."""
+        return params["embed"]["table"] if self.cfg.tie_embeddings else params["unembed"]["w"]
+
+    def _loss_tp(self, params: Params, batch: dict):
+        """``loss`` under the policy: the token cross-entropy summed on each
+        rank's positions, then over the ranks."""
+        c, pol = self.cfg, self.policy
+        tokens, labels = batch["tokens"], batch["labels"]
+        h, enc = self._inputs_tp(params, tokens, batch.get("frames"), batch.get("patches"),
+                                 train=True)
+        h, aux = self._body_tp(params, h, None, enc, train=True)
+        B, L = h.shape[:2]
+        hs = self._hspec(B, L)
+        if L != tokens.shape[1]:  # the vlm: patch positions carry no label
+            labels = torch.cat([labels.new_full((B, L - tokens.shape[1]), -1), labels], 1)
+        labels = labels[self._part(hs[0], B)][:, self._part(hs[1], L)]
+        logits = self._logits_tp(params, h.to_local(), _axes(hs))
+        nll, count = softmax_xent_sums(logits, labels)
+        sums = pol.to_local(pol.from_local(torch.stack([nll, count]), (None,),
+                                           partial=_axes(hs)), (None,))
+        xent = sums[0] / sums[1].clamp_min(1.0)
+        return xent + 0.01 * aux, {"xent": xent, "moe_aux": aux}
+
+    def _forward_logits_tp(self, params: Params, tokens, frames, patches):
+        pol = self.policy
+        h, enc = self._inputs_tp(params, tokens, frames, patches)
+        h, _ = self._body_tp(params, h, None, enc, train=False)
+        hs = self._hspec(*h.shape[:2])
+        logits = pol.from_local(self._logits_tp(params, h.to_local(), _axes(hs)),
+                                (hs[0], hs[1], None))
+        return logits[:, h.shape[1] - tokens.shape[1]:]
+
+    def _prefill_tp(self, params: Params, tokens, frames, patches, max_seq, cache_dtype):
+        c, pol = self.cfg, self.policy
+        if frames is not None and frames.shape[1] != c.encoder_seq:
+            raise ValueError(f"{frames.shape[1]} frames; the cross cache holds "
+                             f"encoder_seq = {c.encoder_seq}")
+        h, enc = self._inputs_tp(params, tokens, frames, patches)
+        B, L = h.shape[:2]
+        cache = self.decode_init(B, max_seq or L, dtype=cache_dtype or self.dtype)
+        h, _ = self._body_tp(params, h, cache, enc, train=False)
+        hs = self._hspec(B, L)
+        last = pol.to_local(h, (hs[0], None, None))[:, -1:]
+        return self._last_logits(params, last, hs[0]), cache
+
+    def _last_logits(self, params: Params, x_loc: torch.Tensor, bdim):
+        """[B, V] logits of this rank's rows of one position, split as
+        ``logits_spec``."""
+        pol = self.policy
+        vdim = -2 if self.cfg.tie_embeddings else -1  # the vocabulary's dim of w
+        vocab = pol.spec_of(self._unembedding(params))[vdim] == pol.tp
+        logits = self._logits_tp(params, x_loc, vocab=True)[:, 0]
+        return pol.from_local(logits, (bdim, pol.tp if vocab else None))
+
+    def _attn_decode_tp(self, p: Params, x: torch.Tensor, sl: Params, pos: int,
+                        bdim, t0: int, T: int, seq) -> torch.Tensor:
+        """One token's attention on this rank's rows ``x`` [B_loc, 1, d]
+        (the same on every "model" rank) and its shard ``sl`` of the cache,
+        slots t0 .. t0 + len - 1 of T: the token's k/v written where its
+        slot lies; this rank's heads, summed over "model". Where the cache
+        splits on sequence (``seq``, its axes), each rank takes every head
+        over its own slots and the parts combine by their softmax
+        statistics (flash decoding)."""
+        c, pol = self.cfg, self.policy
+        w = self._local(p)
+        H = c.num_heads // pol.tp_size
+        first = pol.coordinate(pol.tp) * H
+        kv_w = w["wk"].shape[-1] // c.head_dim
+        kw = self._attn_kwargs()
+        q, k, v = attn._qkv(w, x, torch.full((1,), pos, device=x.device), num_heads=H,
+                            num_kv_heads=kv_w, head_dim=c.head_dim,
+                            rope_theta=kw["rope_theta"], rotary_pct=kw["rotary_pct"])
+        if kv_w < c.num_kv_heads:
+            k, v = self._gather_heads(k, bdim), self._gather_heads(v, bdim)
+        window = c.sliding_window
+        slot = pos % T if window > 0 else pos
+        n = sl["k"].shape[1]
+        if t0 <= slot < t0 + n:  # this rank's shard holds the slot: write there
+            sl["k"][:, slot - t0] = k[:, 0].to(sl["k"].dtype)
+            sl["v"][:, slot - t0] = v[:, 0].to(sl["v"].dtype)
+        kpos = t0 + torch.arange(n, device=x.device)
+        valid = ((kpos <= pos % T) | (pos >= T)) if window > 0 else kpos <= pos
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        mask = torch.where(valid, zero, float("-inf"))[None, :]
+        if self._size(seq) == 1:
+            sel = attn.local_kv_heads(c.num_heads, c.num_kv_heads, first, H)
+            out = attn.attend(q, sl["k"][:, :, sel], sl["v"][:, :, sel], mask,
+                              softcap=kw["softcap"]).to(x.dtype)
+        else:
+            if pol.tp_size > 1:
+                q = self._gather_heads(q, bdim)
+            o, m, lsum = attn.attention_scores_partial(q, sl["k"], sl["v"], mask,
+                                                       softcap=kw["softcap"])
+            mx = m.clone()
+            dm = pol.device_mesh
+            import torch.distributed as dist
+            for a in _axes((seq,)):
+                dist.all_reduce(mx, dist.ReduceOp.MAX, group=dm.get_group(a))
+            scale = torch.where(torch.isinf(m), zero, torch.exp(m - mx))
+            o, lsum = o * scale[..., None], lsum * scale
+            for a in _axes((seq,)):
+                dist.all_reduce(o, group=dm.get_group(a))
+                dist.all_reduce(lsum, group=dm.get_group(a))
+            out = (o / lsum[..., None])[:, :, first:first + H].to(x.dtype)
+        a = out.reshape(x.shape[0], 1, H * c.head_dim) @ w["wo"].to(x.dtype)
+        bs = (bdim, None, None)
+        return pol.to_local(pol.from_local(a, bs, partial=(pol.tp,)), bs)
+
+    def _decode_step_tp(self, params: Params, cache: Params, tokens: torch.Tensor, pos: int):
+        c, pol = self.cfg, self.policy
+        B = tokens.shape[0]
+        bdim = pol.dp if B % pol.dp_size == 0 else None
+        bs = (bdim, None, None)
+        T = cache["kv"]["k"].shape[2] if "kv" in cache else 0
+        t0, seq = self._kv_split(B, T) if T else (0, None)
+        x = self._embed_tp(params["embed"]["table"], tokens[:, None], bdim)  # [B_loc,1,d]
+        for kind, lp, sl in self._stack(params, _local_views(cache)):
+            if kind == "attn" and (pol.tp_size > 1 or self._size(seq) > 1):
+                x = x + self._attn_decode_tp(
+                    lp["attn"], rms_norm(self._local(lp["ln1"]), x, c.norm_eps), sl, pos,
+                    bdim, t0, T, seq)
+                x = self._ffn_tp(lp, pol.from_local(x, bs), bs)[0].to_local()
+            else:  # model = 1 and a whole cache: the plain block on own rows
+                x = self._decode_block(kind, self._local(lp), x, sl, pos)
+        return self._last_logits(params, x, bdim), cache
+
+
+def _axes(spec) -> tuple:
+    """The mesh axes named in a spec, in its order."""
+    out = []
+    for e in spec:
+        out.extend(e if isinstance(e, tuple) else (() if e is None else (e,)))
+    return tuple(out)
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, (*path, k)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _local_views(cache: Params) -> Params:
+    """Each rank's shard of a DTensor cache, as plain tensors that share its
+    storage: writes into them are writes into the cache."""
+    return _map_with_path(lambda _, leaf: leaf.to_local(), cache)
+
+
+def _unbind_dtensor(t) -> list:
+    """The layers of a stacked DTensor, each a DTensor over its local shard."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    placements = [Shard(p.dim - 1) if p.is_shard() else p for p in t.placements]
+    return [DTensor.from_local(x, t.device_mesh, placements, run_check=False)
+            for x in t.to_local().unbind(0)]

@@ -716,3 +716,78 @@ def test_quickstart_all_gather_on_card(cuda):
     interp = interpret_collective("all_gather", x.numpy(), topo, req)
     assert np.array_equal(got.numpy().view(np.uint32), interp.view(np.uint32))
     assert torch.equal(got, pccl_all_gather(x, topo, req))
+
+
+def test_policy_path_bit_equal_at_one_rank(cuda):
+    """``LM(policy=)`` on a one-rank NCCL group and a data = 1 x model = 1
+    mesh, reduced llama in bf16 at head_dim 64 (the wgmma route): prefill,
+    3 decode steps and a training step's loss and every gradient leaf bit
+    for bit the same as without the policy."""
+    from chip_smoke import one_rank_nccl_group, served_logits, train_grads
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import _batch_for_step
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.sharding import ShardingPolicy
+    from repro_torch.models import LM
+
+    end = one_rank_nccl_group(torch)
+    try:
+        cfg = get_config("llama3.2-1b").reduced(dtype="bfloat16", head_dim=64)
+        pol = ShardingPolicy(make_test_mesh(data=1, model=1), cfg)
+        plain, lm = LM(cfg, device=cuda), LM(cfg, device=cuda, policy=pol)
+        params = plain.init(0)
+        prompts = torch.from_numpy(make_prompts(2, 96, cfg.vocab_size, 0)).to(cuda)
+        want = served_logits(torch, plain, params, prompts, 3)[0]
+        got = served_logits(torch, lm, pol.param_shardings(params), prompts, 3)[0]
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        params = plain.init(0, param_dtype=torch.float32)
+        raw = _batch_for_step(0, 0, 2, 96, cfg.vocab_size)
+        batch = {k: torch.from_numpy(v).to(cuda) for k, v in raw.items()}
+        want_loss, want_grads, _ = train_grads(torch, plain, params, batch)
+        got_loss, got_grads, _ = train_grads(torch, lm, pol.param_shardings(params), batch)
+        assert torch.equal(got_loss, want_loss)
+        assert all(torch.equal(got_grads[k], w) for k, w in want_grads.items())
+    finally:
+        end()
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-3b-a800m"])
+def test_padded_model_on_card_matches_unpadded(cuda, arch):
+    """6 heads (2 KV heads) padded to 8 by ``pad_heads`` at model = 4 and
+    carried by ``pad_head_params`` (the moe family's 6 experts to 8): the
+    padded model's prefill and 3 decode steps on the card equal the
+    unpadded model's within rel-L2 1e-5 in f32, and the reference's layout
+    (pad heads appended) misses it."""
+    from repro_torch.bridge import pad_head_params
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.sharding import pad_heads
+    from repro_torch.models import LM
+
+    over = dict(num_experts=6) if arch.startswith("granite") else {}
+    cfg = get_config(arch).reduced(dtype="float32", num_heads=6, num_kv_heads=2, **over)
+    padded = pad_heads(cfg, 4)
+    lm, plm = LM(cfg, device=cuda), LM(padded, device=cuda, ep_degree=4)
+    params = lm.init(0)
+    experts = plm.e_pad if cfg.is_moe else None
+    carried = pad_head_params(params, cfg, padded, experts=experts)
+    appended = pad_head_params(params, cfg, padded, experts=experts,
+                               positions=list(range(cfg.num_heads)))
+    prompts = torch.from_numpy(make_prompts(2, 100, cfg.vocab_size, 1)).to(cuda)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    with torch.inference_mode():
+        want, cache = lm.prefill(params, prompts, max_seq=103)
+        got, pcache = plm.prefill(carried, prompts, max_seq=103)
+        assert rel(got, want) <= 1e-5
+        assert rel(plm.prefill(appended, prompts)[0], want) > 1e-2
+        tok = want.argmax(-1)
+        for i in range(3):
+            want, cache = lm.decode_step(params, cache, tok, 100 + i)
+            got, pcache = plm.decode_step(carried, pcache, tok, 100 + i)
+            assert rel(got, want) <= 1e-5
+            tok = want.argmax(-1)

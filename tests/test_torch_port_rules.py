@@ -45,7 +45,7 @@ def test_scan_covers_the_package():
     assert {f"topology/{m}.py" for m in COPIED["topology"]} <= rel
     assert {"core/__init__.py", "topology/__init__.py", "comms/__init__.py",
             "comms/executor.py", "comms/primitives.py", "comms/selftest.py"} <= rel
-    assert {"launch/sharding.py", "launch/train_lm.py", "optim/adamw.py",
+    assert {"launch/sharding.py", "launch/mesh.py", "launch/train_lm.py", "optim/adamw.py",
             "data/pipeline.py", "kernels/flash_attention.py"} <= rel
     assert {"checkpoint/__init__.py", "checkpoint/checkpointer.py", "runtime/__init__.py",
             "runtime/fault_tolerance.py"} <= rel
@@ -154,6 +154,27 @@ def test_sharding_planner_copy_does_not_drift():
     assert port[i:] == ref[start:]
     assert not any("jax" in line for line in port[:i] if line.lstrip().startswith(
         ("import", "from")))
+
+
+def test_pad_heads_copy_does_not_drift():
+    """``pad_heads`` in the port's ``launch/sharding.py`` is the reference's
+    function (its lines 30-39) line for line."""
+    port = (ROOT / "src/repro_torch/launch/sharding.py").read_text().splitlines()
+    ref = (ROOT / "src/repro/launch/sharding.py").read_text().splitlines()
+    start = ref.index("def pad_heads(cfg: ModelConfig, tp: int) -> ModelConfig:")
+    end = ref.index("    return dataclasses.replace(cfg, num_heads=hp)", start)
+    assert end - start == 9
+    i = port.index(ref[start])
+    assert port[i:i + end - start + 1] == ref[start:end + 1]
+
+
+@pytest.mark.parametrize("module", ["launch/mesh.py", "launch/sharding.py"])
+def test_mesh_and_sharding_import_no_jax(module):
+    """The mesh helpers and ``ShardingPolicy`` import no jax; the
+    reference's modules do, directly or through ``repro.jaxcompat``."""
+    names = set(_imports(ROOT / "src/repro_torch" / module))
+    assert not {n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")}
+    assert {"jax", "repro.jaxcompat"} & set(_imports(ROOT / "src/repro" / module))
 
 
 @pytest.fixture
