@@ -163,8 +163,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    serving phases' limits, moe's first-layer route flips too); the
    reference's layout (pad heads appended, zero wo rows) as a planted fault
    that must fail the f32 check; the wgmma route at both padded attention
-   shapes (GQA groups 4 and 8) timed beside SDPA and its bound;
-16. print one JSON line of per-kernel numbers;
+   shapes (GQA groups 4 and 8) timed beside SDPA and its bound; (c) the
+   policy path of (a) at model = 1 for the ssm, hybrid and encdec families:
+   full-width mamba2-370m, zamba2-7b at 13 layers and whisper-medium at
+   full depth in bf16, a prefill (4 x 1024; whisper 4 x 416 over 4 x 1500
+   stub frames), 8 greedy decode steps and one training step each bit for
+   bit as without the policy, the SSD and flash launches counted exactly,
+   the times with and without it; (d) the kernels at a tensor-parallel
+   rank's share of the heads at model = 2 and 4: the SSD scan and its
+   backward at mamba2-370m's 16 and 8 and zamba2-7b's 56 and 28 SSD
+   heads, the flash forward and backward at whisper-medium's 8 and 4 of 16
+   heads (encoder, cross and decoder shapes), each against its plain
+   version, timed beside it, its bound and (flash) SDPA, with the head
+   grouping of the SSD backward printed and whether a rank's heads equal
+   the same heads of the full call bit for bit;
+16. print one JSON line of per-kernel numbers (each kernel's numbers at the
+   per-rank shapes of (d) under ``tp_shapes``);
 17. print the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of jax or of the JAX package ``repro``.
@@ -593,6 +607,20 @@ PAD_F32_LAYERS = {"granite-moe-3b-a800m": 1, "llava-next-34b": 2}
 PAD_BF16_REL_TOL = {"granite-moe-3b-a800m": MOE_BF16_REL_TOL,
                     "llava-next-34b": VLM_BF16_REL_TOL}
 STEPPED_PROMPT, STEPPED_NEW = 128, 32
+# (c) the policy path at model = 1 for the families whose blocks run
+# head-parallel Mamba2 and a Megatron encoder at model > 1 (arch, layers or
+# None for all), held bit for bit to LM without a policy over a prefill,
+# POLICY_FAMILY_DECODE decode steps and one training step
+POLICY_FAMILY_CASES = (("mamba2-370m", None), ("zamba2-7b", ZAMBA2_TRAIN_LAYERS),
+                       ("whisper-medium", None))
+POLICY_FAMILY_DECODE = 8
+# (d) the kernels at one rank's share of the heads at these "model" sizes:
+# the SSD scan and its backward at the serving and training shapes of
+# mamba2-370m (32 SSD heads) and zamba2-7b (112), the flash forward and
+# backward at whisper-medium's (16 heads, MHA: its KV heads split alike)
+TP_DEGREES = (2, 4)
+TP_SSD_SHAPES = {"mamba2-370m": SSD_SLICE, "zamba2-7b": ZAMBA2_SSD}
+TP_FLASH_SHAPES = ("whisper encoder", "whisper cross", "whisper decoder")
 
 
 # ptxas -v lines: the entry a block of lines is about, its registers and spills
@@ -3157,9 +3185,11 @@ def full(x):
     return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
-def served_logits(torch, lm, params, prompts, new: int) -> tuple[list, float, float]:
-    """Prefill ``prompts`` and ``new`` greedy decode steps: (the prefill's
-    and each step's f32 logits, prefill ms, decode ms a step)."""
+def served_logits(torch, lm, params, prompts, new: int,
+                  stub: dict | None = None) -> tuple[list, float, float]:
+    """Prefill ``prompts`` (over the encdec family's ``stub`` frames) and
+    ``new`` greedy decode steps: (the prefill's and each step's f32 logits,
+    prefill ms, decode ms a step)."""
     from repro_torch.launch.serve import synchronize
 
     dev = lm.device
@@ -3167,7 +3197,7 @@ def served_logits(torch, lm, params, prompts, new: int) -> tuple[list, float, fl
     with torch.inference_mode():
         synchronize(dev)
         t0 = time.perf_counter()
-        logits, cache = lm.prefill(params, prompts, max_seq=S + new)
+        logits, cache = lm.prefill(params, prompts, max_seq=S + new, **(stub or {}))
         out = [full(logits)]
         synchronize(dev)
         t1 = time.perf_counter()
@@ -3432,14 +3462,260 @@ def padded_wgmma_times(torch, dev, fa, smi_line: str) -> dict:
     return out
 
 
-def sharding_policy_phase(torch, dev, fa, smi_line: str) -> None:
-    """The policy path at model = 1 (a), pad_heads at model = 16 (b)."""
+def policy_family_checks(torch, dev, fa, ssd, smi_line: str) -> dict:
+    """(c): ``LM(policy=)`` at data = 1 x model = 1 on a one-rank NCCL group
+    for ``POLICY_FAMILY_CASES`` in bf16: a prefill of SERVE_BATCH x
+    SERVE_PROMPT (whisper: x WHISPER_PROMPT over SERVE_BATCH x 1500 stub
+    frames), POLICY_FAMILY_DECODE greedy decode steps and one training step
+    (f32 master weights; whisper at its WHISPER_TEXT positions), each bit for
+    bit the same as without the policy, the SSD and flash launches of the
+    policy's runs counted exactly. Returns {arch: times}."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import _batch_for_step, stub_inputs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.sharding import ShardingPolicy
+    from repro_torch.models import LM
+
+    out = {}
+    end = one_rank_nccl_group(torch)
+    try:
+        for arch, layers in POLICY_FAMILY_CASES:
+            t0 = time.perf_counter()
+            full = get_config(arch)
+            cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+            pol = ShardingPolicy(make_test_mesh(data=1, model=1), cfg)
+            plain, lm = LM(cfg, device=dev), LM(cfg, device=dev, policy=pol)
+            L = cfg.num_layers
+            ssd_blocks = L if cfg.family in ("ssm", "hybrid") else 0
+            attn_calls = {"hybrid": L // max(cfg.hybrid_attn_period, 1),
+                          "encdec": cfg.encoder_layers + 2 * L}.get(cfg.family, 0)
+            route = fa.route(torch.bfloat16, cfg.head_dim)
+            serve_want = {ssd.ssd_scan: ssd_blocks, **flash_want(fa, **{route: attn_calls})}
+            S = WHISPER_PROMPT if cfg.family == "encdec" else SERVE_PROMPT
+            stub = to_device({k: torch.from_numpy(x) for k, x in
+                              stub_inputs(cfg, SERVE_BATCH, 0).items()}, dev)
+            label = f"{arch} layers={L}"
+
+            params = plain.init(0)
+            placed = pol.param_shardings(params)
+            prompts = torch.from_numpy(make_prompts(SERVE_BATCH, S, cfg.vocab_size, 0)).to(dev)
+            served_logits(torch, plain, params, prompts, 2, stub)  # warm-up
+            served_logits(torch, lm, placed, prompts, 2, stub)
+            want, plain_prefill, plain_decode = served_logits(
+                torch, plain, params, prompts, POLICY_FAMILY_DECODE, stub)
+            for c in serve_want:
+                c.launches = 0
+            got, pol_prefill, pol_decode = served_logits(
+                torch, lm, placed, prompts, POLICY_FAMILY_DECODE, stub)
+            counted = {c: c.launches for c in serve_want}
+            names = {c.__name__: n for c, n in counted.items() if n or serve_want[c]}
+            if counted != serve_want:
+                fail(f"{label}: launches of the policy's serve {names}, want "
+                     f"{({c.__name__: n for c, n in serve_want.items() if n})}")
+            same = [torch.equal(a, b) for a, b in zip(got, want)]
+            print(f"  (c) {label} {cfg.dtype}, serve {SERVE_BATCH}x{S} + "
+                  f"{POLICY_FAMILY_DECODE} steps: prefill logits bit-equal {same[0]}, decode "
+                  f"steps bit-equal {sum(same[1:])} of {POLICY_FAMILY_DECODE}; launches {names}")
+            if not all(same):
+                fail(f"the policy's {label} serve is not bit-equal to the serve without it")
+            del got, want, placed, params
+            torch.cuda.empty_cache()
+
+            params = plain.init(0, param_dtype=torch.float32)
+            placed = pol.param_shardings(params)
+            S_train = WHISPER_TEXT if cfg.family == "encdec" else SERVE_PROMPT
+            raw = _batch_for_step(0, 0, SERVE_BATCH, S_train, cfg.vocab_size)
+            batch = {**{k: torch.from_numpy(v).to(dev, torch.int64) for k, v in raw.items()},
+                     **stub}
+            train_grads(torch, plain, params, batch)  # warm-up
+            want_loss, want_grads, plain_step = train_grads(torch, plain, params, batch)
+            train_grads(torch, lm, placed, batch)
+            train_want = {ssd.ssd_scan: ssd_blocks, ssd.ssd_scan_bwd: ssd_blocks,
+                          fa.flash_attention: attn_calls, fa.flash_attention_bwd: attn_calls}
+            for c in train_want:
+                c.launches = 0
+            got_loss, got_grads, pol_step = train_grads(torch, lm, placed, batch)
+            counted = {c: c.launches for c in train_want}
+            names = {c.__name__: n for c, n in counted.items()}
+            if counted != train_want:
+                fail(f"{label}: launches of the policy's training step {names}, want "
+                     f"{({c.__name__: n for c, n in train_want.items()})}")
+            same = [torch.equal(got_grads[k], w) for k, w in want_grads.items()]
+            print(f"  (c) {label}, train step {SERVE_BATCH}x{S_train} (f32 master weights, bf16 "
+                  f"compute): loss {float(got_loss):.6f} bit-equal "
+                  f"{torch.equal(got_loss, want_loss)}, gradient leaves bit-equal {sum(same)} "
+                  f"of {len(same)}; launches {names}")
+            if not (torch.equal(got_loss, want_loss) and all(same)):
+                fail(f"the policy's {label} training step is not bit-equal to the step "
+                     f"without it")
+            times = dict(prefill_ms=(plain_prefill, pol_prefill),
+                         decode_ms=(plain_decode, pol_decode), step_ms=(plain_step, pol_step))
+            print(f"  (c) {label}, host cost of DTensor ({smi_line}), without / with the "
+                  f"policy: " + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in times.items())
+                  + f"; {time.perf_counter() - t0:.1f} s")
+            out[arch] = times
+            del placed, params, want_grads, got_grads, plain, lm
+            torch.cuda.empty_cache()
+    finally:
+        end()
+    return out
+
+
+def tp_ssd_times(torch, dev, gen, ops, ssd, smi_line: str) -> dict:
+    """(d), the SSD scan and its backward at one rank's share of the heads
+    at ``TP_DEGREES``: the last rank's heads of ``TP_SSD_SHAPES`` (slow
+    decay), held against the plain versions (the token-by-token recurrence;
+    autograd through the chunked scan), compared bit for bit with the same
+    heads of the call over every head (y, the state, dx, ddt, dA: dB and
+    dC are sums over heads), timed beside the plain versions and the
+    bounds. Returns {"ssd_scan": [...], "ssd_scan_bwd": [...]} for the
+    kernels line."""
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref, ssd_scan_ref
+
+    out = {"ssd_scan": [], "ssd_scan_bwd": []}
+    for arch, (B, S, H, P, N, chunk) in TP_SSD_SHAPES.items():
+        xh, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, B, S, H, P, N, slow=True)
+        dy = torch.randn(xh.shape, generator=gen, device=dev)
+        y_all, state_all = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, return_state=True)
+        grads_all = ops.ssd_scan_bwd(xh, dt, A, Bm, Cm, dy, chunk=chunk)
+        for tp in TP_DEGREES:
+            h = slice(H - H // tp, H)  # the last rank's heads
+            r = (xh[:, :, h].contiguous(), dt[:, :, h].contiguous(), A[h].contiguous(), Bm, Cm)
+            dyr = dy[:, :, h].contiguous()
+            shape = (B, S, H // tp, P, N, chunk)
+            y, state = ops.ssd_scan(*r, chunk=chunk, return_state=True)
+            want_y, want_state = ssd_scan_ref(*r, return_state=True)
+            checked = [compare(y, want_y, SSD_TOL), compare(state, want_state, SSD_TOL)]
+            grads = ops.ssd_scan_bwd(*r, dyr, chunk=chunk)
+            checked_bwd = [compare_scaled(g, w, SSD_BWD_TOL) for g, w in
+                           zip(grads, ssd_scan_bwd_ref(*r, dyr, chunk=chunk))]
+            if not all(c[1] for c in checked + checked_bwd):
+                fail(f"the SSD scan or its backward disagrees with its plain version at "
+                     f"{arch}'s rank shape {shape}")
+            same = torch.equal(y, y_all[:, :, h]) and torch.equal(state, state_all[:, h])
+            same_bwd = all(torch.equal(a, b) for a, b in zip(
+                grads[:3], (grads_all[0][:, :, h], grads_all[1][:, :, h], grads_all[2][h])))
+            del y, state, want_y, want_state, grads
+            times = time_turns(torch, {
+                "kernel": (lambda: ops.ssd_scan(*r, chunk=chunk, return_state=True), 10),
+                "plain": (lambda: ssd_scan_ref(*r, return_state=True), 1),
+                "bwd": (lambda: ops.ssd_scan_bwd(*r, dyr, chunk=chunk), 10),
+                "plain_bwd": (lambda: ssd_scan_bwd_ref(*r, dyr, chunk=chunk), 2)})
+            groups = ssd.bwd_groups(dev, *shape)
+            for what, bound, kernel, plain, err, bit in (
+                    ("ssd_scan", ssd_bound(r[0], Bm, chunk), "kernel", "plain",
+                     max(c[0] for c in checked), same),
+                    ("ssd_scan_bwd", ssd_bwd_bound(r[0], Bm, chunk), "bwd", "plain_bwd",
+                     max(c[0] for c in checked_bwd), same_bwd)):
+                print(f"  (d) {what} at {arch} model={tp}, {shape} f32 slow decay ({smi_line}): "
+                      f"kernel {times[kernel]:.4f} ms, plain {times[plain]:.4f} ms; bound "
+                      f"{bound[0] * 1e3:.2f} us by {bound[1]} ({bound_terms(bound[4])}); "
+                      f"{times[kernel] / bound[0]:.2f}x its bound; max_abs_err {err:.3g}; "
+                      f"bit-equal to the same heads of the {H}-head call: {bit}"
+                      + (f"; heads a block (rev, chunk/dbc) {groups[:2]}"
+                         if what == "ssd_scan_bwd" else ""))
+                out[what].append(dict(case=f"{arch} model={tp}", shape=list(shape),
+                                      ms=times[kernel], plain_ms=times[plain], bound_ms=bound[0],
+                                      bound_by=bound[1], library_ms=None, max_abs_err=err,
+                                      bit_equal_to_full=bit))
+            del r, dyr
+        del xh, dt, A, Bm, Cm, dy, y_all, state_all, grads_all
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_flash_times(torch, dev, gen, fa, ops, smi_line: str) -> dict:
+    """(d), the flash forward (the wgmma route) and backward in bf16 at one
+    rank's share of whisper-medium's 16 heads at ``TP_DEGREES``, at each of
+    ``TP_FLASH_SHAPES``: the last rank's heads, held against the plain
+    versions, compared bit for bit with the same heads of the 16-head call,
+    timed beside the plain versions, SDPA's forward and backward and the
+    bounds. Returns {"flash_attention_wgmma": [...], "flash_attention_bwd":
+    [...]} for the kernels line."""
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"flash_attention_wgmma": [], "flash_attention_bwd": []}
+    for name in TP_FLASH_SHAPES:
+        B, S, T, H, KV, hd, causal = ENCDEC_VLM_SHAPES[name]
+        (q, k, v), _ = attention_inputs(torch, gen, dev, (B, S, H, KV, hd), "bfloat16", T)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        o_all = ops.flash_attention(q, k, v, causal=causal)
+        grads_all = ops.flash_attention_bwd(q, k, v, o_all, do, causal=causal)
+        for tp in TP_DEGREES:
+            h = slice(H - H // tp, H)
+            qr, kr, vr, dor = (x[:, :, h].contiguous() for x in (q, k, v, do))
+            shape = (B, S, T, H // tp, KV // tp, hd)
+            before = fa.flash_attention_wgmma.launches
+            o = ops.flash_attention(qr, kr, vr, causal=causal)
+            if fa.flash_attention_wgmma.launches != before + 1:
+                fail(f"{name} at model={tp} {shape} did not go to the wgmma route")
+            grads = ops.flash_attention_bwd(qr, kr, vr, o, dor, causal=causal)
+            err, ok = compare(o, flash_attention_ref(qr, kr, vr, causal=causal), BF16_TOL)
+            checked = [compare(g, w, BF16_TOL) for g, w in zip(
+                grads, flash_attention_bwd_ref(qr, kr, vr, o, dor, causal=causal))]
+            if not (ok and all(c[1] for c in checked)):
+                fail(f"the flash forward or backward disagrees with its plain version at "
+                     f"{name}'s rank shape {shape}")
+            same = torch.equal(o, o_all[:, :, h])
+            same_bwd = all(torch.equal(g, w[:, :, h]) for g, w in zip(grads, grads_all))
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (qr, kr, vr))
+            ot = sdpa(qt, kt, vt, is_causal=causal)
+            dot = dor.transpose(1, 2).contiguous()
+            times = time_turns(torch, {
+                "kernel": (lambda: ops.flash_attention(qr, kr, vr, causal=causal), 20),
+                "plain": (lambda: flash_attention_ref(qr, kr, vr, causal=causal), 3),
+                "sdpa": (lambda: sdpa(qt.detach(), kt.detach(), vt.detach(),
+                                      is_causal=causal), 20),
+                "bwd": (lambda: ops.flash_attention_bwd(qr, kr, vr, o, dor, causal=causal), 10),
+                "plain_bwd": (lambda: flash_attention_bwd_ref(qr, kr, vr, o, dor,
+                                                              causal=causal), 2),
+                "sdpa_bwd": (lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                         retain_graph=True), 10)})
+            for what, bound, kernel, plain, lib, e, bit in (
+                    ("flash_attention_wgmma", attention_bound(qr, kr, vr, causal, 0), "kernel",
+                     "plain", "sdpa", err, same),
+                    ("flash_attention_bwd", attention_bwd_bound(qr, kr, causal, 0), "bwd",
+                     "plain_bwd", "sdpa_bwd", max(c[0] for c in checked), same_bwd)):
+                print(f"  (d) {what} at {name} model={tp}, {shape} bfloat16 "
+                      f"{'causal' if causal else 'non-causal'} ({smi_line}): kernel "
+                      f"{times[kernel]:.4f} ms, plain {times[plain]:.4f} ms, sdpa "
+                      f"{times[lib]:.4f} ms; bound {bound[0] * 1e3:.2f} us by {bound[1]} "
+                      f"({bound_terms(bound[4])}); {times[kernel] / bound[0]:.2f}x its bound; "
+                      f"max_abs_err {e:.3g}; bit-equal to the same heads of the {H}-head "
+                      f"call: {bit}")
+                out[what].append(dict(case=f"{name} model={tp}", shape=list(shape),
+                                      ms=times[kernel], plain_ms=times[plain], bound_ms=bound[0],
+                                      bound_by=bound[1], library_ms=times[lib], max_abs_err=e,
+                                      bit_equal_to_full=bit))
+            del qr, kr, vr, dor, o, grads, qt, kt, vt, ot, dot
+        del q, k, v, do, o_all, grads_all
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharding_policy_phase(torch, dev, fa, ops, ssd, smi_line: str) -> dict:
+    """The policy path at model = 1 (a), pad_heads at model = 16 (b), the
+    policy path of the ssm, hybrid and encdec families at model = 1 (c),
+    the kernels at the per-rank shapes of model = 2 and 4 (d). Returns
+    (d)'s numbers by kernel."""
     t0 = time.perf_counter()
     phase("sharding policy")
     policy_path_checks(torch, dev, fa, smi_line)
     padded_head_checks(torch, dev, fa)
     padded_wgmma_times(torch, dev, fa, smi_line)
-    print(f"sharding policy: phase took {time.perf_counter() - t0:.1f} s")
+    t_c = time.perf_counter()
+    policy_family_checks(torch, dev, fa, ssd, smi_line)
+    t_d = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(34)
+    per_rank = {**tp_ssd_times(torch, dev, gen, ops, ssd, smi_line),
+                **tp_flash_times(torch, dev, gen, fa, ops, smi_line)}
+    t_end = time.perf_counter()
+    print(f"sharding policy: phase took {t_end - t0:.1f} s ((c) {t_d - t_c:.1f} s, "
+          f"(d) {t_end - t_d:.1f} s)")
+    return per_rank
 
 
 def main() -> int:
@@ -3740,7 +4016,7 @@ def main() -> int:
     serve_batch_phase(torch, dev, fa)
 
     # 15. the sharding policy: LM(policy=) and pad_heads ----------------------
-    sharding_policy_phase(torch, dev, fa, smi_line)
+    per_rank = sharding_policy_phase(torch, dev, fa, ops, ssd, smi_line)
 
     # 16. per-kernel numbers ------------------------------------------------
     total_s = time.perf_counter() - t_start
@@ -3761,6 +4037,7 @@ def main() -> int:
         "bound_ms": bounds["bfloat16"][0],
         "bound_by": bounds["bfloat16"][1],
         "library_ms": times["sdpa_bf16"],
+        "tp_shapes": per_rank["flash_attention_wgmma"],
     }, {
         "name": "flash_attention_mma",
         "route": "cuda",
@@ -3797,6 +4074,7 @@ def main() -> int:
         "bound_ms": bwd["bound"][0],
         "bound_by": bwd["bound"][1],
         "library_ms": bwd["library_ms"],
+        "tp_shapes": per_rank["flash_attention_bwd"],
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -3809,6 +4087,7 @@ def main() -> int:
         "bound_ms": ssd_bound_ms,
         "bound_by": ssd_bound_by,
         "library_ms": None,
+        "tp_shapes": per_rank["ssd_scan"],
     }, {
         "name": "ssd_scan_bwd",
         "route": "cuda",
@@ -3821,6 +4100,7 @@ def main() -> int:
         "bound_ms": ssd_bwd["bound"][0],
         "bound_by": ssd_bwd["bound"][1],
         "library_ms": None,
+        "tp_shapes": per_rank["ssd_scan_bwd"],
     }]}))
     # 17. result -------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {

@@ -60,10 +60,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _gated_norm_out(p: Params, y: torch.Tensor, z: torch.Tensor,
-                    dtype: torch.dtype) -> torch.Tensor:
-    """Mamba2's gated RMSNorm (f32) and the output projection."""
+                    dtype: torch.dtype, mean_sq=None) -> torch.Tensor:
+    """Mamba2's gated RMSNorm (f32) and the output projection. ``mean_sq``
+    maps the f32 gated y [.., C] to the mean of its squares over the
+    block's whole d_inner, [.., 1]: by default over y's C channels, which
+    are all of them unless a tensor-parallel rank holds its heads' share."""
     y = y.to(dtype) * F.silu(z)
-    var = y.float().square().mean(dim=-1, keepdim=True)
+    var = (y.float().square().mean(dim=-1, keepdim=True) if mean_sq is None
+           else mean_sq(y.float()))
     y = (y.float() * torch.rsqrt(var + 1e-5) * p["norm_scale"]).to(dtype)
     return y @ p["out_proj"].to(dtype)
 
@@ -98,6 +102,7 @@ def ssd_block(
     scan=kops.ssd_scan,
     scan_bwd=kops.ssd_scan_bwd,
     cache: Params | None = None,
+    mean_sq=None,
 ) -> torch.Tensor:
     """The Mamba2 block over positions 0..S-1; returns [B, S, d_model].
     ``scan`` and ``scan_bwd`` are the SSD scan and its backward (the
@@ -106,7 +111,12 @@ def ssd_block(
     when autograd records the block, as in training. With
     ``cache`` (one layer of an ``init_ssm_cache`` cache), the state after S
     tokens and the last K-1 rows of the three conv inputs are written into
-    it, as stepping ``ssd_decode_step`` over the prompt would leave them."""
+    it, as stepping ``ssd_decode_step`` over the prompt would leave them.
+    ``p`` and ``cache`` may hold a tensor-parallel rank's heads alone (its
+    w_z, w_x, w_dt and conv_x columns, out_proj rows, per-head leaves and
+    state rows); then ``mean_sq`` (``_gated_norm_out``) sums the gated
+    norm's squares over every rank, and the output is this rank's part of
+    a sum over them."""
     B, S, _ = x.shape
     d_inner = p["out_proj"].shape[0]
     H = d_inner // head_dim
@@ -134,7 +144,7 @@ def ssd_block(
             if keep:
                 win[:, win.shape[1] - keep:] = proj[name][:, S - keep:].float()
     y = y + xh.float() * p["D"][None, None, :, None]
-    return _gated_norm_out(p, y.reshape(B, S, d_inner), z, x.dtype)
+    return _gated_norm_out(p, y.reshape(B, S, d_inner), z, x.dtype, mean_sq)
 
 
 # ---------------------------------------------------------------------------
@@ -175,10 +185,12 @@ def ssd_decode_step(
     *,
     head_dim: int,
     state: int,
+    mean_sq=None,
 ) -> torch.Tensor:
     """One decode step; returns out [B, 1, d_model]. Unlike the reference,
     which returns a new cache, the new state and conv windows are written
-    into ``cache`` in place."""
+    into ``cache`` in place. ``p``, ``cache`` and ``mean_sq`` as in
+    ``ssd_block``."""
     B = x.shape[0]
     d_inner = p["out_proj"].shape[0]
     H = d_inner // head_dim
@@ -202,4 +214,4 @@ def ssd_decode_step(
     cache["state"].copy_(new_state)
     y = torch.einsum("bhpn,bn->bhp", new_state, conv["C"].float())
     y = y + xh * p["D"][None, :, None]
-    return _gated_norm_out(p, y.reshape(B, d_inner), z, x.dtype)[:, None, :]
+    return _gated_norm_out(p, y.reshape(B, d_inner), z, x.dtype, mean_sq)[:, None, :]

@@ -87,9 +87,12 @@ class LM:
         blocks), data-parallel on "pod" and "data" with the weights
         gathered from their FSDP shards a use. Logits and caches come back
         as DTensors; the loss is a plain scalar, the same on every rank.
-        The dense, moe and vlm families take any "model" size that divides
-        the heads (``pad_heads``); the ssm, hybrid and encdec families only
-        a "model" size of 1."""
+        Every family but ssm takes any "model" size that divides the
+        attention heads (``pad_heads``); the ssm family any "model" size.
+        Mamba2 blocks split their SSD heads over "model" where they divide
+        it (else every rank runs every head), the encdec encoder runs
+        Megatron as the decoder does, and the cross cache splits on
+        sequence as ``kv_cache_spec`` says."""
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; known: {', '.join(FAMILIES)}")
         self.cfg = cfg
@@ -577,12 +580,8 @@ class LM:
         if pol.mesh.device_type != self.device.type:
             raise ValueError(f"a {pol.mesh.device_type} mesh for a model on {self.device}")
         tp = pol.tp_size
-        if tp > 1 and c.family in ("ssm", "hybrid", "encdec"):
-            raise NotImplementedError(
-                f"the {c.family} family at model = {tp} is not ported yet (ROADMAP "
-                f"queue 1: ssm, hybrid and encdec at tp > 1); it takes a policy at "
-                f"model = 1")
-        if c.num_heads % tp:
+        # the ssm family has no attention heads (pad_heads leaves it alone)
+        if c.family != "ssm" and c.num_heads % tp:
             raise ValueError(f"{c.num_heads} heads on model = {tp}: pad them first "
                              f"(launch.sharding.pad_heads)")
         if self.e_pad % tp:
@@ -594,10 +593,14 @@ class LM:
         own view ops refuse to run in inference mode)."""
         return unstack(tree, None if self.policy is None else _unbind_dtensor)
 
-    def _local(self, tree: Params, split=()) -> Params:
-        """Every weight of a param subtree as this rank's local tensor."""
+    def _local(self, tree: Params, split=(), whole: bool = False) -> Params:
+        """Every weight of a param subtree as this rank's local tensor; with
+        ``whole`` gathered over "model" too (every "model" rank repeats the
+        computation, so each takes its gradient whole)."""
         if isinstance(tree, dict):
-            return {k: self._local(v, split) for k, v in tree.items()}
+            return {k: self._local(v, split, whole) for k, v in tree.items()}
+        if whole:
+            return self.policy.to_local(tree, (None,) * tree.ndim, split)
         return self.policy.weight(tree, split)
 
     def _hspec(self, B: int, L: int) -> tuple:
@@ -632,11 +635,15 @@ class LM:
         m = n // self._size(entry)
         return slice(self._index(entry) * m, (self._index(entry) + 1) * m)
 
-    def _gather_heads(self, t: torch.Tensor, bdim) -> torch.Tensor:
-        """[B, S, heads, hd] split on heads over "model" -> every head."""
+    def _gather(self, t: torch.Tensor, bdim, dim: int, split=()) -> torch.Tensor:
+        """This rank's rows of ``t`` (split on batch by ``bdim``) split on
+        ``dim`` over "model" -> the whole of ``dim`` (every head: dim 2 of
+        [B, S, heads, hd]), its gradient as ``to_local`` takes it."""
         pol = self.policy
-        return pol.to_local(pol.from_local(t, (bdim, None, pol.tp, None)),
-                            (bdim, None, None, None))
+        spec = [bdim, *(None,) * (t.ndim - 1)]
+        whole = tuple(spec)
+        spec[dim] = pol.tp
+        return pol.to_local(pol.from_local(t, tuple(spec)), whole, split)
 
     def _embed_tp(self, table, tokens: torch.Tensor, bdim) -> torch.Tensor:
         """Token embeddings of this rank's rows [B_loc, S, d], the same on
@@ -666,22 +673,34 @@ class LM:
         if c.family == "vlm":
             h = torch.cat([patches[rows].to(self.dtype), h], dim=1)
         enc = None
-        if c.family == "encdec":  # model = 1: this rank's sequences, plain
-            local = self._local({k: params[k] for k in ("enc_layers", "enc_ln")},
-                                _axes(hs))
-            enc = self._encode(local, frames[rows].to(self.dtype), train)
+        if c.family == "encdec":
+            enc = self._encode_tp(params, frames[rows].to(self.dtype), B, hs[0], train)
         return pol.constrain(pol.from_local(h, (hs[0], None, None)), hs), enc
 
-    def _attn_tp(self, p: Params, x_loc: torch.Tensor, hs: tuple, train: bool):
-        """Megatron attention: ``x_loc`` (normed, in ``hs``) gathered over
-        "model"; this rank's heads through the flash kernel(s); their wo
-        rows' products summed over "model" into ``hs``. Returns (out, the
-        rotated k and v of this rank's rows, [B_loc, L, KV_w, hd], KV_w the
-        KV heads of its wk columns: KV / model where wk is split, else all)."""
+    def _encode_tp(self, params: Params, frames: torch.Tensor, B: int, bdim, train: bool):
+        """The encoder over this rank's rows of the frames [B_loc, T, d]:
+        the encoder output of those rows over every frame, a plain tensor.
+        At model = 1 the plain encoder; else Megatron blocks (attention
+        non-causal) on a residual stream split on sequence where T divides
+        "model", the output gathered over "model" with its gradient this
+        rank's part of a sum (each rank reads it for its own heads)."""
         c, pol = self.cfg, self.policy
-        bs = (hs[0], None, None)
-        x = pol.to_local(pol.from_local(x_loc, hs), bs, split=(pol.tp,))
-        w = self._local(p, (*_axes(bs), pol.tp))
+        if pol.tp_size == 1:
+            local = self._local({k: params[k] for k in ("enc_layers", "enc_ln")},
+                                _axes((bdim,)))
+            return self._encode(local, frames, train)
+        es = self._hspec(B, frames.shape[1])
+        h = pol.constrain(pol.from_local(frames, (bdim, None, None)), es)
+        for lp in self._unstack(params["enc_layers"]):
+            h, _ = self._run(self._block_tp, "enc", lp, h, None, None, train)
+        x = rms_norm(self._local(params["enc_ln"], _axes(es)), h.to_local(), c.norm_eps)
+        return pol.to_local(pol.from_local(x, es), (bdim, None, None), split=(pol.tp,))
+
+    def _heads(self, w: Params) -> tuple:
+        """(this rank's query heads, the first of them, the KV heads of its
+        wk columns (KV / model where wk is split, else all), the ones among
+        those that its query heads read or None for all)."""
+        c, pol = self.cfg, self.policy
         H = c.num_heads // pol.tp_size
         first = pol.coordinate(pol.tp) * H
         kv_w = w["wk"].shape[-1] // c.head_dim
@@ -690,11 +709,113 @@ class LM:
             sel = attn.local_kv_heads(c.num_heads, c.num_kv_heads, first, H)
             if sel == slice(0, kv_w):
                 sel = None
+        return H, first, kv_w, sel
+
+    def _attn_tp(self, p: Params, x_loc: torch.Tensor, hs: tuple, train: bool,
+                 causal: bool = True):
+        """Megatron attention: ``x_loc`` (normed, in ``hs``) gathered over
+        "model"; this rank's heads through the flash kernel(s); their wo
+        rows' products summed over "model" into ``hs``. Returns (out, the
+        rotated k and v of this rank's rows, [B_loc, L, KV_w, hd], KV_w the
+        KV heads of its wk columns)."""
+        pol = self.policy
+        bs = (hs[0], None, None)
+        x = pol.to_local(pol.from_local(x_loc, hs), bs, split=(pol.tp,))
+        w = self._local(p, (*_axes(bs), pol.tp))
+        H, _, kv_w, sel = self._heads(w)
         kw = {**self._attn_kwargs(), "num_heads": H, "num_kv_heads": kv_w}
         out, k, v = attn.self_attention(
-            w, x, causal=True, attention=self.attention,
+            w, x, causal=causal, attention=self.attention,
             attention_bwd=self.attention_bwd if train else None, kv_heads=sel, **kw)
         return pol.constrain(pol.from_local(out, bs, partial=(pol.tp,)), hs), k, v
+
+    def _cross_tp(self, p: Params, x_loc: torch.Tensor, hs: tuple, enc: torch.Tensor,
+                  cross: Params | None, train: bool):
+        """Megatron cross-attention: ``x_loc`` (normed, in ``hs``) gathered
+        over "model"; this rank's heads over every frame of ``enc`` (this
+        rank's rows) through the flash kernel(s), non-causal; their wo
+        rows' products summed over "model" into ``hs``. With ``cross`` (this
+        rank's shard of the layer's cross cache), every KV head's k/v at
+        its slots are written there."""
+        c, pol = self.cfg, self.policy
+        bs = (hs[0], None, None)
+        x = pol.to_local(pol.from_local(x_loc, hs), bs, split=(pol.tp,))
+        w = self._local(p, (*_axes(bs), pol.tp))
+        H, _, kv_w, sel = self._heads(w)
+        k, v = attn.encode_cross_kv(w, enc, num_kv_heads=kv_w, head_dim=c.head_dim)
+        if cross is not None:
+            kc, vc = k, v
+            if kv_w < c.num_kv_heads:
+                kc, vc = self._gather(k, hs[0], 2), self._gather(v, hs[0], 2)
+            t0, _ = self._kv_split(x.shape[0] * self._size(hs[0]), c.encoder_seq)
+            n = cross["k"].shape[1]
+            cross["k"].copy_(kc[:, t0:t0 + n])
+            cross["v"].copy_(vc[:, t0:t0 + n])
+        if sel is not None:
+            k, v = k[:, :, sel], v[:, :, sel]
+        out = attn.cross_attention(w, x, (k, v), num_heads=H, head_dim=c.head_dim,
+                                   attention=self.attention,
+                                   attention_bwd=self.attention_bwd if train else None)
+        return pol.constrain(pol.from_local(out, bs, partial=(pol.tp,)), hs)
+
+    def _mean_sq(self, bdim, width: int):
+        """The gated norm's mean of squares at model > 1 (``ssm.ssd_block``'s
+        ``mean_sq``): this rank's channels' sum of squares, gathered over
+        "model" and added in rank order (every rank holds the same bits),
+        over the whole d_inner ``width``. Each rank's gradient of the total
+        goes back to every rank's part."""
+        pol = self.policy
+
+        def mean_sq(yf: torch.Tensor) -> torch.Tensor:
+            parts = self._gather(yf.square().sum(-1, keepdim=True), bdim, -1,
+                                 split=(pol.tp,))
+            return parts.sum(-1, keepdim=True) / width
+        return mean_sq
+
+    def _whole_conv_x(self, sl: Params | None, bdim, gather: bool):
+        """The SSM cache shard ``sl`` with a conv_x window of every channel
+        for a rank that runs every head (``_mamba_tp``): the shard itself
+        where conv_x is replicated, else a copy whose conv_x is gathered
+        (decode) or zero (prefill), to be written back by ``_own_conv_x``."""
+        if sl is None or sl["conv_x"].shape[-1] == self.cfg.d_inner:
+            return sl
+        win = sl["conv_x"]
+        whole = (self._gather(win, bdim, -1) if gather else
+                 win.new_zeros(*win.shape[:-1], self.cfg.d_inner))
+        return {**sl, "conv_x": whole}
+
+    def _own_conv_x(self, sl: Params | None, whole: Params | None) -> None:
+        if whole is not sl:
+            part = self._part(self.policy.tp, self.cfg.d_inner)
+            sl["conv_x"].copy_(whole["conv_x"][..., part])
+
+    def _mamba_tp(self, p: Params, x_loc: torch.Tensor, hs: tuple, sl: Params | None):
+        """A Mamba2 block at model > 1 over ``x_loc`` (normed, in ``hs``),
+        into ``hs``; ``sl`` this rank's shard of its SSM cache, or None.
+        The scan needs the whole sequence: x is gathered over "model" on
+        this rank's rows. Where the SSD heads divide "model", this rank's
+        heads (its w_z, w_x, w_dt, conv_x columns, per-head leaves and
+        out_proj rows; w_B, w_C, conv_B and conv_C replicated, their
+        gradient a sum over "model") go through the scan kernel, the gated
+        norm's squares are summed over "model" and the out_proj products
+        too. Else (e.g. 6 heads on 4 ranks, whose d_inner leaves split but
+        whose per-head leaves do not) every rank runs the whole block with
+        the weights gathered, the same on every rank, and takes each
+        gradient whole."""
+        c, pol = self.cfg, self.policy
+        bs = (hs[0], None, None)
+        kw = dict(head_dim=c.ssm_head_dim, state=c.ssm_state, chunk=c.ssm_chunk,
+                  conv_width=c.ssm_conv_width, scan=self.ssd_scan, scan_bwd=self.ssd_scan_bwd)
+        if c.ssm_heads % pol.tp_size == 0:
+            x = pol.to_local(pol.from_local(x_loc, hs), bs, split=(pol.tp,))
+            w = self._local(p, (*_axes(bs), pol.tp))
+            y = ssm_mod.ssd_block(w, x, cache=sl, mean_sq=self._mean_sq(hs[0], c.d_inner), **kw)
+            return pol.constrain(pol.from_local(y, bs, partial=(pol.tp,)), hs)
+        x = pol.to_local(pol.from_local(x_loc, hs), bs)
+        whole = self._whole_conv_x(sl, hs[0], gather=False)
+        y = ssm_mod.ssd_block(self._local(p, _axes(bs), whole=True), x, cache=whole, **kw)
+        self._own_conv_x(sl, whole)
+        return pol.constrain(pol.from_local(y, bs), hs)
 
     def _mlp_tp(self, p: Params, x_loc: torch.Tensor, xs: tuple):
         """SwiGLU of ``x_loc`` (in ``xs``) into ``xs``: column- then
@@ -758,30 +879,46 @@ class LM:
         entry = self.policy.kv_cache_spec(B, T)[2]
         return self._index(entry) * (T // self._size(entry)), entry
 
+    def _dec_whole(self, sl, T: int) -> bool:
+        """Whether a decoder block's cache slice (this rank's shard) holds
+        every slot of its self and cross caches (or there is none)."""
+        return sl is None or (sl["kv"]["k"].shape[1] == T
+                              and sl["cross"]["k"].shape[1] == self.cfg.encoder_seq)
+
     def _block_tp(self, kind: str, lp: Params, h, sl, enc, train: bool,
                   t0: int = 0, T: int = 0):
-        """One block of ``_stack`` under the policy, h a DTensor; ``sl`` this
-        rank's shard (slots t0 .. of T) of its cache slice, or None. Returns
-        (h, the MoE aux or None)."""
+        """One block of ``_stack`` under the policy (or "enc", an encoder
+        block: attention non-causal, no cache), h a DTensor; ``sl`` this
+        rank's shard (self-attention slots t0 .. of T) of its cache slice,
+        or None; ``enc`` this rank's rows of the encoder output over every
+        frame. Returns (h, the MoE aux or None). At model = 1 a Mamba block,
+        and a decoder block whose caches are whole, run as without a policy
+        on this rank's rows."""
         c, pol = self.cfg, self.policy
         hs = self._hspec(*h.shape[:2])
-        if kind != "attn":  # model = 1 (_check_policy): the plain block, own rows
-            if kind == "dec" and sl is not None and sl["kv"]["k"].shape[1] != T:
-                raise NotImplementedError(f"a cache split on sequence in the {c.family} "
-                                          f"family")
+        if pol.tp_size == 1 and (kind == "ssm" or kind == "dec" and self._dec_whole(sl, T)):
             lp, h_loc = self._local(lp, _axes(hs)), h.to_local()
             if train:
                 h_loc, aux = self._train_block(kind, lp, h_loc, enc)
             else:
                 h_loc, aux = self._prefill_block(kind, lp, h_loc, sl, enc), None
             return pol.from_local(h_loc, hs), aux
+        if kind == "ssm":
+            x = rms_norm(self._local(lp["ln"], _axes(hs)), h.to_local(), c.norm_eps)
+            return h + self._mamba_tp(lp["ssd"], x, hs, sl), None
         x = rms_norm(self._local(lp["ln1"], _axes(hs)), h.to_local(), c.norm_eps)
-        a, k, v = self._attn_tp(lp["attn"], x, hs, train)
-        if sl is not None:
+        a, k, v = self._attn_tp(lp["attn"], x, hs, train, causal=kind != "enc")
+        kv = sl["kv"] if kind == "dec" and sl is not None else sl
+        if kv is not None:
             if k.shape[2] < c.num_kv_heads:
-                k, v = self._gather_heads(k, hs[0]), self._gather_heads(v, hs[0])
-            self._fill_cache(sl, k, v, h.shape[1], T, t0)
-        return self._ffn_tp(lp, h + a, hs)
+                k, v = self._gather(k, hs[0], 2), self._gather(v, hs[0], 2)
+            self._fill_cache(kv, k, v, h.shape[1], T, t0)
+        h = h + a
+        if kind == "dec":
+            x = rms_norm(self._local(lp["ln_x"], _axes(hs)), h.to_local(), c.norm_eps)
+            h = h + self._cross_tp(lp["xattn"], x, hs, enc,
+                                   None if sl is None else sl["cross"], train)
+        return self._ffn_tp(lp, h, hs)
 
     def _body_tp(self, params: Params, h, cache: Params | None, enc, train: bool):
         """``_body`` / the loss's stack under the policy (``cache``: a
@@ -874,10 +1011,8 @@ class LM:
         """One token's attention on this rank's rows ``x`` [B_loc, 1, d]
         (the same on every "model" rank) and its shard ``sl`` of the cache,
         slots t0 .. t0 + len - 1 of T: the token's k/v written where its
-        slot lies; this rank's heads, summed over "model". Where the cache
-        splits on sequence (``seq``, its axes), each rank takes every head
-        over its own slots and the parts combine by their softmax
-        statistics (flash decoding)."""
+        slot lies; this rank's heads (``_decode_attend``), summed over
+        "model"."""
         c, pol = self.cfg, self.policy
         w = self._local(p)
         H = c.num_heads // pol.tp_size
@@ -888,7 +1023,7 @@ class LM:
                             num_kv_heads=kv_w, head_dim=c.head_dim,
                             rope_theta=kw["rope_theta"], rotary_pct=kw["rotary_pct"])
         if kv_w < c.num_kv_heads:
-            k, v = self._gather_heads(k, bdim), self._gather_heads(v, bdim)
+            k, v = self._gather(k, bdim, 2), self._gather(v, bdim, 2)
         window = c.sliding_window
         slot = pos % T if window > 0 else pos
         n = sl["k"].shape[1]
@@ -899,29 +1034,75 @@ class LM:
         valid = ((kpos <= pos % T) | (pos >= T)) if window > 0 else kpos <= pos
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         mask = torch.where(valid, zero, float("-inf"))[None, :]
+        out = self._decode_attend(q, sl, mask, bdim, first, seq, kw["softcap"])
+        return self._decode_out(out.to(x.dtype), w, bdim)
+
+    def _decode_attend(self, q: torch.Tensor, sl: Params, mask: torch.Tensor, bdim,
+                       first: int, seq, softcap: float) -> torch.Tensor:
+        """Decode attention of this rank's query heads ``q`` [B_loc, 1, H_loc,
+        hd] (heads first ..) over its shard ``sl`` of a cache of every KV
+        head, ``mask`` [1, its slots]. Where the cache splits on sequence
+        (``seq``, its axes), each rank takes every head over its own slots
+        and the parts combine by their softmax statistics (flash decoding)."""
+        c, pol = self.cfg, self.policy
+        H = q.shape[2]
         if self._size(seq) == 1:
             sel = attn.local_kv_heads(c.num_heads, c.num_kv_heads, first, H)
-            out = attn.attend(q, sl["k"][:, :, sel], sl["v"][:, :, sel], mask,
-                              softcap=kw["softcap"]).to(x.dtype)
-        else:
-            if pol.tp_size > 1:
-                q = self._gather_heads(q, bdim)
-            o, m, lsum = attn.attention_scores_partial(q, sl["k"], sl["v"], mask,
-                                                       softcap=kw["softcap"])
-            mx = m.clone()
-            dm = pol.device_mesh
-            import torch.distributed as dist
-            for a in _axes((seq,)):
-                dist.all_reduce(mx, dist.ReduceOp.MAX, group=dm.get_group(a))
-            scale = torch.where(torch.isinf(m), zero, torch.exp(m - mx))
-            o, lsum = o * scale[..., None], lsum * scale
-            for a in _axes((seq,)):
-                dist.all_reduce(o, group=dm.get_group(a))
-                dist.all_reduce(lsum, group=dm.get_group(a))
-            out = (o / lsum[..., None])[:, :, first:first + H].to(x.dtype)
-        a = out.reshape(x.shape[0], 1, H * c.head_dim) @ w["wo"].to(x.dtype)
+            return attn.attend(q, sl["k"][:, :, sel], sl["v"][:, :, sel], mask,
+                               softcap=softcap)
+        if pol.tp_size > 1:
+            q = self._gather(q, bdim, 2)
+        o, m, lsum = attn.attention_scores_partial(q, sl["k"], sl["v"], mask, softcap=softcap)
+        mx = m.clone()
+        dm = pol.device_mesh
+        import torch.distributed as dist
+        for a in _axes((seq,)):
+            dist.all_reduce(mx, dist.ReduceOp.MAX, group=dm.get_group(a))
+        zero = torch.zeros((), dtype=torch.float32, device=q.device)
+        scale = torch.where(torch.isinf(m), zero, torch.exp(m - mx))
+        o, lsum = o * scale[..., None], lsum * scale
+        for a in _axes((seq,)):
+            dist.all_reduce(o, group=dm.get_group(a))
+            dist.all_reduce(lsum, group=dm.get_group(a))
+        return (o / lsum[..., None])[:, :, first:first + H]
+
+    def _decode_out(self, out: torch.Tensor, w: Params, bdim) -> torch.Tensor:
+        """This rank's heads' attention output [B_loc, 1, H_loc, hd] through
+        its wo rows, summed over "model"."""
+        pol = self.policy
+        a = out.reshape(*out.shape[:2], -1) @ w["wo"].to(out.dtype)
         bs = (bdim, None, None)
         return pol.to_local(pol.from_local(a, bs, partial=(pol.tp,)), bs)
+
+    def _cross_decode_tp(self, p: Params, x: torch.Tensor, cross: Params, bdim, seq):
+        """One token's cross-attention on this rank's rows ``x`` [B_loc, 1,
+        d] over its shard ``cross`` of the layer's cross cache (split on
+        sequence over ``seq``): this rank's heads, no mask, summed over
+        "model"."""
+        c, pol = self.cfg, self.policy
+        w = self._local(p)
+        H = c.num_heads // pol.tp_size
+        q = attn._split_heads(x @ w["wq"].to(x.dtype), H, c.head_dim)
+        mask = torch.zeros((1, cross["k"].shape[1]), dtype=torch.float32, device=x.device)
+        out = self._decode_attend(q, cross, mask, bdim, pol.coordinate(pol.tp) * H, seq, 0.0)
+        return self._decode_out(out.to(x.dtype), w, bdim)
+
+    def _mamba_decode_tp(self, p: Params, x: torch.Tensor, sl: Params, bdim):
+        """One token's Mamba2 block at model > 1 on this rank's rows ``x``
+        [B_loc, 1, d] (the same on every "model" rank) and its shard ``sl``
+        of the SSM cache, written in place: as ``_mamba_tp``, this rank's
+        heads summed over "model", or every head on every rank."""
+        c, pol = self.cfg, self.policy
+        kw = dict(head_dim=c.ssm_head_dim, state=c.ssm_state)
+        if c.ssm_heads % pol.tp_size == 0:
+            y = ssm_mod.ssd_decode_step(self._local(p), x, sl,
+                                        mean_sq=self._mean_sq(bdim, c.d_inner), **kw)
+            bs = (bdim, None, None)
+            return pol.to_local(pol.from_local(y, bs, partial=(pol.tp,)), bs)
+        whole = self._whole_conv_x(sl, bdim, gather=True)
+        y = ssm_mod.ssd_decode_step(self._local(p, whole=True), x, whole, **kw)
+        self._own_conv_x(sl, whole)
+        return y
 
     def _decode_step_tp(self, params: Params, cache: Params, tokens: torch.Tensor, pos: int):
         c, pol = self.cfg, self.policy
@@ -930,14 +1111,24 @@ class LM:
         bs = (bdim, None, None)
         T = cache["kv"]["k"].shape[2] if "kv" in cache else 0
         t0, seq = self._kv_split(B, T) if T else (0, None)
+        seq_x = self._kv_split(B, c.encoder_seq)[1] if "cross" in cache else None
+        split = pol.tp_size > 1 or self._size(seq) > 1 or self._size(seq_x) > 1
         x = self._embed_tp(params["embed"]["table"], tokens[:, None], bdim)  # [B_loc,1,d]
         for kind, lp, sl in self._stack(params, _local_views(cache)):
-            if kind == "attn" and (pol.tp_size > 1 or self._size(seq) > 1):
+            if kind == "ssm" and pol.tp_size > 1:
+                x = x + self._mamba_decode_tp(
+                    lp["ssd"], rms_norm(self._local(lp["ln"]), x, c.norm_eps), sl, bdim)
+            elif kind != "ssm" and split:
+                kv = sl["kv"] if kind == "dec" else sl
                 x = x + self._attn_decode_tp(
-                    lp["attn"], rms_norm(self._local(lp["ln1"]), x, c.norm_eps), sl, pos,
+                    lp["attn"], rms_norm(self._local(lp["ln1"]), x, c.norm_eps), kv, pos,
                     bdim, t0, T, seq)
+                if kind == "dec":
+                    x = x + self._cross_decode_tp(
+                        lp["xattn"], rms_norm(self._local(lp["ln_x"]), x, c.norm_eps),
+                        sl["cross"], bdim, seq_x)
                 x = self._ffn_tp(lp, pol.from_local(x, bs), bs)[0].to_local()
-            else:  # model = 1 and a whole cache: the plain block on own rows
+            else:  # model = 1 and whole caches: the plain block on own rows
                 x = self._decode_block(kind, self._local(lp), x, sl, pos)
         return self._last_logits(params, x, bdim), cache
 

@@ -1,5 +1,5 @@
-"""One rank of the port's tensor-parallel tests, started by
-``torch.multiprocessing`` from ``tests/test_torch_sharding.py``.
+"""One rank of the port's tensor-parallel tests, started by ``spawn`` from
+``tests/test_torch_sharding.py`` and ``tests/test_torch_sharding_families.py``.
 
 Imports torch, numpy and the port only (no jax), so each process starts
 fast. Every rank joins a gloo group through a ``file://`` rendezvous (no
@@ -10,7 +10,9 @@ hold against the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from datetime import timedelta
 from pathlib import Path
 
@@ -68,9 +70,34 @@ def _requires_grad(tree):
     return tree.detach().requires_grad_(True)
 
 
+@contextlib.contextmanager
+def planted(fault: str | None):
+    """A planted fault for one case: "local_mean", the Mamba2 gated norm's
+    mean of squares taken over this rank's channels alone at model > 1."""
+    from repro_torch.models import LM
+
+    if fault is None:
+        yield
+        return
+    if fault != "local_mean":
+        raise ValueError(f"unknown fault {fault!r}")
+    keep = LM._mean_sq
+    LM._mean_sq = lambda self, bdim, width: None
+    try:
+        yield
+    finally:
+        LM._mean_sq = keep
+
+
 def run_case(pol_mesh, case: dict, inputs: dict, out_dir: Path, rank: int) -> None:
     """One case on this rank: the policy LM's prefill logits, its decode
-    logits at each fed token, loss, moe_aux and every gradient, full."""
+    logits at each fed token, every leaf of its cache after them, loss,
+    moe_aux and every gradient, full."""
+    with planted(case.get("fault")):
+        _run_case(pol_mesh, case, inputs, out_dir, rank)
+
+
+def _run_case(pol_mesh, case: dict, inputs: dict, out_dir: Path, rank: int) -> None:
     from repro_torch.bridge import params_from_jax
     from repro_torch.launch.sharding import ShardingPolicy
     from repro_torch.models import LM
@@ -80,8 +107,8 @@ def run_case(pol_mesh, case: dict, inputs: dict, out_dir: Path, rank: int) -> No
     params = params_from_jax(unflatten(inputs["params"]), "cpu", torch.float32)
     tokens = torch.from_numpy(inputs["tokens"])
     fed = torch.from_numpy(inputs["fed"])
-    stub = {k: torch.from_numpy(inputs[k]) for k in ("patches",) if k in inputs}
-    P = stub["patches"].shape[1] if stub else 0
+    stub = {k: torch.from_numpy(inputs[k]) for k in ("patches", "frames") if k in inputs}
+    P = stub["patches"].shape[1] if "patches" in stub else 0
     B, S = tokens.shape
     res = {}
     pol = ShardingPolicy(pol_mesh, cfg)
@@ -96,7 +123,7 @@ def run_case(pol_mesh, case: dict, inputs: dict, out_dir: Path, rank: int) -> No
         for i in range(fed.shape[1]):
             logits, cache = step.decode_step(placed, cache, fed[:, i], P + S + i)
             res[f"decode{i}"] = logits.full_tensor()
-        res["cache_k"] = cache["kv"]["k"].full_tensor()
+        res.update({f"cache/{k}": t.full_tensor() for k, t in flatten(cache).items()})
     if "labels" in inputs:
         batch = {"tokens": tokens, "labels": torch.from_numpy(inputs["labels"]), **stub}
         loss, metrics, grads = _loss_and_grads(lm, placed, batch)
@@ -133,6 +160,30 @@ def run_aligned_moe(pol_mesh, out_dir: Path, rank: int) -> None:
                  want=want.detach().numpy(), aux=metrics["moe_aux"].detach().numpy(),
                  want_aux=want_metrics["moe_aux"].detach().numpy(),
                  worst=np.array(max(err.values())))
+
+
+def spawn(tmp_path: Path, shape: tuple, cases: list, limit: float = 240) -> Path:
+    """Run ``cases`` on data x model gloo ranks; fail, and stop them, after
+    ``limit`` seconds rather than hang. Returns the directory of rank 0's
+    results."""
+    import torch.multiprocessing as mp
+
+    world = shape[0] * shape[1]
+    out = tmp_path / f"out{shape[0]}x{shape[1]}"
+    out.mkdir()
+    ctx = mp.start_processes(
+        run_rank, nprocs=world, join=False, start_method="spawn",
+        args=(world, shape, str(tmp_path / f"rdv{shape[0]}x{shape[1]}"), str(tmp_path),
+              str(out), cases))
+    deadline = time.monotonic() + limit
+    try:
+        while not ctx.join(timeout=1):
+            assert time.monotonic() < deadline, f"the {world} gloo ranks did not finish"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return out
 
 
 def run_rank(rank: int, world: int, shape: tuple, init_file: str, in_dir: str,

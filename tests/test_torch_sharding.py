@@ -14,7 +14,6 @@ kernel has no VJP) for the loss and every gradient leaf, by rel-L2 1e-4.
 
 import dataclasses
 import functools
-import time
 import types
 
 import numpy as np
@@ -270,19 +269,24 @@ def test_reference_pad_heads_init_draws_nonzero_pad_wo_rows():
 # ---------------------------------------------------------------------------
 
 def test_policy_checks(monkeypatch):
-    """At model > 1 the ssm, hybrid and encdec families raise, naming the
-    ROADMAP item; heads and experts must divide the model axis."""
+    """The ssm, hybrid and encdec families take a policy at model 1, 2 and
+    4; full mamba2-370m (attention-free: ``num_heads`` 1) at model 2 too;
+    attention heads (the hybrid's and whisper's included) and experts must
+    divide the model axis."""
     mesh = tmesh.make_test_mesh(1, 2, device_type="cpu")
+    four = tmesh.make_test_mesh(1, 4, device_type="cpu")
     for arch in ("mamba2-370m", "zamba2-7b", "whisper-medium"):
         cfg = tget_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            TLM(cfg, device="cpu", policy=tsh.ShardingPolicy(mesh, cfg))
-        one = tmesh.make_test_mesh(2, 1, device_type="cpu")
-        assert TLM(cfg, device="cpu", policy=tsh.ShardingPolicy(one, cfg)).policy is not None
+        for m in (tmesh.make_test_mesh(2, 1, device_type="cpu"), mesh, four):
+            assert TLM(cfg, device="cpu", policy=tsh.ShardingPolicy(m, cfg)).policy is not None
+    full = tget_config("mamba2-370m")
+    assert full.num_heads == 1
+    assert TLM(full, device="cpu", policy=tsh.ShardingPolicy(mesh, full)).policy is not None
+    for arch in ("llama3.2-1b", "zamba2-7b", "whisper-medium"):
+        cfg = tget_config(arch).reduced(num_heads=6, num_kv_heads=2)
+        with pytest.raises(ValueError, match="pad_heads"):
+            TLM(cfg, device="cpu", policy=tsh.ShardingPolicy(four, cfg))
     cfg = tget_config("llama3.2-1b").reduced(num_heads=6)
-    four = tmesh.make_test_mesh(1, 4, device_type="cpu")
-    with pytest.raises(ValueError, match="pad_heads"):
-        TLM(cfg, device="cpu", policy=tsh.ShardingPolicy(four, cfg))
     moe = tget_config("granite-moe-3b-a800m").reduced(num_experts=6)
     with pytest.raises(ValueError, match="ep_degree"):
         TLM(moe, device="cpu", policy=tsh.ShardingPolicy(four, moe))
@@ -369,29 +373,6 @@ def _padded_params(jparams):
     return params_to_numpy(pad_head_params(tree, cfg, padded)), cfg, padded
 
 
-def _spawn(tmp_path, shape, cases, limit=240):
-    """Run ``cases`` on data x model gloo ranks; fail, and stop them, after
-    ``limit`` seconds rather than hang."""
-    import torch.multiprocessing as mp
-
-    world = shape[0] * shape[1]
-    out = tmp_path / f"out{shape[0]}x{shape[1]}"
-    out.mkdir()
-    ctx = mp.start_processes(
-        tp_worker.run_rank, nprocs=world, join=False, start_method="spawn",
-        args=(world, shape, str(tmp_path / f"rdv{shape[0]}x{shape[1]}"), str(tmp_path),
-              str(out), cases))
-    deadline = time.monotonic() + limit
-    try:
-        while not ctx.join(timeout=1):
-            assert time.monotonic() < deadline, f"the {world} gloo ranks did not finish"
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-    return out
-
-
 TP_MESHES = [(1, 2), (1, 4), (2, 2)]
 
 
@@ -419,7 +400,7 @@ def tp_runs(tmp_path_factory):
             cases.append({"name": "batch1", "arch": "llama3.2-1b", "over": {},
                           "inputs": _save_inputs(tmp, "batch1", 2, params)})
             cases.append({"name": "aligned_moe"})
-        runs[shape] = _spawn(tmp, shape, cases)
+        runs[shape] = tp_worker.spawn(tmp, shape, cases)
     return runs
 
 
@@ -481,7 +462,7 @@ def test_tensor_parallel_cache_matches_the_unsharded_prefill(tp_runs):
             for i in range(FED):
                 lm.decode_step(tparams, cache, fed[:, i], S + i)
         with np.load(tp_runs[shape] / f"{name}.npz") as f:
-            assert _rel(f["cache_k"], cache["kv"]["k"].numpy()) <= 1e-6, (shape, name)
+            assert _rel(f["cache/kv/k"], cache["kv"]["k"].numpy()) <= 1e-6, (shape, name)
 
 
 def test_moe_ranks_holding_whole_routing_groups(tp_runs):
