@@ -177,9 +177,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    version, timed beside it, its bound and (flash) SDPA, with the head
    grouping of the SSD backward printed and whether a rank's heads equal
    the same heads of the full call bit for bit;
-16. print one JSON line of per-kernel numbers (each kernel's numbers at the
-   per-rank shapes of (d) under ``tp_shapes``);
-17. print the result line ``{"ok": true, "device": {...}}`` last.
+16. the step builders (``launch/steps.py``) on a one-rank NCCL group and a
+   data = 1 x model = 1 mesh: (a) all 40 cells of the shape table on both
+   production meshes built as bundles of meta-device stand-ins, the card's
+   allocated memory unchanged; (b) full-width llama3.2-1b's train kind at
+   train_lm's first step (4 x 1024 tokens) at accum 1 and 2: accum 1's
+   loss against ``Trainer.step``'s, accum 2 against accum 1 (loss and
+   gradient norm), the f32 gradient sum left undivided by accum as a
+   planted fault that must fail, then three timed steps of each with the
+   flash launches counted exactly, step ms and peak memory; (c) the
+   prefill kind at 4 x 1024 and one step of the decode kind over the
+   prefill's cache, bit for bit the same as ``LM`` without a policy, the
+   prefill's launches counted;
+17. print one JSON line of per-kernel numbers (each kernel's numbers at the
+   per-rank shapes of (d) under ``tp_shapes``, the bundle steps' launches
+   under ``steps_launches``);
+18. print the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of jax or of the JAX package ``repro``.
 """
@@ -621,6 +634,18 @@ POLICY_FAMILY_DECODE = 8
 TP_DEGREES = (2, 4)
 TP_SSD_SHAPES = {"mamba2-370m": SSD_SLICE, "zamba2-7b": ZAMBA2_SSD}
 TP_FLASH_SHAPES = ("whisper encoder", "whisper cross", "whisper decoder")
+# the steps phase: launch/steps.py's bundles, full-width llama3.2-1b at one
+# rank (data = 1 x model = 1) of a one-rank NCCL group: the train kind at
+# train_lm's first step (4 x 1024 tokens) at each accum, the first step
+# held to Trainer.step's loss and accum 2 to accum 1 (the microbatches'
+# gradient norm within 1e-2: each microbatch's bf16 gradients round apart
+# from the whole batch's); the prefill kind at 4 x 1024, one decode step
+STEPS_ARCH = "llama3.2-1b"
+STEPS_SHAPE = (SERVE_PROMPT, SERVE_BATCH)  # seq_len, global_batch
+STEPS_ACCUMS = (1, 2)
+STEPS_TIMED = 3  # timed steps of each accum, after one warm-up
+STEPS_LOSS_REL_TOL = 1e-3
+STEPS_GNORM_REL_TOL = 1e-2
 
 
 # ptxas -v lines: the entry a block of lines is about, its registers and spills
@@ -3718,6 +3743,237 @@ def sharding_policy_phase(torch, dev, fa, ops, ssd, smi_line: str) -> dict:
     return per_rank
 
 
+def stand_in_tensors(tree) -> list:
+    """Every tensor of a bundle's ``args`` (dicts, tuples, ``AdamWState``)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in stand_in_tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in stand_in_tensors(v)]
+    if dataclasses.is_dataclass(tree):
+        return stand_in_tensors([getattr(tree, f.name) for f in dataclasses.fields(tree)])
+    return [tree]
+
+
+def stand_in_checks(torch, dev) -> int:
+    """(a): every cell of the shape table on both production meshes built
+    as a bundle of meta-device stand-ins, the card's allocated memory the
+    same before and after. Returns the count of bundles."""
+    from repro_torch.configs import all_cells
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_bundle
+
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    n = leaves = elements = 0
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        for arch, shape, _, _ in all_cells():
+            tensors = stand_in_tensors(build_bundle(arch, shape, mesh).args)
+            if not all(t.device.type == "meta" for t in tensors):
+                fail(f"a stand-in of {arch} x {shape} on {mesh.shape} is not on meta")
+            n, leaves = n + 1, leaves + len(tensors)
+            elements += sum(t.numel() for t in tensors)
+    torch.cuda.synchronize(dev)
+    after = torch.cuda.memory_allocated(dev)
+    print(f"  stand-ins: {n} bundles (40 cells x 2 production meshes) in "
+          f"{time.perf_counter() - t0:.2f} s, {leaves} meta tensors of {elements:.4g} "
+          f"elements; memory_allocated {before} -> {after} B")
+    if n != 80 or after != before:
+        fail(f"{n} bundles, memory_allocated {before} -> {after}: want 80 and no change")
+    return n
+
+
+def bundle_train_checks(torch, dev, fa, smi_line: str) -> dict:
+    """(b): the train kind at each of ``STEPS_ACCUMS`` on train_lm's first
+    step's params and batch: the first step's loss against
+    ``Trainer.step``'s, accum 2 against accum 1, the undivided gradient sum
+    as a planted fault that must fail that check; then ``STEPS_TIMED``
+    timed steps with the flash launches counted. Returns the launches a
+    step by accum."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import _batch_for_step
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train_lm import DATA_SEED, Trainer, clone_params
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    cfg = get_config(STEPS_ARCH)
+    S, B = STEPS_SHAPE
+    shape = ShapeSpec("train_1k", S, B, "train")
+    mesh = make_test_mesh(data=1, model=1)
+    params = LM(cfg, device=dev).init(0, param_dtype=torch.float32)
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64)
+             for k, v in _batch_for_step(DATA_SEED, 0, B, S, cfg.vocab_size).items()}
+    trainer = Trainer(LM(cfg, device=dev, remat=True), params, 1, "builtin",
+                      cosine_schedule(3e-4, warmup=20, total=100))
+    want_loss, want_gnorm = trainer.step(batch)
+    del trainer
+    torch.cuda.empty_cache()
+
+    def first_step(accum: int) -> dict:
+        bundle = steps.build_bundle(STEPS_ARCH, shape, mesh, accum_steps=accum)
+        placed = bundle.lm.policy.param_shardings(clone_params(params))
+        _, _, metrics = bundle.fn(placed, adamw_init(placed), batch)
+        return {k: float(full(v)) for k, v in metrics.items()}
+
+    first = {a: first_step(a) for a in STEPS_ACCUMS}
+    one, two = first[1], first[2]
+    rel = abs(one["loss"] - want_loss) / abs(want_loss)
+    print(f"  train {STEPS_ARCH} {B}x{S} (f32 masters, bf16 compute copies): accum 1 loss "
+          f"{one['loss']:.6f} vs Trainer.step's {want_loss:.6f} (rel {rel:.3g}, tol "
+          f"{STEPS_LOSS_REL_TOL}); grad norm {one['grad_norm']:.6f} vs {want_gnorm:.6f} "
+          f"(differentiated at the f32 masters)")
+    if not (rel <= STEPS_LOSS_REL_TOL and finite(*one.values())):
+        fail("the bundle's first training step disagrees with Trainer.step's loss")
+
+    def accum_agrees(got: dict) -> tuple:
+        rl = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+        rg = abs(got["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+        return rl, rg, rl <= STEPS_LOSS_REL_TOL and rg <= STEPS_GNORM_REL_TOL
+
+    rl, rg, ok = accum_agrees(two)
+    print(f"  accum 2 vs 1: loss {two['loss']:.6f} vs {one['loss']:.6f} (rel {rl:.3g}, tol "
+          f"{STEPS_LOSS_REL_TOL}), xent {two['xent']:.6f} vs {one['xent']:.6f}, grad norm "
+          f"{two['grad_norm']:.6f} vs {one['grad_norm']:.6f} (rel {rg:.3g}, tol "
+          f"{STEPS_GNORM_REL_TOL}), lr {two['lr']:.4g}")
+    if not (ok and finite(*two.values())):
+        fail("the bundle's accum 2 step disagrees with its accum 1 step")
+    keep = steps.mean_of_sum
+    steps.mean_of_sum = lambda gsum, n: gsum  # planted: the sum not divided by accum
+    try:
+        faulty = first_step(2)
+    finally:
+        steps.mean_of_sum = keep
+    rl, rg, ok = accum_agrees(faulty)
+    print(f"  planted fault (the f32 gradient sum not divided by accum): grad norm "
+          f"{faulty['grad_norm']:.6f} (rel {rg:.3g}) {'PASSED: FAIL' if ok else 'fails, as it must'}")
+    if ok:
+        fail("the accum check passed the undivided gradient sum")
+
+    counters = flash_counters(fa)
+    launches = {}
+    for accum in STEPS_ACCUMS:
+        bundle = steps.build_bundle(STEPS_ARCH, shape, mesh, accum_steps=accum)
+        placed = bundle.lm.policy.param_shardings(clone_params(params))
+        opt = adamw_init(placed)
+        bundle.fn(placed, opt, batch)  # warm-up
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms, losses = [], []
+        for _ in range(STEPS_TIMED):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            _, _, metrics = bundle.fn(placed, opt, batch)
+            torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(full(metrics["loss"])))
+        peak = torch.cuda.max_memory_allocated(dev)
+        counted = {c.__name__: c.launches for c in counters}
+        L = cfg.num_layers
+        want = {"flash_attention": 2 * L * accum * STEPS_TIMED,
+                "flash_attention_wgmma": 2 * L * accum * STEPS_TIMED,
+                "flash_attention_mma": 0, "flash_attention_wide": 0,
+                "flash_attention_bwd": L * accum * STEPS_TIMED}
+        print(f"steps train accum={accum} ({smi_line}): step_ms={statistics.median(step_ms):.3f} "
+              f"(median of {STEPS_TIMED}: {', '.join(f'{x:.3f}' for x in step_ms)}) "
+              f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) loss "
+              f"{', '.join(f'{x:.6f}' for x in losses)}; launches a step: wgmma "
+              f"{counted['flash_attention_wgmma'] / STEPS_TIMED:g}, backward "
+              f"{counted['flash_attention_bwd'] / STEPS_TIMED:g}")
+        if counted != want:
+            fail(f"flash launches over {STEPS_TIMED} bundle steps at accum {accum} {counted}, "
+                 f"want {want} (a microbatch: the forward once a layer and again in "
+                 f"remat's recompute, the backward once)")
+        if not finite(*losses):
+            fail("a bundle step's loss is not finite")
+        launches[accum] = {k: n // STEPS_TIMED for k, n in counted.items()}
+        del bundle, placed, opt
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bundle_serve_checks(torch, dev, fa) -> int:
+    """(c): the prefill kind at ``STEPS_SHAPE`` and one step of the decode
+    kind over the prefill's cache, each bit for bit the same as ``LM``
+    without a policy on the same f32 params; the prefill's flash launches
+    counted. Returns them."""
+    from repro_torch.bridge import named_leaves
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import LM
+
+    cfg = get_config(STEPS_ARCH)
+    S, B = STEPS_SHAPE
+    mesh = make_test_mesh(data=1, model=1)
+    plain = LM(cfg, device=dev)
+    params = plain.init(0, param_dtype=torch.float32)
+    prompts = torch.from_numpy(make_prompts(B, S, cfg.vocab_size, 0)).to(dev)
+    pre = steps.build_bundle(STEPS_ARCH, ShapeSpec("prefill_1k", S, B, "prefill"), mesh)
+    placed = pre.lm.policy.param_shardings(params)
+    pre.fn(placed, {"tokens": prompts})  # warm-up
+    counters = flash_want(fa, wgmma=cfg.num_layers)
+    for c in counters:
+        c.launches = 0
+    got = full(pre.fn(placed, {"tokens": prompts}))
+    counted = {c: c.launches for c in counters}
+    with torch.no_grad():
+        want = plain.forward_logits(params, prompts)
+    same_prefill = torch.equal(got, want)
+    nxt = want[:, -1].argmax(-1)
+    del got, want
+    dec = steps.build_bundle(STEPS_ARCH, ShapeSpec("decode_1k", S + 1, B, "decode"), mesh)
+    with torch.no_grad():
+        _, cache = dec.lm.prefill(placed, prompts, max_seq=S + 1)
+        _, plain_cache = plain.prefill(params, prompts, max_seq=S + 1)
+    layout = [(p, tuple(t.shape), t.dtype) for p, t in named_leaves(cache)]
+    if layout != [(p, tuple(t.shape), t.dtype) for p, t in named_leaves(dec.args[1])]:
+        fail("the decode bundle's cache stand-ins differ from the cache a prefill lays out")
+    got, _ = dec.fn(placed, cache, nxt, torch.tensor(S))
+    with torch.no_grad():
+        want, _ = plain.decode_step(params, plain_cache, nxt, S)
+    same_decode = torch.equal(full(got), want)
+    print(f"  prefill {B}x{S}: logits bit-equal to LM without a policy {same_prefill}, "
+          f"wgmma launches {counted[fa.flash_attention_wgmma]} (want {cfg.num_layers}); "
+          f"decode step at {S}: logits bit-equal {same_decode}; the decode bundle's "
+          f"{len(layout)} cache stand-ins match the prefill's cache")
+    if counted != counters:
+        fail(f"flash launches of the prefill bundle "
+             f"{({c.__name__: n for c, n in counted.items()})}, want "
+             f"{({c.__name__: n for c, n in counters.items()})}")
+    if not (same_prefill and same_decode):
+        fail("the prefill or decode bundle is not bit-equal to LM without a policy")
+    del params, placed, cache, plain_cache
+    torch.cuda.empty_cache()
+    return counted[fa.flash_attention_wgmma]
+
+
+def steps_phase(torch, dev, fa, smi_line: str, group=one_rank_nccl_group) -> dict:
+    """launch/steps.py on the card: (a) the stand-ins, (b) the train kind,
+    (c) the prefill and decode kinds, on a one-rank group. Returns the
+    launches a step for the kernels line."""
+    t0 = time.perf_counter()
+    phase("steps")
+    end = group(torch)
+    try:
+        stand_in_checks(torch, dev)
+        train = bundle_train_checks(torch, dev, fa, smi_line)
+        prefill = bundle_serve_checks(torch, dev, fa)
+    finally:
+        end()
+    print(f"steps: phase took {time.perf_counter() - t0:.1f} s")
+    return {"wgmma": {**{f"train_accum{a}": n["flash_attention_wgmma"]
+                         for a, n in train.items()}, "prefill": prefill},
+            "bwd": {f"train_accum{a}": n["flash_attention_bwd"] for a, n in train.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -4018,7 +4274,10 @@ def main() -> int:
     # 15. the sharding policy: LM(policy=) and pad_heads ----------------------
     per_rank = sharding_policy_phase(torch, dev, fa, ops, ssd, smi_line)
 
-    # 16. per-kernel numbers ------------------------------------------------
+    # 16. launch/steps.py: stand-ins, the train, prefill and decode kinds ---
+    bundle_launches = steps_phase(torch, dev, fa, smi_line)
+
+    # 17. per-kernel numbers ------------------------------------------------
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: {total_s:.1f} s in all, {total_s - build_s:.1f} s without the build")
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
@@ -4038,6 +4297,7 @@ def main() -> int:
         "bound_by": bounds["bfloat16"][1],
         "library_ms": times["sdpa_bf16"],
         "tp_shapes": per_rank["flash_attention_wgmma"],
+        "steps_launches": bundle_launches["wgmma"],
     }, {
         "name": "flash_attention_mma",
         "route": "cuda",
@@ -4075,6 +4335,7 @@ def main() -> int:
         "bound_by": bwd["bound"][1],
         "library_ms": bwd["library_ms"],
         "tp_shapes": per_rank["flash_attention_bwd"],
+        "steps_launches": bundle_launches["bwd"],
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -4102,7 +4363,7 @@ def main() -> int:
         "library_ms": None,
         "tp_shapes": per_rank["ssd_scan_bwd"],
     }]}))
-    # 17. result -------------------------------------------------------------
+    # 18. result -------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,11 @@
 """Architecture registry of the port: the ten architectures of the
 reference's registry (``repro/configs/__init__.py``), each selectable by
-name."""
+name, and the reference's shape table (train / prefill / decode /
+long-context), a copy of its lines 43-74."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.chatglm3_6b import CONFIG as chatglm3_6b
@@ -27,4 +30,39 @@ def get_config(arch: str) -> ModelConfig:
     return REGISTRY[arch]
 
 
-__all__ = ["ModelConfig", "REGISTRY", "get_config"]
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    """(runs?, reason-if-skipped). long_500k needs sub-quadratic attention."""
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return False, (
+            "pure full-attention arch: 512k context needs sub-quadratic "
+            "attention (see DESIGN.md §6)"
+        )
+    return True, ""
+
+
+def all_cells():
+    """Every (arch, shape) pair — 40 cells, with applicability flags."""
+    for arch, cfg in sorted(REGISTRY.items()):
+        for shape in SHAPES.values():
+            ok, why = shape_applicable(cfg, shape.name)
+            yield arch, shape.name, ok, why
+
+
+__all__ = ["ModelConfig", "REGISTRY", "SHAPES", "ShapeSpec", "all_cells", "get_config",
+           "shape_applicable"]

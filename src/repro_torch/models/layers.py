@@ -31,9 +31,12 @@ def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0,
     axis: in one draw, or one layer at a time into the stacked output where
     the whole f32 draw would exceed ``WHOLE_DRAW_BYTES``. Each draw is
     cast at once, so a model's init holds at most one f32 draw beside its
-    weights in ``dtype``."""
+    weights in ``dtype``. With ``MetaDraws`` in place of the generator,
+    nothing is drawn: an empty meta tensor of the same shape and dtype."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     full = (stack, *shape) if stack else tuple(shape)
+    if gen.device.type == "meta":  # ``MetaDraws``: the leaf's stand-in
+        return torch.empty(full, dtype=dtype, device="meta")
 
     def draw(size):
         return torch.randn(size, generator=gen, device=gen.device,
@@ -45,6 +48,15 @@ def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0,
     for w in out:
         w.copy_(draw(tuple(shape)))
     return out
+
+
+class MetaDraws:
+    """Takes a ``torch.Generator``'s place in the init functions: every
+    draw (``_init``) and constant (on the generator's device) becomes a
+    tensor on the meta device, so an init gives its tree's shapes and
+    dtypes and allocates nothing."""
+
+    device = torch.device("meta")
 
 
 # leaves the reference uses in f32 whatever the compute dtype: RMSNorm

@@ -41,6 +41,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
+    MetaDraws,
     Params,
     embed,
     embedding_init,
@@ -120,9 +121,20 @@ class LM:
         ``layers.F32_LEAVES`` are f32 either way. Every use casts a weight
         to the compute dtype, as the reference does. Under a policy the
         params are placed on its mesh (``param_shardings``)."""
-        c = self.cfg
-        wd = param_dtype or self.dtype
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        params = self._init_tree(gen, param_dtype or self.dtype)
+        return params if self.policy is None else self.policy.param_shardings(params)
+
+    def param_stand_ins(self, param_dtype: torch.dtype | None = None) -> Params:
+        """``init``'s tree (unplaced) as meta tensors of its leaves' shapes
+        and dtypes, made by the same code with nothing drawn
+        (``layers.MetaDraws``): no memory, no process group."""
+        return self._init_tree(MetaDraws(), param_dtype or self.dtype)
+
+    def _init_tree(self, gen, wd: torch.dtype) -> Params:
+        """The param tree drawn from ``gen`` (a generator, or ``MetaDraws``)
+        on its device, weights in ``wd``."""
+        c, dev = self.cfg, gen.device
         extra: Params = {}
         if c.family == "ssm":
             layers = self._mamba_init(gen, c.num_layers, wd)
@@ -134,24 +146,24 @@ class LM:
             extra["shared_attn"] = self._block_init(gen, 0, wd)
         elif c.family == "encdec":
             extra["enc_layers"] = self._block_init(gen, c.encoder_layers, wd)
-            extra["enc_ln"] = rms_norm_init(c.d_model, self.device)
+            extra["enc_ln"] = rms_norm_init(c.d_model, dev)
             layers = self._decoder_init(gen, c.num_layers, wd)
         else:
             layers = self._block_init(gen, c.num_layers, wd)
         params: Params = {
             "embed": embedding_init(gen, c.vocab_size, c.d_model, dtype=wd),
-            "final_ln": rms_norm_init(c.d_model, self.device),
+            "final_ln": rms_norm_init(c.d_model, dev),
             "layers": layers,
             **extra,
         }
         if not c.tie_embeddings:
             params["unembed"] = linear_init(gen, c.d_model, c.vocab_size, dtype=wd)
-        return params if self.policy is None else self.policy.param_shardings(params)
+        return params
 
     def _block_init(self, gen: torch.Generator, n: int, dtype: torch.dtype) -> Params:
         """``n`` stacked attention + FFN blocks (one unstacked if 0): SwiGLU
         ``mlp``, or ``moe`` in the moe family."""
-        c, dev = self.cfg, self.device
+        c, dev = self.cfg, gen.device
         p = {
             "ln1": rms_norm_init(c.d_model, dev, stack=n),
             "attn": attn.attention_init(gen, c.d_model, c.num_heads, c.num_kv_heads,
@@ -168,7 +180,7 @@ class LM:
     def _decoder_init(self, gen: torch.Generator, n: int, dtype: torch.dtype) -> Params:
         """``n`` stacked decoder blocks of the encdec family: self-attention,
         cross-attention (``xattn``, normed by ``ln_x``) and SwiGLU."""
-        c, dev = self.cfg, self.device
+        c, dev = self.cfg, gen.device
 
         def attention():
             return attn.attention_init(gen, c.d_model, c.num_heads, c.num_kv_heads,
@@ -187,7 +199,7 @@ class LM:
         """``n`` stacked Mamba2 blocks."""
         c = self.cfg
         return {
-            "ln": rms_norm_init(c.d_model, self.device, stack=n),
+            "ln": rms_norm_init(c.d_model, gen.device, stack=n),
             "ssd": ssm_mod.ssd_init(gen, c.d_model, expand=c.ssm_expand,
                                     head_dim=c.ssm_head_dim, state=c.ssm_state,
                                     conv_width=c.ssm_conv_width, stack=n, dtype=dtype),
@@ -501,20 +513,26 @@ class LM:
             leaf, pol.device_mesh, pol.placements(_at(specs, path)), src_data_rank=None),
             cache)
 
-    def _cache(self, batch_size: int, max_seq: int, dtype) -> Params:
+    def cache_stand_ins(self, batch_size: int, max_seq: int,
+                        dtype=torch.bfloat16) -> Params:
+        """``decode_init``'s tree (unplaced) as meta tensors: no memory."""
+        return self._cache(batch_size, max_seq, dtype, torch.device("meta"))
+
+    def _cache(self, batch_size: int, max_seq: int, dtype, device=None) -> Params:
         c = self.cfg
+        device = device or self.device
 
         def ssm(n):
             return ssm_mod.init_ssm_cache(
                 batch_size, c.d_inner, c.ssm_head_dim, c.ssm_state,
-                c.ssm_conv_width, device=self.device, stack=n)
+                c.ssm_conv_width, device=device, stack=n)
 
         def kv(n, kv_len=None):
             kv_len = kv_len or (min(max_seq, c.sliding_window) if c.sliding_window > 0
                                 else max_seq)
             shape = (n, batch_size, kv_len, c.num_kv_heads, c.head_dim)
-            return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                    "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+            return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device)}
 
         if c.family == "ssm":
             return {"ssm": ssm(c.num_layers)}

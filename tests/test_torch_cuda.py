@@ -791,3 +791,47 @@ def test_padded_model_on_card_matches_unpadded(cuda, arch):
             got, pcache = plm.decode_step(carried, pcache, tok, 100 + i)
             assert rel(got, want) <= 1e-5
             tok = want.argmax(-1)
+
+
+def test_bundle_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """``launch.steps``' train kind, reduced llama in f32 at accum 2, on a
+    one-rank NCCL group (the flash kernels, mma route) against the same
+    step on a one-rank gloo group on the CPU (the plain versions), from the
+    same params and batch: the loss within 1e-4, every updated leaf's step
+    within rel-L2 1e-3 (``hold_update``)."""
+    import torch.distributed as dist
+    from chip_smoke import one_rank_nccl_group
+
+    import _torch_steps_worker as steps_worker
+    from repro_torch.data.pipeline import _batch_for_step
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import LM
+
+    arch = "llama3.2-1b"
+    cfg = steps_worker.reduced_config(arch)
+    params = LM(cfg, device="cpu").init(0, param_dtype=torch.float32)
+    raw = _batch_for_step(0, 0, 4, 96, cfg.vocab_size)
+
+    def run(device):
+        # a copy on either device: the step updates its params in place
+        on = {k: v.to(device, copy=True) for k, v in steps_worker.flatten(params).items()}
+        batch = {k: torch.from_numpy(v).to(device, torch.int64) for k, v in raw.items()}
+        mesh = make_test_mesh(1, 1, device_type=device.type)
+        metrics, state = steps_worker.train_once(mesh, arch, 2, steps_worker.unflatten(on),
+                                                 batch)
+        return metrics, {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv", rank=0,
+                            world_size=1)
+    try:
+        want, want_state = run(torch.device("cpu"))
+    finally:
+        dist.destroy_process_group()
+    end = one_rank_nccl_group(torch)
+    try:
+        got, got_state = run(cuda)
+    finally:
+        end()
+    assert abs(got["loss"] - want["loss"]) <= 1e-4 * abs(want["loss"])
+    old = {f"param/{k}": v.numpy() for k, v in steps_worker.flatten(params).items()}
+    steps_worker.hold_update(got_state, want_state, old, 1e-3)
