@@ -189,10 +189,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    prefill kind at 4 x 1024 and one step of the decode kind over the
    prefill's cache, bit for bit the same as ``LM`` without a policy, the
    prefill's launches counted;
-17. print one JSON line of per-kernel numbers (each kernel's numbers at the
+17. the launchers (``launch/train.py``, ``launch/serve.py``) on a one-rank
+   NCCL group, the mesh data = 1 x model = 1: (a) full-width llama3.2-1b
+   trained for 10 steps at 4 x 1024 through ``launch.train.train`` (f32
+   params and AdamW, remat, the policy's DTensors; the reference's cadence
+   saves nothing before step 10): the first loss bit for bit against
+   ``Trainer.step``'s on the same params and batch, a pipeline started one
+   batch late as a planted fault that must fail it, the flash launches of
+   the 10 steps counted exactly (32 ``wgmma`` and 16 backward a step), the
+   step ms (median of steps 1-9), peak memory, straggler verdicts and
+   losses; (b) ``serve.main`` at full width, 4 x 1024 and 32 new tokens
+   under the mesh and policy: tokens and logits bit for bit against
+   ``serve()`` on ``LM`` without a policy, 16 ``wgmma`` launches;
+18. print one JSON line of per-kernel numbers (each kernel's numbers at the
    per-rank shapes of (d) under ``tp_shapes``, the bundle steps' launches
-   under ``steps_launches``);
-18. print the result line ``{"ok": true, "device": {...}}`` last.
+   under ``steps_launches``, the launchers' under ``launch_launches``);
+19. print the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of jax or of the JAX package ``repro``.
 """
@@ -202,6 +214,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -646,6 +659,15 @@ STEPS_ACCUMS = (1, 2)
 STEPS_TIMED = 3  # timed steps of each accum, after one warm-up
 STEPS_LOSS_REL_TOL = 1e-3
 STEPS_GNORM_REL_TOL = 1e-2
+# the launch phase: launch/train.py's train at full width, 4 sequences of
+# 1024 tokens a step (no card holds train_4k's 256 x 4096 at one rank), and
+# serve.main under the mesh and policy
+LAUNCH_ARCH = "llama3.2-1b"
+LAUNCH_SHAPE = (SERVE_PROMPT, SERVE_BATCH)  # seq_len, global_batch
+LAUNCH_STEPS = 10  # the reference's cadence saves nothing before step 10
+LAUNCH_GNORM_REL_TOL = 1e-6
+LAUNCH_SERVE_ARGV = ["--arch", LAUNCH_ARCH, "--batch", str(SERVE_BATCH),
+                     "--prompt-len", str(SERVE_PROMPT), "--new-tokens", str(SERVE_NEW)]
 
 
 # ptxas -v lines: the entry a block of lines is about, its registers and spills
@@ -3974,6 +3996,173 @@ def steps_phase(torch, dev, fa, smi_line: str, group=one_rank_nccl_group) -> dic
             "bwd": {f"train_accum{a}": n["flash_attention_bwd"] for a, n in train.items()}}
 
 
+def launch_train_checks(torch, dev, fa, smi_line: str, cfg=None, shape=LAUNCH_SHAPE,
+                        steps: int = LAUNCH_STEPS) -> dict:
+    """(a): ``launch.train.train`` of ``cfg`` (default: full-width
+    LAUNCH_ARCH) at ``shape`` (seq_len, global_batch) for ``steps`` steps
+    on the current group, the flash launches counted over the whole run:
+    its first loss against ``Trainer.step``'s on the same params (seed 0,
+    f32) and batch (the pipeline's batch 0), bit for bit; a pipeline
+    started one batch late as a planted fault that must fail that check.
+    Prints the step ms (median of steps 1 on), the peak memory, the
+    straggler verdicts and the losses. Returns the launches a step."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import _batch_for_step
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.train_lm import Trainer
+    from repro_torch.models import LM
+    from repro_torch.optim import cosine_schedule
+
+    cuda = dev.type == "cuda"
+    cfg = cfg or get_config(LAUNCH_ARCH)
+    S, B = shape
+    spec = ShapeSpec(f"train_{S}", S, B, "train")
+    trainer = Trainer(LM(cfg, device=dev, remat=True),
+                      LM(cfg, device=dev).init(0, param_dtype=torch.float32), 1, "builtin",
+                      cosine_schedule(3e-4, warmup=1, total=100))
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64)
+             for k, v in _batch_for_step(0, 0, B, S, cfg.vocab_size).items()}
+    want_loss, want_gnorm = trainer.step(batch)
+    del trainer, batch
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    ckpt = tempfile.mkdtemp()
+    counters = flash_counters(fa)
+    try:
+        for c in counters:
+            c.launches = 0
+        lines = []
+        t0 = time.perf_counter()
+        out = launcher.train(cfg, spec, steps=steps, ckpt_dir=ckpt, device=dev,
+                             log=lines.append)
+        wall = time.perf_counter() - t0
+        counted = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        saved = sorted(os.listdir(ckpt))
+        del out["params"], out["opt"]
+        if cuda:
+            torch.cuda.empty_cache()
+        real = launcher.DataPipeline
+        launcher.DataPipeline = lambda **kw: real(**{**kw, "start_step": kw["start_step"] + 1})
+        try:  # planted: the pipeline one batch late
+            faulty = launcher.train(cfg, spec, steps=1, ckpt_dir=ckpt, device=dev,
+                                    log=lambda line: None)["loss"][0]
+        finally:
+            launcher.DataPipeline = real
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses, ms = out["loss"], [x * 1e3 for x in out["step_s"]]
+    got_loss, got_gnorm = losses[0], out["grad_norm"][0]
+    rg = abs(got_gnorm - want_gnorm) / abs(want_gnorm)
+    print(f"  train {cfg.name} {B}x{S} through launch.train ({out['mesh'].axis_sizes}, "
+          f"f32 params and AdamW, remat): first loss {got_loss!r} vs Trainer.step's "
+          f"{want_loss!r} ({'bit-equal' if got_loss == want_loss else 'DIFFERENT'}), grad "
+          f"norm {got_gnorm!r} vs {want_gnorm!r} (rel {rg:.3g}, tol {LAUNCH_GNORM_REL_TOL})")
+    print(f"  planted fault (the pipeline one batch late): first loss {faulty!r} "
+          f"{'PASSED: FAIL' if faulty == want_loss else 'fails, as it must'}")
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L * steps, "flash_attention_wgmma": 2 * L * steps,
+            "flash_attention_mma": 0, "flash_attention_wide": 0,
+            "flash_attention_bwd": L * steps}
+    median = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    print(f"launch train ({smi_line}): {steps} steps in {wall:.2f} s, step_ms={median:.3f} "
+          f"(median of steps 1-{steps - 1}: {fmt_ms(ms[1:])}; step 0 {ms[0]:.3f}) "
+          f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB); launches a step: wgmma "
+          f"{counted['flash_attention_wgmma'] / steps:g}, backward "
+          f"{counted['flash_attention_bwd'] / steps:g}; verdicts {out['verdict']}; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}")
+    for line in lines:
+        print(f"    {line}")
+    if got_loss != want_loss or not rg <= LAUNCH_GNORM_REL_TOL:
+        fail("the launcher's first step disagrees with Trainer.step's")
+    if faulty == want_loss:
+        fail("the first-loss check passed a pipeline started one batch late")
+    if counted != want:
+        fail(f"flash launches over {steps} launcher steps {counted}, want {want} (a step: "
+             f"the forward once a layer and again in remat's recompute, the backward once)")
+    if len(losses) != steps or out["start_step"] != 0 or not finite(*losses, *out["grad_norm"]):
+        fail(f"the launcher ran {len(losses)} steps from {out['start_step']}, losses {losses}")
+    if saved:
+        fail(f"{steps} steps saved {saved}: the reference's cadence saves first after step 10")
+    if not (lines[0].startswith(f"arch={cfg.name} (") and lines[-1] == "done"):
+        fail(f"the launcher logged {lines[0]!r} ... {lines[-1]!r}")
+    return {"wgmma": counted["flash_attention_wgmma"] // steps,
+            "bwd": counted["flash_attention_bwd"] // steps}
+
+
+def launch_serve_checks(torch, dev, fa, argv=LAUNCH_SERVE_ARGV) -> int:
+    """(b): ``launch.serve.main(argv)`` under the launch group's mesh and
+    policy, its ``serve()`` output captured, the flash launches counted over
+    the whole run; its tokens and prefill and last logits bit for bit
+    against ``serve()`` on ``LM`` without a policy (the same config, seed 0,
+    prompts and stub inputs). Returns the wgmma launches."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import LM
+
+    caught = []
+    real = launcher.serve
+
+    def capture(lm, params, prompts, new_tokens, **stub):
+        out = real(lm, params, prompts, new_tokens, **stub)
+        caught.append((lm, prompts, new_tokens, stub, out))
+        return out
+
+    launcher.serve = capture
+    counters = {c: 0 for c in flash_counters(fa)}
+    try:
+        for c in counters:
+            c.launches = 0
+        rc = launcher.main(argv)
+        counters = {c: c.launches for c in counters}
+    finally:
+        launcher.serve = real
+    (lm, prompts, new, stub, got), = caught
+    plain = LM(lm.cfg, device=dev)
+    want = real(plain, plain.init(0), prompts, new, **stub)
+    same = {k: torch.equal(full(got[k]), want[k])
+            for k in ("tokens", "prefill_logits", "last_logits")}
+    L = lm.cfg.num_layers
+    print(f"  serve.main {' '.join(argv)}: rc {rc}, policy on {lm.policy.mesh.axis_sizes}, "
+          f"bit-equal to serve() without a policy {same}; prefill {got['prefill_s'] * 1e3:.2f}"
+          f" ms, decode {got['decode_s'] * 1e3 / max(new, 1):.3f} ms a step (without: "
+          f"{want['prefill_s'] * 1e3:.2f}, {want['decode_s'] * 1e3 / max(new, 1):.3f}); wgmma "
+          f"launches {counters[fa.flash_attention_wgmma]} (want {L})")
+    wanted = {c: 0 for c in counters}
+    wanted.update({fa.flash_attention: L, fa.flash_attention_wgmma: L})
+    if rc != 0 or lm.policy is None:
+        fail(f"serve.main returned {rc} (policy {lm.policy})")
+    if counters != wanted:
+        fail(f"flash launches of serve.main {({c.__name__: n for c, n in counters.items()})}, "
+             f"want {L} on the wgmma route")
+    if not all(same.values()):
+        fail(f"serve.main under the policy is not bit-equal to serve() without it: {same}")
+    return counters[fa.flash_attention_wgmma]
+
+
+def launch_phase(torch, dev, fa, smi_line: str, group=one_rank_nccl_group,
+                 cfg=None, shape=LAUNCH_SHAPE, steps: int = LAUNCH_STEPS,
+                 serve_argv=LAUNCH_SERVE_ARGV) -> dict:
+    """launch/train.py and serve.py's mesh and policy on the card: (a) the
+    training launcher, (b) the serving launcher, in a one-rank group.
+    Returns the launches for the kernels line."""
+    t0 = time.perf_counter()
+    phase("launch")
+    end = group(torch)
+    try:
+        train = launch_train_checks(torch, dev, fa, smi_line, cfg, shape, steps)
+        prefill = launch_serve_checks(torch, dev, fa, serve_argv)
+    finally:
+        end()
+    print(f"launch: phase took {time.perf_counter() - t0:.1f} s")
+    return {"wgmma": {"train_step": train["wgmma"], "serve_prefill": prefill},
+            "bwd": {"train_step": train["bwd"]}}
+
+
 def main() -> int:
     import torch
 
@@ -4277,7 +4466,10 @@ def main() -> int:
     # 16. launch/steps.py: stand-ins, the train, prefill and decode kinds ---
     bundle_launches = steps_phase(torch, dev, fa, smi_line)
 
-    # 17. per-kernel numbers ------------------------------------------------
+    # 17. launch/train.py and serve.py under the mesh and policy ------------
+    launch_launches = launch_phase(torch, dev, fa, smi_line)
+
+    # 18. per-kernel numbers ------------------------------------------------
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: {total_s:.1f} s in all, {total_s - build_s:.1f} s without the build")
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
@@ -4298,6 +4490,7 @@ def main() -> int:
         "library_ms": times["sdpa_bf16"],
         "tp_shapes": per_rank["flash_attention_wgmma"],
         "steps_launches": bundle_launches["wgmma"],
+        "launch_launches": launch_launches["wgmma"],
     }, {
         "name": "flash_attention_mma",
         "route": "cuda",
@@ -4336,6 +4529,7 @@ def main() -> int:
         "library_ms": bwd["library_ms"],
         "tp_shapes": per_rank["flash_attention_bwd"],
         "steps_launches": bundle_launches["bwd"],
+        "launch_launches": launch_launches["bwd"],
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -4363,7 +4557,7 @@ def main() -> int:
         "library_ms": None,
         "tp_shapes": per_rank["ssd_scan_bwd"],
     }]}))
-    # 18. result -------------------------------------------------------------
+    # 19. result -------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

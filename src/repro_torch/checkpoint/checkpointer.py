@@ -12,6 +12,10 @@ The reference's design, kept:
 * **Re-placed on restore**: every leaf is saved whole; ``restore()`` puts it
   on the device that ``shardings`` names for it, else on its template
   leaf's, so a checkpoint taken by one set of ranks restores onto another.
+  A DTensor leaf (a ``ShardingPolicy``'s params and their AdamW moments) is
+  saved as its ``full_tensor()`` and restored split over its template's
+  mesh and placements: a template initialized on the current mesh takes a
+  checkpoint saved at any other mesh size (elastic restart).
 * **Self-pruning**: keeps the newest ``keep`` checkpoints.
 
 The on-disk layout is the reference's, so each package restores the
@@ -22,6 +26,12 @@ for a field of a dataclass such as ``AdamWState``, as jax names a
 of ``{"step", "trees"}``. A Python int leaf (AdamW's step) is written as a
 0-d int32, as jax holds the reference's. A bf16 leaf is written as numpy
 writes jax's: raw 2-byte words (``V2``).
+
+Under a process group of more than one rank, every rank calls ``save()``
+(``full_tensor()`` is a collective) and the first rank alone writes; every
+rank calls ``restore()``, which waits for this checkpointer's writes and
+then at a barrier, so no rank reads before the first rank's writes are
+done.
 
 Two things differ from the reference because torch tensors are not jax
 arrays:
@@ -51,6 +61,16 @@ import torch
 BF16_WORDS = np.dtype("V2")  # how numpy stores a bf16 leaf
 
 
+def _rank() -> int | None:
+    """This process's rank in an initialized group of more than one rank;
+    None without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return dist.get_rank()
+    return None
+
+
 def _join(key: str, part: str) -> str:
     return f"{key}/{part}" if key else part
 
@@ -78,9 +98,18 @@ def _map(fn, tree, key: str = ""):
     return fn(key, tree)
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _host(leaf) -> np.ndarray:
-    """A host copy of ``leaf`` that nothing else holds."""
+    """A host copy of ``leaf`` that nothing else holds; of a DTensor, its
+    whole value (``full_tensor()``, a collective every rank joins)."""
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(BF16_WORDS)
@@ -92,12 +121,18 @@ def _host(leaf) -> np.ndarray:
 
 def _restored(arr: np.ndarray, like, device):
     """``arr`` as read from disk, cast to ``like``'s type and placed on
-    ``device`` (None: ``like``'s device)."""
+    ``device`` (None: ``like``'s device); for a DTensor ``like``, split
+    over its mesh as its placements say (``distribute_tensor``)."""
     if isinstance(like, torch.Tensor):
         if arr.dtype == BF16_WORDS:
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
+        if _is_dtensor(like):
+            from torch.distributed.tensor import distribute_tensor
+
+            return distribute_tensor(t.to(like.device, like.dtype), like.device_mesh,
+                                     like.placements)
         return t.to(like.device if device is None else device, like.dtype)
     if isinstance(like, (bool, int, float)):
         return type(like)(arr.item())
@@ -117,9 +152,15 @@ class Checkpointer:
     def save(self, step: int, state: dict) -> Future:
         """Async atomic save. ``state`` is a dict of trees (e.g. {"params":
         ..., "opt": ...}). Returns once every leaf is copied to host
-        memory; the write goes on in the background."""
+        memory; the write goes on in the background. Under a group of
+        more than one rank every rank calls it and the first alone writes:
+        another rank's future is done when it returns."""
         host_state = {name: {key: _host(leaf) for key, leaf in _items(tree)}
                       for name, tree in state.items()}
+        if _rank() not in (None, 0):
+            fut = Future()
+            fut.set_result(None)
+            return fut
         fut = self._pool.submit(self._write, step, host_state)
         with self._lock:
             self._pending = [f for f in self._pending if not f.done()]
@@ -175,7 +216,15 @@ class Checkpointer:
         it or a tree of devices that mirrors it; pass the surviving ranks'
         devices to restore onto another set of ranks than the one that
         saved (elastic restart). A tree it does not name goes to its
-        template's devices."""
+        template's devices. A DTensor leaf of ``template`` is split over its
+        mesh as its placements say. Under a group of more than one rank
+        every rank calls it: each waits here for this checkpointer's writes
+        and then at a barrier before it reads."""
+        self.wait()
+        if _rank() is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")

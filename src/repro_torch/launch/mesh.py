@@ -8,13 +8,18 @@ not needed to read them). Its torch ``DeviceMesh`` is built on first use of
 rank ``r`` sits at the row-major coordinate of ``r`` in ``shape``, as the
 reference lays devices out. The device type is ``cuda`` unless a caller
 asks for ``cpu`` (the tests, on gloo ranks); nothing falls back from one to
-the other.
+the other. ``launch_group`` gives the launchers their process group and
+their mesh (1, n).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import os
+import shutil
+import tempfile
 from dataclasses import dataclass
 
 import torch
@@ -70,6 +75,50 @@ def make_mesh(axis_shapes, axis_names, *, device_type: str = "cuda") -> Mesh:
     names. jax's axis types have no torch counterpart: every axis here is
     explicit, its collectives called by the code that needs them."""
     return Mesh(tuple(axis_names), tuple(int(n) for n in axis_shapes), device_type)
+
+
+@contextlib.contextmanager
+def launch_group(device=None):
+    """The launchers' process group and mesh: yields ``(mesh, device)``,
+    the mesh ``(1, n)`` on ("data", "model") over the group's n ranks (the
+    reference's ``make_mesh((1, jax.device_count()), ...)``) and this rank's
+    device. ``device``: 'cuda' (the default; raises without a card) or
+    'cpu'.
+
+    A group already initialized is used as it is. Else, under torchrun's
+    environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), one starts from
+    that environment: NCCL on the card ``LOCAL_RANK`` names, gloo on the
+    CPU. Else a one-rank group starts through a ``file://`` rendezvous in a
+    temporary directory (no port). Only a group started here is ended on
+    exit."""
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    started, where = False, None
+    try:
+        if not dist.is_initialized():
+            env = os.environ
+            torchrun = all(k in env for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"))
+            if dev.type == "cuda":
+                if torchrun:
+                    torch.cuda.set_device(int(env["LOCAL_RANK"]))
+                dev = resolve_device("cuda")
+            kw = ({"backend": "nccl", "device_id": dev} if dev.type == "cuda"
+                  else {"backend": "gloo"})
+            if torchrun:
+                dist.init_process_group(init_method="env://", rank=int(env["RANK"]),
+                                        world_size=int(env["WORLD_SIZE"]), **kw)
+            else:
+                where = tempfile.mkdtemp()
+                dist.init_process_group(init_method=f"file://{where}/rendezvous", rank=0,
+                                        world_size=1, **kw)
+            started = True
+        yield make_mesh((1, dist.get_world_size()), ("data", "model"), device_type=dev.type), dev
+    finally:
+        if started:
+            dist.destroy_process_group()
+        if where is not None:
+            shutil.rmtree(where, ignore_errors=True)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> Mesh:

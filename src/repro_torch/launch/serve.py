@@ -9,7 +9,11 @@ stub audio frames) and llava-next-34b (vlm: seeded stub image patches ahead
 of the prompt, ``data.pipeline.stub_inputs``). The reference prefills by
 stepping the decoder over the prompt; this one-pass prefill routes a moe
 model's prompt in groups of up to 1024 tokens, so it equals that stepping
-only where no expert's capacity drops a choice (``LM.prefill``).
+only where no expert's capacity drops a choice (``LM.prefill``). ``main``
+builds the model as the reference's does: the launch group
+(``launch.mesh.launch_group``), the mesh (1, n) over its n ranks,
+``ShardingPolicy``, ``pad_heads`` and ``LM(policy=)``; at one rank it serves
+the same tokens and logits as ``LM`` without a policy, bit for bit.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --batch 4 --prompt-len 1024 --new-tokens 32
@@ -35,7 +39,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import stub_inputs
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import launch_group
+from repro_torch.launch.sharding import ShardingPolicy, pad_heads
 from repro_torch.models import LM
 
 
@@ -107,23 +112,28 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    lm = LM(cfg, device=device)
-    params = lm.init(args.seed)
-    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"serving {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
-          f"{cfg.dtype}, batch={args.batch} on {where}")
-    prompts = torch.from_numpy(make_prompts(
-        args.batch, args.prompt_len, cfg.vocab_size, args.seed)).to(device)
-    stub = {name: torch.from_numpy(x).to(device)
-            for name, x in stub_inputs(cfg, args.batch, args.seed).items()}
-    out = serve(lm, params, prompts, args.new_tokens, **stub)
-    print(report(out))
-    for b in range(min(args.batch, 2)):
-        print(f"  seq {b}: {out['tokens'][b, :10].tolist()} ...")
+    with launch_group(args.device) as (mesh, device):
+        policy = ShardingPolicy(mesh, cfg)
+        cfg = pad_heads(cfg, policy.tp_size)
+        policy.cfg = cfg
+        lm = LM(cfg, ep_degree=policy.tp_size, device=device, policy=policy)
+        params = lm.init(args.seed)
+        where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+        print(f"serving {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
+              f"{cfg.dtype}, batch={args.batch} on {where}, mesh={mesh.axis_sizes}")
+        prompts = torch.from_numpy(make_prompts(
+            args.batch, args.prompt_len, cfg.vocab_size, args.seed)).to(device)
+        stub = {name: torch.from_numpy(x).to(device)
+                for name, x in stub_inputs(cfg, args.batch, args.seed).items()}
+        out = serve(lm, params, prompts, args.new_tokens, **stub)
+        print(report(out))
+        tokens = out["tokens"]
+        tokens = tokens.full_tensor() if hasattr(tokens, "full_tensor") else tokens
+        for b in range(min(args.batch, 2)):
+            print(f"  seq {b}: {tokens[b, :10].tolist()} ...")
     return 0
 
 

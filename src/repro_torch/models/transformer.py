@@ -550,7 +550,8 @@ class LM:
                     pos: int):
         """tokens: [B] int; pos: absolute position. Returns (logits [B, vocab]
         f32, cache); the cache is updated in place and returned. Under a
-        policy the logits are a DTensor split as ``logits_spec``."""
+        policy the logits are a DTensor split as ``logits_spec``, and
+        ``tokens`` may be a DTensor too (their argmax)."""
         if self.policy is not None:
             return self._decode_step_tp(params, cache, tokens, pos)
         x = embed(params["embed"], tokens[:, None], self.dtype)  # [B,1,d]
@@ -1124,6 +1125,8 @@ class LM:
 
     def _decode_step_tp(self, params: Params, cache: Params, tokens: torch.Tensor, pos: int):
         c, pol = self.cfg, self.policy
+        if hasattr(tokens, "full_tensor"):  # the argmax of the last logits
+            tokens = tokens.full_tensor()
         B = tokens.shape[0]
         bdim = pol.dp if B % pol.dp_size == 0 else None
         bs = (bdim, None, None)

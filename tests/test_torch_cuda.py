@@ -835,3 +835,26 @@ def test_bundle_train_step_on_card_matches_cpu(cuda, tmp_path):
     assert abs(got["loss"] - want["loss"]) <= 1e-4 * abs(want["loss"])
     old = {f"param/{k}": v.numpy() for k, v in steps_worker.flatten(params).items()}
     steps_worker.hold_update(got_state, want_state, old, 1e-3)
+
+
+def test_launcher_train_on_card_matches_cpu(cuda, tmp_path):
+    """``launch.train.train`` of reduced llama in f32 for 3 steps on the
+    card (a one-rank NCCL group it starts itself; the flash kernels, mma
+    route) against the same run on the CPU (a one-rank gloo group; the
+    plain versions), from the same params: every loss within 1e-4 and
+    every gradient norm within 1e-3, relative."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import LM
+
+    cfg = get_config("llama3.2-1b").reduced(dtype="float32")
+    params = LM(cfg, device="cpu").init(0, param_dtype=torch.float32)
+    shape = ShapeSpec("t", 96, 4, "train")
+    runs = {}
+    for device in ("cpu", "cuda"):  # train places a copy of the params
+        runs[device] = train(cfg, shape, steps=3, ckpt_dir=str(tmp_path / device),
+                             device=device, params=params, log=lambda line: None)
+    want, got = runs["cpu"], runs["cuda"]
+    assert got["mesh"].device_type == "cuda" and len(got["loss"]) == 3
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+    np.testing.assert_allclose(got["grad_norm"], want["grad_norm"], rtol=1e-3)

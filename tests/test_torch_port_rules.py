@@ -14,6 +14,7 @@ from repro_torch.configs import REGISTRY, get_config  # noqa: E402
 from repro_torch.examples import quickstart, serve_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -200,6 +201,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
                         "--new-tokens", "1"])
         with pytest.raises(RuntimeError, match="CUDA"):
             serve_batch.main(["--arch", arch, "--prompt-len", "4", "--new-tokens", "1"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launch_train.main(["--arch", arch, "--reduced", "--steps", "1"])
         assert serve_batch.main(["--arch", arch, "--batch", "1", "--prompt-len", "4",
                                  "--new-tokens", "1", "--device", "cpu"]) == 0
     for device in ([], ["--device", "cuda"]):
