@@ -201,10 +201,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    losses; (b) ``serve.main`` at full width, 4 x 1024 and 32 new tokens
    under the mesh and policy: tokens and logits bit for bit against
    ``serve()`` on ``LM`` without a policy, 16 ``wgmma`` launches;
-18. print one JSON line of per-kernel numbers (each kernel's numbers at the
+18. the dry run (``launch/dryrun.py``) and the kernels' ``torch.library``
+   operators: (a) the four kernels through ``torch.ops.repro_torch`` at the
+   slice shapes, two calls bit for bit against the wrapper called directly
+   and within the check's tolerance of the plain version, the host time a
+   call through the operator beside the wrapper's; (b) the dry run's
+   prediction of full-width llama3.2-1b's bundle steps at 4 x 1024 on a
+   data = 1 x model = 1 mesh (the train kind at accum 1 and 2, prefill, one
+   decode step over a 1024-deep cache; a fake group of one in a child
+   process) beside the same steps run on the card in a one-rank NCCL group
+   with arguments placed as the dry run places them: argument bytes equal,
+   argument + temp bytes within 10% of ``max_memory_allocated``, the
+   predicted FLOPs over the step's median time; (c) the production dry
+   run on fake CUDA DTensors on a fake group of 256 ranks in child
+   processes: ``python -m repro_torch.launch.dryrun --arch llama3.2-1b
+   --mesh pod`` (its four shapes, long_500k skipped), ``launch.train
+   --dry-run`` and ``launch.serve --dry-run``, each cell's FLOPs and
+   collective bytes a device, its predicted peak beside the card's memory,
+   its trace seconds, and the card's allocated memory unchanged;
+19. print one JSON line of per-kernel numbers (each kernel's numbers at the
    per-rank shapes of (d) under ``tp_shapes``, the bundle steps' launches
-   under ``steps_launches``, the launchers' under ``launch_launches``);
-19. print the result line ``{"ok": true, "device": {...}}`` last.
+   under ``steps_launches``, the launchers' under ``launch_launches``, the
+   host time a call through the operator and through the wrapper under
+   ``op_host_us`` and ``wrapper_host_us``);
+20. print the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of jax or of the JAX package ``repro``.
 """
@@ -668,6 +688,40 @@ LAUNCH_STEPS = 10  # the reference's cadence saves nothing before step 10
 LAUNCH_GNORM_REL_TOL = 1e-6
 LAUNCH_SERVE_ARGV = ["--arch", LAUNCH_ARCH, "--batch", str(SERVE_BATCH),
                      "--prompt-len", str(SERVE_PROMPT), "--new-tokens", str(SERVE_NEW)]
+# the dryrun phase: (a) the four kernels through their torch.library
+# operators at the slice shapes, bit for bit against the wrappers called
+# directly, and the host time a call of each; (b) launch/dryrun.py's
+# prediction of full-width llama3.2-1b's bundle steps at 4 x 1024 at one
+# rank (a fake group of one in a child process) beside the same steps run
+# on the card: argument bytes equal, argument + temp bytes within 10% of
+# max_memory_allocated; (c) the production dry run on fake CUDA DTensors in
+# child processes (a fake group of 256): the dry run's command line for
+# llama3.2-1b on the pod mesh, train's and serve's --dry-run
+DRYRUN_ARCH = "llama3.2-1b"
+DRYRUN_SHAPE = (SERVE_PROMPT, SERVE_BATCH)  # seq_len, global_batch
+DRYRUN_KINDS = (("train_accum1", "train", 1), ("train_accum2", "train", 2),
+                ("prefill", "prefill", None), ("decode", "decode", None))
+DRYRUN_PEAK_GAP = 0.10  # |max_memory_allocated - (argument + temp)| / max_memory_allocated
+DRYRUN_TIMED = 3  # timed steps of each kind, after one warm-up
+HOST_CALLS = 30  # calls a host-time reading, launched back to back
+DRYRUN_POD_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRYRUN_CHILD_LIMIT = 600  # seconds for the phase's child processes
+# the prediction's child: dryrun.run_cell of each kind at 1 x 1 on a fake
+# group of one, fake CUDA tensors; argv: arch, seq_len, batch, kinds, out
+PREDICT_CHILD = """
+import json, sys
+from repro_torch.configs import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_test_mesh
+arch, S, B, kinds, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+dryrun.fake_group(1)
+mesh = make_test_mesh(1, 1)
+recs = {name: dryrun.run_cell(arch, ShapeSpec(f"{kind}_{S}", S, B, kind), "1x1", mesh,
+                              accum_steps=accum)
+        for name, kind, accum in json.loads(kinds)}
+with open(out, "w") as f:
+    json.dump(recs, f)
+"""
 
 
 # ptxas -v lines: the entry a block of lines is about, its registers and spills
@@ -735,16 +789,6 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks leave visible: the work attention must do."""
-    total = 0
-    for s in range(S):
-        hi = min(T - 1, s) if causal else T - 1
-        lo = max(0, s - window + 1) if window > 0 else 0
-        total += max(0, hi - lo + 1)
-    return total
-
-
 def roofline(flops: float, nbytes: int, f32: bool):
     """(bound_ms, bound_by, flops, bytes, terms): the larger of ``nbytes``
     over HBM bandwidth and ``flops`` over the peak rate of the inputs' type.
@@ -766,9 +810,9 @@ def roofline(flops: float, nbytes: int, f32: bool):
 def attention_bound(q, k, v, causal, window):
     """The forward's bound (``roofline``): its two products over the visible
     (q, k) pairs; q, k and v read once, the output written once."""
-    B, S, H, hd = q.shape
-    T = k.shape[1]
-    flops = 4 * B * H * hd * visible_pairs(S, T, causal, window)
+    from repro_torch.kernels.flash_attention import flops as attention_flops
+
+    flops = attention_flops(q.shape, k.shape, causal, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     return roofline(flops, nbytes, q.element_size() == 4)
 
@@ -778,9 +822,9 @@ def attention_bwd_bound(q, k, causal, window):
     dP = dO V^T, S = Q K^T recomputed, dQ = dS K, dK = dS^T Q), 2.5x the
     forward's, over the visible pairs; q, k, v, o and dO read once, dq, dk
     and dv written once."""
-    B, S, H, hd = q.shape
-    T = k.shape[1]
-    flops = 2.5 * 4 * B * H * hd * visible_pairs(S, T, causal, window)
+    from repro_torch.kernels.flash_attention import flops as attention_flops
+
+    flops = attention_flops(q.shape, k.shape, causal, window, backward=True)
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
     return roofline(flops, nbytes, q.element_size() == 4)
 
@@ -801,21 +845,17 @@ def attention_inputs(torch, gen, dev, shape, dt, T=None):
 
 def ssd_bound(xh, Bm, chunk: int):
     """(bound_ms, bound_by, flops, bytes, terms) of the SSD scan as prefill
-    calls it (with the final state). The operations: C.B^T over the causal
-    pairs once per (b, chunk), since B and C, and so the scores, are shared
-    by all heads; then per (b, h, chunk) the scores' product with x*dt,
-    C.state^T and the state update. They take the faster of two routes that
+    calls it (with the final state). The operations are the chunked scan's
+    products (``kernels/ssd_scan.py:flops``). They take the faster of two routes that
     keep f32 accuracy: the f32 CUDA cores, or the TF32 tensor cores at three
     products each (3xTF32: hi*hi' + hi*lo' + lo*hi'; one TF32 product misses
     the scan's 1e-4). Bytes over HBM bandwidth: each input read once, y and
     the final state written once. ``terms`` holds the three times in ms."""
+    from repro_torch.kernels.ssd_scan import flops as scan_flops
+
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
-    flops = 0
-    for t0 in range(0, S, chunk):
-        q = min(chunk, S - t0)
-        pairs = q * (q + 1) // 2
-        flops += B * (pairs * N * 2 + H * (pairs * P * 2 + 2 * q * N * P * 2))
+    flops = scan_flops(xh.shape, N, chunk)
     nbytes = (2 * xh.numel() + B * S * H + H + 2 * Bm.numel() + B * H * P * N) * 4
     terms = {"f32_ms": flops / PEAK_FLOPS["float32"] * 1e3,
              "3xtf32_ms": 3 * flops / PEAK_FLOPS["tf32"] * 1e3,
@@ -827,26 +867,13 @@ def ssd_bound(xh, Bm, chunk: int):
 
 def ssd_bwd_bound(xh, Bm, chunk: int):
     """(bound_ms, bound_by, flops, bytes, terms) of the SSD backward, as
-    ``ssd_bound``. The operations: once per (b, chunk), over the causal
-    pairs, C.B^T and the intra-chunk parts of dB and dC, Wsum^T C and Wsum
-    B, with Wsum = sum_h W the heads' W summed (H adds a pair), since every
-    head shares B and C; per (b, h, chunk) dy.x^T and (C.B^T o L)^T dy over
-    the causal pairs, and the products of q x P x N that the function needs:
-    the chunk's state (the forward's, recomputed), B carry^T and x carry in
-    every chunk but the last (the last chunk's state is read by nothing and
-    its carry is 0), its reverse state dy^T C and dy h_in in every chunk but
-    the first (its entering state is 0). Bytes: xh, dt, A, Bm, Cm and dy
+    ``ssd_bound``. The operations: the backward's products
+    (``kernels/ssd_scan.py:flops``). Bytes: xh, dt, A, Bm, Cm and dy
     read once; dxh, ddt, dA, dBm and dCm written once."""
+    from repro_torch.kernels.ssd_scan import flops as scan_flops
+
     B, S, H, P = xh.shape
-    N = Bm.shape[-1]
-    nc = -(-S // chunk)
-    flops = 0
-    for c in range(nc):
-        q = min(chunk, S - c * chunk)
-        pairs = q * (q + 1) // 2
-        products = 3 * (c < nc - 1) + 2 * (c > 0)
-        flops += B * (3 * pairs * N * 2 + H * pairs
-                      + H * (2 * pairs * P * 2 + products * q * P * N * 2))
+    flops = scan_flops(xh.shape, Bm.shape[-1], chunk, backward=True)
     nbytes = (3 * xh.numel() + 2 * B * S * H + 2 * H + 4 * Bm.numel()) * 4
     terms = {"f32_ms": flops / PEAK_FLOPS["float32"] * 1e3,
              "3xtf32_ms": 3 * flops / PEAK_FLOPS["tf32"] * 1e3,
@@ -4163,6 +4190,298 @@ def launch_phase(torch, dev, fa, smi_line: str, group=one_rank_nccl_group,
             "bwd": {"train_step": train["bwd"]}}
 
 
+def as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds a call of ``fn``: ``calls`` calls issued back to
+    back (the card runs behind), after one call and a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def op_checks(torch, dev, fa, ops, ssd, smi_line: str) -> dict:
+    """(a): each kernel through its ``torch.library`` operator
+    (``kernels/ops``) twice, bit for bit against its wrapper called
+    directly, and against its plain version at the check's tolerance; the
+    host time a call through the operator beside the wrapper's. Returns
+    the numbers by kernel."""
+    from repro_torch.kernels.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+        ssd_scan_bwd_ref,
+        ssd_scan_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (q, k, v), _ = attention_inputs(torch, gen, dev, SLICE_SHAPE, "bfloat16")
+    o = fa.flash_attention(q, k, v, causal=True)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    B, S, H, P, N, chunk = SSD_SLICE
+    xs = ssd_inputs(torch, gen, dev, B, S, H, P, N)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+
+    def ssd_direct():
+        return ssd.ssd_scan(*xs, chunk=chunk, state_out=state), state
+
+    B, S, H, P, N, bchunk = SSD_BWD_SHAPES["mamba2-370m"]
+    bx = (*ssd_inputs(torch, gen, dev, B, S, H, P, N),
+          torch.randn((B, S, H, P), generator=gen, device=dev))
+    cases = {  # name: (through the operator, the wrapper, the plain version, check, tol)
+        "flash_attention": (lambda: ops.flash_attention(q, k, v, causal=True),
+                            lambda: fa.flash_attention(q, k, v, causal=True),
+                            lambda: flash_attention_ref(q, k, v, causal=True),
+                            compare, BF16_TOL),
+        "flash_attention_bwd": (lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=True),
+                                lambda: fa.flash_attention_bwd(q, k, v, o, do, causal=True),
+                                lambda: flash_attention_bwd_ref(q, k, v, o, do, causal=True),
+                                compare, BF16_TOL),
+        "ssd_scan": (lambda: ops.ssd_scan(*xs, chunk=chunk, return_state=True), ssd_direct,
+                     lambda: ssd_scan_ref(*xs, return_state=True), compare, SSD_TOL),
+        "ssd_scan_bwd": (lambda: ops.ssd_scan_bwd(*bx, chunk=bchunk),
+                         lambda: ssd.ssd_scan_bwd(*bx, chunk=bchunk),
+                         lambda: ssd_scan_bwd_ref(*bx, chunk=bchunk),
+                         compare_scaled, SSD_BWD_TOL),
+    }
+    out = {}
+    for name, (op_fn, direct_fn, plain_fn, check, tol) in cases.items():
+        first = [t.clone() for t in as_tuple(op_fn())]
+        second = as_tuple(op_fn())
+        direct = as_tuple(direct_fn())
+        same = all(torch.equal(a, c) and torch.equal(b, c)
+                   for a, b, c in zip(first, second, direct))
+        checked = [check(g, w, tol) for g, w in zip(first, as_tuple(plain_fn()))]
+        ok = all(c[1] for c in checked)
+        times = {"op": [], "wrapper": []}
+        for _ in range(3):  # in turns
+            times["op"].append(host_us(torch, op_fn))
+            times["wrapper"].append(host_us(torch, direct_fn))
+        op_us, wrapper_us = (statistics.median(times[key]) for key in ("op", "wrapper"))
+        print(f"  {name} through torch.ops.repro_torch ({smi_line}): two calls bit-equal to "
+              f"the wrapper's {same}; max_abs_err vs plain "
+              f"{' / '.join(f'{c[0]:.3g}' for c in checked)} (tol {tol}) "
+              f"{'ok' if ok else 'FAIL'}; host {op_us:.1f} us a call through the operator, "
+              f"{wrapper_us:.1f} us the wrapper alone (+{op_us - wrapper_us:.1f} us)")
+        if not same:
+            fail(f"{name} through its operator is not bit-equal to its wrapper")
+        if not ok:
+            fail(f"{name} through its operator disagrees with its plain version")
+        out[name] = {"op_host_us": op_us, "wrapper_host_us": wrapper_us,
+                     "max_abs_err": max(c[0] for c in checked)}
+        del first, second, direct
+    del q, k, v, o, do, xs, state, bx
+    torch.cuda.empty_cache()
+    return out
+
+
+def fill_args(torch, dev, args, vocab: int) -> None:
+    """Values for the placed (uninitialised) arguments of a bundle step:
+    floats ~ N(0, 0.02), token ids in the vocabulary, the AdamW moments 0."""
+    from repro_torch.launch.op_cost import local_tensors
+    from repro_torch.optim import AdamWState
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for arg in args:
+        zero = isinstance(arg, AdamWState)
+        for t in local_tensors(arg):
+            if zero:
+                t.zero_()
+            elif t.is_floating_point():
+                t.normal_(0.0, 0.02, generator=gen)
+            else:
+                t.random_(0, vocab, generator=gen)
+
+
+def card_step(torch, dev, kind: str, accum) -> dict:
+    """One kind of the bundle at ``DRYRUN_SHAPE`` on the card, at 1 x 1:
+    its arguments placed as the dry run places them and filled
+    (``fill_args``), one warm-up step, then ``DRYRUN_TIMED`` timed steps
+    with the peak memory above what was allocated before the arguments."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.op_cost import local_tensors
+
+    S, B = DRYRUN_SHAPE
+    bundle = steps.build_bundle(DRYRUN_ARCH, ShapeSpec(f"{kind}_{S}", S, B, kind),
+                                make_test_mesh(1, 1), accum_steps=accum)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    args = dryrun.place_args(bundle, dev)
+    fill_args(torch, dev, args, bundle.cfg.vocab_size)
+    torch.cuda.synchronize(dev)
+    got = {"argument_bytes": dryrun.storage_bytes(local_tensors(args)),
+           "argument_allocated": torch.cuda.memory_allocated(dev) - base}
+    out = bundle.fn(*args)  # warm-up
+    del out
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = []
+    for _ in range(DRYRUN_TIMED):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = bundle.fn(*args)
+        torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    got.update(peak=torch.cuda.max_memory_allocated(dev) - base, step_ms=step_ms)
+    del args, bundle
+    torch.cuda.empty_cache()
+    return got
+
+
+def start_child(argv: list, log: Path, cwd: Path):
+    """A child process of this phase, its output to ``log``."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC), os.environ.get("PYTHONPATH", "")])}
+    cwd.mkdir(parents=True, exist_ok=True)
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, *argv], cwd=cwd, env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+
+
+def wait_child(proc, log: Path, what: str, t_end: float) -> int:
+    try:
+        rc = proc.wait(timeout=max(1.0, t_end - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"{what} did not end within {DRYRUN_CHILD_LIMIT} s")
+    if rc != 0:
+        print(log.read_text()[-3000:])
+    return rc
+
+
+def predicted_against_card(torch, dev, measured: dict, predicted: dict,
+                           smi_line: str) -> None:
+    """(b)'s lines and checks: argument bytes equal, the predicted peak
+    within ``DRYRUN_PEAK_GAP``, FLOPs over the step's median time."""
+    for name, _, _ in DRYRUN_KINDS:
+        rec, got = predicted[name], measured[name]
+        if rec.get("status") != "ok":
+            fail(f"the dry run of {DRYRUN_ARCH} {name} at 1 x 1: {rec.get('error')}")
+        mem = rec["memory"]
+        pred_peak = mem["argument_bytes"] + mem["temp_bytes"]
+        gap = (got["peak"] - pred_peak) / got["peak"]
+        ms = statistics.median(got["step_ms"])
+        print(f"  {DRYRUN_ARCH} {name} {DRYRUN_SHAPE[1]}x{DRYRUN_SHAPE[0]} at 1 x 1 "
+              f"({smi_line}): argument bytes predicted {mem['argument_bytes']}, on the card "
+              f"{got['argument_bytes']} (allocator {got['argument_allocated']}); argument + "
+              f"temp {pred_peak} B ({pred_peak / 2**30:.3f} GiB) vs max_memory_allocated "
+              f"{got['peak']} B ({got['peak'] / 2**30:.3f} GiB): gap {gap:+.2%} (limit "
+              f"{DRYRUN_PEAK_GAP:.0%}); {rec['flops'] / 1e12:.4g} TFLOP predicted, step "
+              f"{ms:.3f} ms (median of {', '.join(f'{x:.3f}' for x in got['step_ms'])}): "
+              f"{rec['flops'] / ms / 1e9:.2f} TFLOP/s achieved; trace {rec['trace_s']} s")
+        if mem["argument_bytes"] != got["argument_bytes"]:
+            fail(f"the dry run's argument bytes of {name} differ from the card's")
+        if abs(gap) > DRYRUN_PEAK_GAP:
+            fail(f"the dry run's peak of {name} misses max_memory_allocated by {gap:+.2%}")
+
+
+def pod_lines(torch, dev, records: dict, source: str, smi_line: str) -> int:
+    """(c)'s lines and checks for the records of one child: status, FLOPs
+    and collective bytes per device, the predicted peak against the card's
+    memory, trace seconds; device memory unchanged. Returns the cells."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    for key, rec in records.items():
+        if rec["status"] == "skipped":
+            print(f"  {source} {key}: skipped ({rec['reason']})")
+            continue
+        if rec["status"] != "ok":
+            print(rec.get("traceback", ""))
+            fail(f"the dry run of {key} ({source}): {rec.get('error')}")
+        mem = rec["memory"]
+        peak = mem["argument_bytes"] + mem["temp_bytes"]
+        colls = ", ".join(f"{k} {v / 2**20:.1f} MiB x{rec['collective_counts'][k]}"
+                          for k, v in rec["collective_bytes"].items())
+        before, after = rec.get("device_allocated_bytes", [None, None])
+        print(f"  {source} {key} ({smi_line}): ok, {rec['flops'] / 1e12:.4g} TFLOP and "
+              f"{rec['bytes_accessed'] / 1e9:.4g} GB a device; collectives {colls}; "
+              f"argument + temp {peak / 2**30:.2f} GiB of the card's {total / 2**30:.2f} GiB "
+              f"({'fits' if peak <= total else 'does not fit'}); trace {rec['trace_s']} s, "
+              f"cell {rec['total_s']} s; memory_allocated {before} -> {after}")
+        if before != after:
+            fail(f"the dry run of {key} allocated on the card: {before} -> {after}")
+    return len(records)
+
+
+def dryrun_phase(torch, dev, fa, ops, ssd, smi_line: str, group=one_rank_nccl_group) -> dict:
+    """launch/dryrun.py and the kernels' operators on the card: (a) the
+    operators against the wrappers, (b) the prediction against the card,
+    (c) the production dry run on fake CUDA tensors. The child processes
+    of (b) and (c) start after (a) and run beside (b)'s steps on the card.
+    Returns (a)'s numbers for the kernels line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    phase("dryrun")
+    per_op = op_checks(torch, dev, fa, ops, ssd, smi_line)
+    t_a = time.perf_counter()
+    where = Path(tempfile.mkdtemp())
+    S, B = DRYRUN_SHAPE
+    kinds = json.dumps([list(k) for k in DRYRUN_KINDS])
+    children = {  # name: (argv, cwd)
+        "predict": (["-c", PREDICT_CHILD, DRYRUN_ARCH, str(S), str(B), kinds,
+                     str(where / "predict.json")], where / "predict"),
+        "dryrun": (["-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH, "--mesh", "pod",
+                    "--out", str(where / "pod.json")], where / "dryrun"),
+        "train": (["-m", "repro_torch.launch.train", "--dry-run", "--arch", DRYRUN_ARCH],
+                  where / "train"),
+        "serve": (["-m", "repro_torch.launch.serve", "--dry-run", "--arch", DRYRUN_ARCH],
+                  where / "serve"),
+    }
+    procs = {name: start_child(argv, where / f"{name}.log", cwd)
+             for name, (argv, cwd) in children.items()}
+    t_end = time.perf_counter() + DRYRUN_CHILD_LIMIT
+    try:
+        end = group(torch)
+        try:
+            measured = {name: card_step(torch, dev, kind, accum)
+                        for name, kind, accum in DRYRUN_KINDS}
+        finally:
+            end()
+        t_b = time.perf_counter()
+        rcs = {name: wait_child(proc, where / f"{name}.log", name, t_end)
+               for name, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    t_c = time.perf_counter()
+    if rcs["predict"] != 0:
+        fail(f"the prediction's child process exited {rcs['predict']}")
+    predicted_against_card(torch, dev, measured, json.loads(
+        (where / "predict.json").read_text()), smi_line)
+    if rcs["dryrun"] != 0:
+        fail(f"python -m repro_torch.launch.dryrun --mesh pod exited {rcs['dryrun']}")
+    pod = json.loads((where / "pod.json").read_text())
+    want = {f"{DRYRUN_ARCH}|{shape}|pod" for shape in DRYRUN_POD_SHAPES}
+    if set(pod) != want or pod[f"{DRYRUN_ARCH}|long_500k|pod"]["status"] != "skipped":
+        fail(f"the pod dry run recorded {sorted(pod)}, want {sorted(want)} with long_500k "
+             f"skipped")
+    cells = pod_lines(torch, dev, pod, "dryrun", smi_line)
+    for name in ("train", "serve"):
+        if rcs[name] != 0:
+            fail(f"launch.{name} --dry-run exited {rcs[name]}")
+        recs = json.loads((where / name / "results" / "dryrun_torch.json").read_text())
+        cells += pod_lines(torch, dev, recs, f"launch.{name} --dry-run", smi_line)
+    print(f"dryrun: phase took {time.perf_counter() - t0:.1f} s ((a) {t_a - t0:.1f} s; (b)'s "
+          f"steps on the card {t_b - t_a:.1f} s; the child processes, started after (a), "
+          f"done {t_c - t_a:.1f} s after it; {cells} production cells on fake CUDA tensors)")
+    import shutil
+
+    shutil.rmtree(where, ignore_errors=True)
+    return per_op
+
+
 def main() -> int:
     import torch
 
@@ -4469,7 +4788,10 @@ def main() -> int:
     # 17. launch/train.py and serve.py under the mesh and policy ------------
     launch_launches = launch_phase(torch, dev, fa, smi_line)
 
-    # 18. per-kernel numbers ------------------------------------------------
+    # 18. launch/dryrun.py: the operators, the prediction, the pod cells ------
+    dryrun_ops = dryrun_phase(torch, dev, fa, ops, ssd, smi_line)
+
+    # 19. per-kernel numbers ------------------------------------------------
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: {total_s:.1f} s in all, {total_s - build_s:.1f} s without the build")
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
@@ -4491,6 +4813,8 @@ def main() -> int:
         "tp_shapes": per_rank["flash_attention_wgmma"],
         "steps_launches": bundle_launches["wgmma"],
         "launch_launches": launch_launches["wgmma"],
+        "op_host_us": dryrun_ops["flash_attention"]["op_host_us"],
+        "wrapper_host_us": dryrun_ops["flash_attention"]["wrapper_host_us"],
     }, {
         "name": "flash_attention_mma",
         "route": "cuda",
@@ -4530,6 +4854,8 @@ def main() -> int:
         "tp_shapes": per_rank["flash_attention_bwd"],
         "steps_launches": bundle_launches["bwd"],
         "launch_launches": launch_launches["bwd"],
+        "op_host_us": dryrun_ops["flash_attention_bwd"]["op_host_us"],
+        "wrapper_host_us": dryrun_ops["flash_attention_bwd"]["wrapper_host_us"],
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -4543,6 +4869,8 @@ def main() -> int:
         "bound_by": ssd_bound_by,
         "library_ms": None,
         "tp_shapes": per_rank["ssd_scan"],
+        "op_host_us": dryrun_ops["ssd_scan"]["op_host_us"],
+        "wrapper_host_us": dryrun_ops["ssd_scan"]["wrapper_host_us"],
     }, {
         "name": "ssd_scan_bwd",
         "route": "cuda",
@@ -4556,8 +4884,10 @@ def main() -> int:
         "bound_by": ssd_bwd["bound"][1],
         "library_ms": None,
         "tp_shapes": per_rank["ssd_scan_bwd"],
+        "op_host_us": dryrun_ops["ssd_scan_bwd"]["op_host_us"],
+        "wrapper_host_us": dryrun_ops["ssd_scan_bwd"]["wrapper_host_us"],
     }]}))
-    # 19. result -------------------------------------------------------------
+    # 20. result -------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

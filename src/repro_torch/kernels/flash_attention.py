@@ -29,6 +29,9 @@ every head_dim from 1 to ``BWD_MAX_HEAD_DIM``, whichever route ran the
 forward. It replaces the reference's jnp VJP of its flash core
 (``repro/models/attention.py:_flash_bwd_vjp``); the Pallas kernel has none.
 Its three passes count as one launch of ``flash_attention_bwd.launches``.
+
+``flops`` is the arithmetic of either direction, which ``kernels/ops``
+registers as the FLOP formula of its operators.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -257,6 +261,31 @@ def flash_attention_bwd(q, k, v, o, dout, *, causal=True, window=0, softcap=0.0)
                            f"{err_str(err).decode()} ({err})")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that the causal / sliding-window masks leave
+    visible: query s sees keys max(0, s - window + 1) .. min(T - 1, s)
+    (causal), or all T without a mask."""
+    s = np.arange(S, dtype=np.int64)
+    hi = np.minimum(T - 1, s) if causal else np.full(S, T - 1, dtype=np.int64)
+    lo = np.maximum(0, s - window + 1) if window > 0 else np.zeros(S, dtype=np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flops(q_shape, k_shape, causal: bool, window: int, *, backward: bool = False) -> int:
+    """The products of attention over the visible (query, key) pairs:
+    S = Q K^T and O = P V, 2 hd each a pair and head, forward; S recomputed,
+    dP = dO V^T, dV = P^T dO, dQ = dS K and dK = dS^T Q, five of 2 hd,
+    backward. The kernels walk key tiles and skip a tile only where the
+    mask hides all of it, so the tiles astride the diagonal (and a window's
+    edge) do masked work that this count leaves out: it is the work the
+    function needs, the count that a bound divides by the peak rate. The
+    exponentials and the softmax's elementwise work are not counted."""
+    B, S, H, hd = q_shape
+    T = k_shape[1]
+    per_pair = (10 if backward else 4) * hd
+    return B * H * per_pair * visible_pairs(S, T, causal, window)
 
 
 flash_attention.launches = 0

@@ -19,6 +19,9 @@ recomputes the states entering each chunk with the forward's passes (a)
 and (b), sizes the backward's scratch by the heads a block that the kernel
 picks (``bwd_groups``) and counts its launches in
 ``ssd_scan_bwd.launches``.
+
+``flops`` is the arithmetic of either direction, which ``kernels/ops``
+registers as the FLOP formula of its operators.
 """
 
 from __future__ import annotations
@@ -305,3 +308,41 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_scan_bwd.launches = 0
+
+
+def flops(xh_shape, N: int, chunk: int, *, backward: bool = False) -> int:
+    """The products of the chunked scan over xh [B, S, H, P] with a state of
+    N, at the chunk the kernel runs (``min(chunk, MAX_CHUNK)``), the last
+    chunk holding what is left of S. For a chunk of q positions with
+    pairs = q (q + 1) / 2 causal (i, j) pairs, 2 FLOPs a multiply-add:
+
+    forward: the scores C B^T over the pairs once per (b, chunk), since B
+    and C, and so the scores, are shared by all heads (pairs N 2); per
+    (b, h, chunk) the scores' product with x dt over the pairs (pairs P 2),
+    the chunk's state B^T (x dt decay) and its read C h_in^T (q N P 2 each).
+
+    backward: per (b, chunk) over the pairs C B^T recomputed and the
+    intra-chunk parts of dB and dC, Wsum^T C and Wsum B, with Wsum the
+    heads' W = dy x^T o L summed (H adds a pair); per (b, h, chunk) dy x^T
+    and (C B^T o L)^T dy over the pairs, and the products of q x P x N the
+    function needs: the chunk's state (the forward's, recomputed), B carry^T
+    and x carry in every chunk but the last (the last chunk's state is read
+    by nothing and its carry is 0), the reverse state dy^T C and dy h_in in
+    every chunk but the first (its entering state is 0).
+
+    The state's walk across chunks (P N a chunk and head), the decays'
+    exponentials and the other elementwise work are not counted."""
+    B, S, H, P = xh_shape
+    Q = max(1, min(chunk, MAX_CHUNK))
+    nc = -(-S // Q)
+    total = 0
+    for c in range(nc):
+        q = min(Q, S - c * Q)
+        pairs = q * (q + 1) // 2
+        if backward:
+            products = 3 * (c < nc - 1) + 2 * (c > 0)
+            total += B * (3 * pairs * N * 2 + H * pairs
+                          + H * (2 * pairs * P * 2 + products * q * P * N * 2))
+        else:
+            total += B * (pairs * N * 2 + H * (pairs * P * 2 + 2 * q * N * P * 2))
+    return total

@@ -25,6 +25,13 @@ the same tokens and logits as ``LM`` without a policy, bit for bit.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
         --prompt-len 416
 
+``--dry-run`` runs the production decode cell (``--arch``, ``--shape``
+decode_32k or long_500k, ``--mesh``) through the port's dry run in a child
+process (``launch/dryrun.py:in_child``), as the reference's does; ``--shape``
+and ``--mesh`` are read only there.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-20b --dry-run
+
 Times are host-clock spans that end in a device synchronise; the first call
 in a process includes the kernel build (or load) and library start-up.
 """
@@ -110,7 +117,17 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="'cuda' (default; raises without a card) or 'cpu'")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shape", default="decode_32k", choices=["decode_32k", "long_500k"],
+                    help="the production cell of --dry-run")
+    ap.add_argument("--mesh", default="pod", choices=["pod", "multipod"],
+                    help="the production mesh of --dry-run")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="run the full decode cell on fake tensors (launch/dryrun.py)")
     args = ap.parse_args(argv)
+    if args.dry_run:
+        from repro_torch.launch.dryrun import in_child
+
+        return in_child(args.arch, args.shape, args.mesh, args.device)
 
     cfg = get_config(args.arch)
     if args.reduced:

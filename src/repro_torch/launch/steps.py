@@ -18,6 +18,12 @@ yields it); the reference's are int32. The AdamW step counter's stand-in is
 the reference's 0-d int32; the port's state holds the counter as a Python
 int.
 
+The step takes its batch (and the decode step its tokens) as whole tensors
+on every rank, as the launchers feed them, or placed by ``in_shardings``
+as DTensors, as the reference's jitted step takes them (the dry run,
+``launch/dryrun.py``): a placed input is gathered whole first, since
+``LM(policy=)`` picks each rank's rows itself.
+
 The bundle's ``fn`` runs eagerly. The reference's ``jitted()`` and
 ``lower()`` (ahead-of-time lowering through XLA) have no torch counterpart.
 Running ``fn`` needs the params on the policy's mesh (``lm.init`` or
@@ -89,6 +95,11 @@ def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def whole(x):
+    """A DTensor input gathered whole on every rank; a plain one as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
@@ -198,6 +209,7 @@ def build_bundle(arch: str, shape: str | ShapeSpec, mesh, *,
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
         def train_step(params, opt_state, batch):
+            batch = {k: whole(v) for k, v in batch.items()}
             if accum > 1:
                 # microbatches on the batch dim; the f32 gradient sum keeps
                 # the sum exact and the activations are a microbatch's
@@ -239,6 +251,7 @@ def build_bundle(arch: str, shape: str | ShapeSpec, mesh, *,
 
         @torch.no_grad()
         def prefill_step(params, batch):
+            batch = {k: whole(v) for k, v in batch.items()}
             return lm.forward_logits(params, batch["tokens"], frames=batch.get("frames"),
                                      patches=batch.get("patches"))
 
@@ -258,7 +271,7 @@ def build_bundle(arch: str, shape: str | ShapeSpec, mesh, *,
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        return lm.decode_step(params, cache, tokens, int(pos))
+        return lm.decode_step(params, cache, whole(tokens), int(pos))
 
     out_shardings = (policy.logits_spec(shape.global_batch), c_shard)
     return StepBundle(

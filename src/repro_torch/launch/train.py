@@ -25,8 +25,14 @@ the steps an uninterrupted one would. (The reference saves that state
 under label s and resumes at batch s, so its resumed run applies batch s
 twice; ROADMAP §3.)
 
-``--dry-run`` and ``--mesh`` (the reference's lowering of the production
-cell through ``launch/dryrun.py``) have no counterpart yet.
+``--dry-run`` runs the production cell (``--arch``, ``--shape``,
+``--mesh``) through the port's dry run, ``launch/dryrun.py``, in a child
+process, as the reference hands off to its own: the dry run's fake process
+group of 256 or 512 ranks cannot share a process with a launch group.
+``--mesh`` is read only there.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --dry-run --mesh multipod         # fake CUDA tensors: a CUDA torch
 """
 
 from __future__ import annotations
@@ -136,7 +142,15 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default; raises without a card) or 'cpu'")
+    ap.add_argument("--mesh", default="pod", choices=["pod", "multipod"],
+                    help="the production mesh of --dry-run")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="run the full cell on fake tensors (launch/dryrun.py), no step")
     args = ap.parse_args(argv)
+    if args.dry_run:
+        from repro_torch.launch.dryrun import in_child
+
+        return in_child(args.arch, args.shape, args.mesh, args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

@@ -858,3 +858,35 @@ def test_launcher_train_on_card_matches_cpu(cuda, tmp_path):
     assert got["mesh"].device_type == "cuda" and len(got["loss"]) == 3
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
     np.testing.assert_allclose(got["grad_norm"], want["grad_norm"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["flash_attention bf16", "flash_attention f32 window",
+                                  "flash_attention_bwd", "ssd_scan state", "ssd_scan",
+                                  "ssd_scan_bwd"])
+def test_opcheck_on_card(cuda, case):
+    """``torch.library.opcheck`` of the kernels' operators on the card at a
+    small shape: the schema, the fake implementation against the kernel's
+    outputs, and a trace through the operator."""
+    B, S, H, KV, hd = 1, 128, 4, 2, 64
+    dtype = torch.bfloat16 if "bf16" in case or "bwd" in case else torch.float32
+    q, k, v = _qkv(cuda, dtype, B, S, S, H, KV, hd)
+    ops = tops.OPS
+    if case.startswith("flash_attention_bwd"):
+        o = tops.flash_attention(q, k, v)
+        op, args = ops.flash_attention_bwd.default, (q, k, v, o, torch.randn_like(o), True, 0,
+                                                     0.0)
+    elif case.startswith("flash_attention"):
+        op, args = ops.flash_attention.default, (q, k, v, True, 32 * ("window" in case), 0.0)
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        Bs, Ss, Hs, P, N = 2, 96, 3, 16, 16
+        xh = torch.randn((Bs, Ss, Hs, P), generator=gen, device=cuda)
+        dt = torch.nn.functional.softplus(torch.randn((Bs, Ss, Hs), generator=gen, device=cuda))
+        A = -torch.rand((Hs,), generator=gen, device=cuda)
+        Bm, Cm = (torch.randn((Bs, Ss, N), generator=gen, device=cuda) for _ in range(2))
+        if case == "ssd_scan_bwd":
+            op, args = ops.ssd_scan_bwd.default, (xh, dt, A, Bm, Cm, torch.randn_like(xh), 32)
+        else:
+            op, args = ops.ssd_scan.default, (xh, dt, A, Bm, Cm, 32, case.endswith("state"))
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result

@@ -47,7 +47,8 @@ def test_scan_covers_the_package():
     assert {"core/__init__.py", "topology/__init__.py", "comms/__init__.py",
             "comms/executor.py", "comms/primitives.py", "comms/selftest.py"} <= rel
     assert {"launch/sharding.py", "launch/mesh.py", "launch/train_lm.py", "optim/adamw.py",
-            "data/pipeline.py", "kernels/flash_attention.py"} <= rel
+            "data/pipeline.py", "kernels/flash_attention.py", "launch/dryrun.py",
+            "launch/op_cost.py"} <= rel
     assert {"checkpoint/__init__.py", "checkpoint/checkpointer.py", "runtime/__init__.py",
             "runtime/fault_tolerance.py"} <= rel
     assert {f"runtime/{m}.py" for m in COPIED["runtime"]} <= rel
