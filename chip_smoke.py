@@ -133,7 +133,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    reference's repair fault at check_repair_seed(60973), which the copy
    fixes, executed; a repair that must refuse (every boundary link cut)
    and its failure count; fig_repair_512 gated, lowered and run at 256 f32
-   a shard;
+   a shard; then limited switch buffers: star_switch(8) at buffers of 1, 2
+   and 4 chunks and two_level_switch(2, 4) at 1 and 2, each under
+   all_gather, all_to_all, reduce_scatter, all_reduce and pipelined
+   all_reduce, synthesized by the planner copy, validated, each limited
+   switch's peak occupancy against its limit, lowered to rounds (switch
+   hops unrolled) and run at 4096 f32 a shard on the stacked backend, bit
+   for bit against the numpy interpreter and exactly (reductions within
+   1e-5) the plain collective; one arrival shifted into a full buffer as a
+   planted fault that validate() must reject; four threads synthesizing on
+   one shared star_switch(8) at a buffer of 2, every plan the single-thread
+   plan;
 13. the planner examples (``repro_torch.examples``): synthesize_pod's and
    quickstart's output; quickstart's All-Gather over group (0, 3, 12) of
    the 4x4 mesh on 16 ranks stacked on the card, NPU 0 gathering [1, 4,
@@ -616,6 +626,15 @@ FIG_REPAIR = {
     "fig_repair_512": ((8, 8, 8), ("phases", 15, 2, 1036.0, 266240, 577.0)),
 }
 REPAIR_SCALE_PAYLOAD = 256  # f32 a shard of fig_repair_512's all-gather
+# the switch buffers phase: label -> (generator, its arguments, buffer limit),
+# each under every kind of SWITCH_KINDS (kind, pipelined), 8 NPUs
+SWITCH_FABRICS = {
+    **{f"star8_b{b}": ("star_switch", (8,), b) for b in (1, 2, 4)},
+    **{f"two2x4_b{b}": ("two_level_switch", (2, 4), b) for b in (1, 2)},
+}
+SWITCH_KINDS = (("all_gather", False), ("all_to_all", False), ("reduce_scatter", False),
+                ("all_reduce", False), ("all_reduce", True))
+SWITCH_THREADS, SWITCH_JOIN_S = 4, 120.0
 # tests/test_repair_property.py's check_repair_seed(60973): the reference's
 # repair of a planned reduce_scatter over three_level(2, 2, 2) stops on a
 # bare AssertionError under this event
@@ -1454,6 +1473,165 @@ def plan_repair_phase(torch, dev, D: int) -> None:
     print("plan_repair: rounds/sends/ms " + "; ".join(summary)
           + f"; max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB); "
           f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def switch_peaks(alg) -> dict:
+    """Each limited switch's peak occupancy in ``alg``, counted as
+    ``validate()`` counts it: a residency per (switch, chunk) from its first
+    arrival to its last forward, a departure leaving before a same-instant
+    arrival."""
+    topo = alg.topology
+    arrive, depart = {}, {}
+    for t in alg.transfers:
+        if topo.is_switch(t.src):
+            depart[(t.src, t.chunk)] = max(depart.get((t.src, t.chunk), 0.0), t.end)
+        if topo.is_switch(t.dst):
+            arrive.setdefault((t.dst, t.chunk), t.end)
+    events = {}
+    for (sw, c), a in arrive.items():
+        events.setdefault(sw, []).extend(((a, 1), (max(depart.get((sw, c), a), a), -1)))
+    peaks = {}
+    for sw, evs in sorted(events.items()):
+        if topo.nodes[sw].buffer_limit is not None:
+            occ = peak = 0
+            for _, delta in sorted(evs):
+                occ += delta
+                peak = max(peak, occ)
+            peaks[sw] = peak
+    return peaks
+
+
+def switch_fault(alg):
+    """``alg`` with one arrival shifted into a full buffer: of a limited
+    switch's two earliest residencies, the later one's arrival moved to end
+    at the earlier one's, over the same link, which nothing else uses then."""
+    import repro_torch.core as core
+
+    topo = alg.topology
+    ts = list(alg.transfers)
+    into = sorted((k for k, t in enumerate(ts) if topo.is_switch(t.dst)
+                   and topo.nodes[t.dst].buffer_limit == 1), key=lambda k: (ts[k].end, k))
+    first = ts[into[0]]
+    k = next(k for k in into if ts[k].dst == first.dst and ts[k].end > first.end
+             and ts[k].chunk != first.chunk)
+    moved = dataclasses.replace(ts[k], start=ts[k].start - (ts[k].end - first.end),
+                                end=first.end)
+    if moved.start < 0 or any(moved.overlaps(t) for j, t in enumerate(ts)
+                              if t.link == moved.link and j != k):
+        fail("switch buffers: the planted arrival has no free slot on its link")
+    transfers = ts[:k] + [moved] + ts[k + 1:]
+    return core.CollectiveAlgorithm(topo, alg.conditions, transfers, name=alg.name)
+
+
+def switch_buffers_phase(torch, dev, smi_line: str) -> None:
+    """Plans over limited switch buffers, synthesized by the planner copy
+    and run on the stacked backend on the card: SWITCH_FABRICS x
+    SWITCH_KINDS, a planted buffer fault, and threads sharing a topology."""
+    import threading
+
+    import numpy as np
+
+    import repro_torch.core as core
+    import repro_torch.topology as topology
+    from repro_torch.comms import executor, primitives
+
+    phase("switch buffers")
+    t_phase = time.perf_counter()
+    n = EXEC_RANKS
+    rows = []
+    for label, (gen_name, args, limit) in SWITCH_FABRICS.items():
+        for kind, pipelined in SWITCH_KINDS:
+            case = f"{label} {kind}{' pipelined' if pipelined else ''}"
+            topo = getattr(topology, gen_name)(*args, buffer_limit=limit)
+            req = core.CollectiveRequest(kind, group=tuple(topo.npus), pipelined=pipelined)
+            t0 = time.perf_counter()
+            alg = core.SynthesisEngine(topo).collective(req)
+            synth_s = time.perf_counter() - t0
+            try:
+                alg.validate()
+            except AssertionError as e:
+                fail(f"switch buffers, {case}: the copy's plan fails validate(): {e}")
+            peaks = switch_peaks(alg)
+            if not peaks or any(p > limit for p in peaks.values()):
+                fail(f"switch buffers, {case}: peak occupancy {peaks} over the limit {limit}")
+            prog = primitives.lower_algorithm(alg, key=f"switch buffers {case}")
+            rng = np.random.default_rng(7)
+            shape = {"all_gather": (n, EXEC_PAYLOAD),
+                     "all_reduce": (n, n * EXEC_PAYLOAD)}.get(kind, (n, n, EXEC_PAYLOAD))
+            x = rng.standard_normal(shape).astype(np.float32)
+            fn = getattr(primitives, f"pccl_{kind}")
+            xd = torch.from_numpy(x).to(dev)
+            got = fn(xd, None, req, program=prog).cpu().numpy()
+            interp = primitives.interpret_collective(kind, x, None, req, program=prog)
+            if not np.array_equal(got.view(np.uint32), interp.view(np.uint32)):
+                fail(f"switch buffers, {case}: the card's result differs from the numpy "
+                     f"interpreter")
+            want = exec_reference(kind, range(n), x)
+            err = float(np.abs(got - want).max())
+            exact = kind in ("all_gather", "all_to_all")
+            if not (np.array_equal(got, want) if exact else
+                    bool((np.abs(got - want) <= EXEC_TOL + EXEC_TOL * np.abs(want)).all())):
+                fail(f"switch buffers, {case}: the result misses the plain collective "
+                     f"(max abs err {err:.3g})")
+            ms = statistics.median(time_ms(torch, lambda: fn(xd, None, req, program=prog), 20)
+                                   for _ in range(3))
+            occ = ", ".join(f"switch {sw} {p}/{limit}" for sw, p in peaks.items())
+            print(f"  {case}: makespan {alg.makespan:g}, {len(alg.transfers)} transfers, "
+                  f"{prog[0].num_rounds} rounds, {prog[0].num_sends} sends; peak occupancy "
+                  f"{occ}; synthesis {synth_s * 1e3:.1f} ms on the host; max abs err "
+                  f"{err:.3g} ({'exact' if exact else f'tol {EXEC_TOL}'}); {ms:.4f} ms a call")
+            rows.append((case, alg.makespan, prog[0].num_rounds, ms))
+            del xd
+            if (label, kind, pipelined) == ("star8_b1", "all_gather", False):
+                planted = switch_fault(alg)
+                try:
+                    planted.validate()
+                    fail("switch buffers: validate() accepted an arrival shifted into a "
+                         "full buffer")
+                except AssertionError as e:
+                    if "buffer exceeded" not in str(e):
+                        fail(f"switch buffers: the planted fault failed otherwise: {e}")
+                    print(f"  planted fault (one arrival of {case} shifted into a full "
+                          f"buffer): validate() rejects it: {e}")
+
+    # four threads on one shared topology: every plan the single-thread plan
+    limit = 2
+    shared = topology.star_switch(n, buffer_limit=limit)
+    reqs = [core.CollectiveRequest(kind, group=tuple(range(n)), pipelined=pipelined)
+            for kind, pipelined in SWITCH_KINDS]
+    want = [core.SynthesisEngine(topology.star_switch(n, buffer_limit=limit)).collective(r)
+            for r in reqs]
+    got, errors = [], []
+
+    def work():
+        try:
+            for r in reqs:
+                got.append((r, core.SynthesisEngine(shared).collective(r)))
+        except Exception as e:  # noqa: BLE001 - reported below, and the phase fails
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=work, daemon=True) for _ in range(SWITCH_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=SWITCH_JOIN_S)
+    if any(th.is_alive() for th in threads):
+        fail(f"switch buffers: threads still synthesizing after {SWITCH_JOIN_S:g} s")
+    if errors or len(got) != SWITCH_THREADS * len(reqs):
+        fail(f"switch buffers: the threads raised {errors}")
+    for r, alg in got:
+        ref = want[reqs.index(r)]
+        if not all(np.array_equal(getattr(alg.columns, col), getattr(ref.columns, col))
+                   for col in ("chunk", "link", "src", "dst", "start", "end", "reduce")):
+            fail(f"switch buffers: a thread's {r.kind} plan differs from the single-thread plan")
+    print(f"  {SWITCH_THREADS} threads x {len(reqs)} collectives on one shared "
+          f"star_switch({n}, buffer_limit={limit}): every plan the single-thread plan "
+          f"({time.perf_counter() - t0:.2f} s)")
+    executor.clear_plan_cache()
+    print(f"switch_buffers: {len(rows)} cases; makespan/rounds/ms "
+          + "; ".join(f"{c} {m:g}/{r}/{ms:.4f}" for c, m, r, ms in rows)
+          + f"; on {smi_line}; {time.perf_counter() - t_phase:.1f} s")
 
 
 def flash_counters(fa) -> tuple:
@@ -4771,9 +4949,10 @@ def main() -> int:
     # 10. checkpoint/resume and the elastic recovery -------------------------
     checkpoint_phase(torch, dev, fa, smi_line)
 
-    # 11. the collective path; 12. repaired plans ----------------------------
+    # 11. the collective path; 12. repaired plans and limited switch buffers -
     D = collective_phase(torch, dev, get_config, LM)
     plan_repair_phase(torch, dev, D)
+    switch_buffers_phase(torch, dev, smi_line)
 
     # 13. the planner examples; 14. serve_batch's stepped serving ----------
     examples_phase(torch, dev)

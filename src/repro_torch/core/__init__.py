@@ -5,8 +5,10 @@ baselines and the alpha-beta simulator.
 
 The modules here are copies of the reference's: they differ from it only in
 their import lines and in marked fixes (``registry._store_disk``; the
-repair's local-phase failure in ``hierarchy``), and
-``tests/test_torch_port_rules.py`` holds them to that. This module exports
+repair's local-phase failure in ``hierarchy``; path-finding scratch per
+thread; finite switch buffers kept over a chunk's whole stay in ``ten``,
+``pathfinding`` and ``engine``), and ``tests/test_torch_port_rules.py``
+holds them to that. This module exports
 every name the reference's ``repro.core`` exports.
 """
 

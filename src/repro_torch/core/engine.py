@@ -141,8 +141,32 @@ def time_reversed(
          for ph, lo, hi in alg.phase_spans),
         key=lambda s: (s[1], s[2], s[0]),
     )
+    # >>> copy fix: plans that overfill a switch buffer across phases
     return CollectiveAlgorithm(forward_topo, list(reduce_conds), rev,
                                name=name or alg.name, phase_spans=spans)
+
+
+def _overfills(alg: CollectiveAlgorithm) -> bool:
+    """True when ``alg`` holds more chunks in a limited switch than its
+    buffer takes, counted as validate() counts them: one residency per
+    (switch, chunk), from the chunk's first arrival to its last forward
+    over the whole plan, a departure leaving before a same-instant
+    arrival. Phases that meet in a switch (a reduction's gather back out
+    of it, a gateway holding a chunk between two phases) make one stay of
+    the chunk's two visits, which no single search sees whole."""
+    topo = alg.topology
+    events: dict[int, list[tuple[float, int]]] = {}
+    for (sw, _), (a, d) in TEN.switch_stays(topo, alg.columns).items():
+        events.setdefault(sw, []).extend(((a, 1), (d, -1)))
+    for sw, evs in events.items():
+        limit = topo.nodes[sw].buffer_limit
+        occ = 0
+        for _, delta in sorted(evs):
+            occ += delta
+            if occ > limit:
+                return True
+    return False
+    # <<< copy fix
 
 
 # ---------------------------------------------------------------------------
@@ -429,6 +453,9 @@ class SynthesisEngine:
         int_mode = mode == "int" or (
             mode == "auto" and self._use_int_mode(conds, topo)
         )
+        # >>> copy fix: the switch residencies of preloaded phases
+        # An earlier phase's chunks stay in limited switch buffers too: this
+        # phase's searches count them, not only the links they held.
         if preload is not None:
             if int_mode:
                 pc = preload.columns
@@ -436,6 +463,8 @@ class SynthesisEngine:
             else:
                 for t in preload.transfers:
                     ten.commit(t.link, t.start, t.end)
+            ten.commit_stays(preload.columns)
+        # <<< copy fix
 
         repl = replicate and int_mode and self._replication_safe(topo)
         ordered = self._order(self._dist_cache_for(topo), conds,
@@ -940,7 +969,15 @@ class SynthesisEngine:
                 from repro_torch.core.hierarchy import HierarchyError
 
                 try:
-                    return self._hier_impl(kind, g, req)
+                    # >>> copy fix: a hierarchical plan that overfills a switch
+                    # A gateway switch holds a chunk from one phase to the
+                    # next. Where that overfills its buffer, the auto route
+                    # synthesizes the collective flat, as on a HierarchyError.
+                    alg = self._hier_impl(kind, g, req)
+                    if (req.hierarchy == "always" or self.sketch is not None
+                            or not _overfills(alg)):
+                        return alg
+                    # <<< copy fix
                 except HierarchyError:
                     # HierarchyError is advisory (see repro.core.errors):
                     # the auto route may retry flat — unless the caller
@@ -972,7 +1009,56 @@ class SynthesisEngine:
                                     chunks_per_npu=req.chunks)
         return h.all_reduce(g, bytes=req.bytes)
 
+    # >>> copy fix: flat reductions in waves where a switch buffer overfills
     def _flat_impl(self, kind, g, req: CollectiveRequest):
+        alg = self._flat_plan(kind, g, req)
+        if kind in ("reduce_scatter", "all_reduce") and _overfills(alg):
+            return self._in_waves(kind, g, req)
+        return alg
+
+    def _in_waves(self, kind, g, req: CollectiveRequest):
+        """A Reduce-Scatter or All-Reduce in waves of at most as many chunks
+        as the smallest limited buffer takes, each wave after the one
+        before: no more chunks than that are ever in flight, so no buffer
+        overfills. An All-Reduce holds each chunk in a switch from its
+        reduction to its gather, one stay of two phases; a reduction's
+        stays are timed on the reversed fabric, exactly only on unit
+        links. A flat All-Gather or All-To-All is one search a chunk, whose
+        stays the searches keep whole."""
+        topo = self.topology
+        wave = max(1, min(topo.nodes[s].buffer_limit
+                          for s in topo.csr().limited_switches))
+        rconds = cnd.reduce_scatter(g, ids=ChunkIds(0), bytes=req.bytes,
+                                    chunks_per_npu=(req.chunks if kind ==
+                                                    "reduce_scatter" else 1))
+        phases, prev = [], ()
+        for k in range(0, len(rconds), wave):
+            part = rconds[k:k + wave]
+            ag = cnd.gather_view(part, tag="rev_ag")
+            alg = self._reverse_algorithm(
+                self.synthesize(ag, name="pccl_reduce_scatter",
+                                topology=self.reversed_topology()), part)
+            rs = f"reduce_scatter{k // wave}"
+            phases.append(PhaseSpec(rs, algorithm=alg, after=prev))
+            prev = (rs,)
+            if kind == "all_reduce":
+                ag_conds = [Condition(c.chunk, next(iter(c.dests)),
+                                      frozenset(g), bytes=req.bytes,
+                                      tag="allreduce_ag") for c in part]
+                name = f"all_gather{k // wave}"
+                phases.append(PhaseSpec(
+                    name, conds=ag_conds, preload_from=(rs,),
+                    floors_from=(rs,) if req.pipelined else (),
+                    after=() if req.pipelined else (rs,)))
+                prev = (rs, name)
+        if kind == "all_reduce":
+            rconds = [ReduceCondition(c.chunk, frozenset(g), frozenset(g),
+                                      bytes=req.bytes) for c in rconds]
+        return self.synthesize_plan(
+            PhasePlan(phases, rconds, name=f"pccl_{kind}"))
+
+    def _flat_plan(self, kind, g, req: CollectiveRequest):
+    # <<< copy fix
         if kind == "all_gather":
             conds = cnd.all_gather(g, ids=ChunkIds(), bytes=req.bytes,
                                    chunks_per_npu=req.chunks)

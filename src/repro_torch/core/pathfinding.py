@@ -42,7 +42,11 @@ time is competition-independent) stay off.
 
 from __future__ import annotations
 
+# >>> copy fix: imports of the two fixes below
+import functools
 import heapq
+import threading
+# <<< copy fix
 import operator
 from dataclasses import dataclass
 
@@ -93,7 +97,66 @@ def _prune(
             arrivals[node] = e
             node = u
     transfers = sorted(keep.values(), key=lambda t: (t.start, t.link))
+    # >>> copy fix: a chunk's whole stay in a limited switch buffer
     return PathResult(transfers, arrivals, reached)
+
+
+def _first_clash(ten: TEN, result: PathResult, limited) -> tuple | None:
+    """(switch, instant, length of the stay) of the first retained stay
+    that meets a full buffer, or None. A chunk stays in a switch from its
+    arrival to its last retained forward (validate()'s residency); a switch
+    the chunk only reaches, or starts from, holds no stay of this search."""
+    arrive: dict[int, float] = {}
+    depart: dict[int, float] = {}
+    for t in result.transfers:
+        if t.dst in limited:
+            arrive[t.dst] = t.end
+        if t.src in limited:
+            depart[t.src] = max(depart.get(t.src, t.end), t.end)
+    for v, a in sorted(arrive.items(), key=lambda kv: (kv[1], kv[0])):
+        d = depart.get(v, a)
+        if d > a:
+            t = ten.stay_clash(v, a, d)
+            if t is not None:
+                return v, t, d - a
+    return None
+
+
+def _whole_stays(search):
+    """Make ``search`` keep a limited switch's buffer over each chunk's whole
+    stay, not only at its arrival. Where a retained stay meets a full
+    buffer, the switch's arrival floor rises to the next instant with room
+    after the clash (``TEN.next_room``: the exact retry of
+    ``next_drop_after``), on to the first such instant from which a stay
+    as long as this one meets no full buffer, and the search runs again.
+    A floor only rises, and only to a committed residency's end, so the
+    loop ends: at the latest once the floor passes the switch's last
+    residency. On a fabric without a limited switch the search runs once,
+    as before."""
+    @functools.wraps(search)
+    def fitted(ten: TEN, cond: Condition, *args) -> PathResult:
+        result = search(ten, cond, *args)
+        limited = ten.topology.csr().limited_switches
+        if not limited or not result.transfers:
+            return result
+        limited = frozenset(limited)
+        floors = ten._floors
+        try:
+            while True:
+                clash = _first_clash(ten, result, limited)
+                if clash is None:
+                    return result
+                v, t, length = clash
+                t = ten.next_room(v, t)
+                while t != float("inf") and (
+                        c := ten.stay_clash(v, t, t + length)) is not None:
+                    t = ten.next_room(v, c)
+                floors[v] = t
+                result = search(ten, cond, *args)
+        finally:
+            floors.clear()
+    return fitted
+    # <<< copy fix
 
 
 # ---------------------------------------------------------------------------
@@ -119,11 +182,19 @@ class _Scratch:
         self.best_e = [0] * n  # epoch stamp for best
 
 
+# >>> copy fix: path-finding scratch per thread
 def _scratch_for(topo) -> _Scratch:
-    sc = getattr(topo, "_bfs_scratch", None)
+    """This thread's scratch for ``topo``. Two threads searching one
+    topology must not share visit stamps: one thread's epoch bump makes the
+    other's pruning walk predecessors that are not its own. The table stays
+    under ``_bfs_scratch``, which ``Topology._invalidate_caches`` drops."""
+    per_thread = topo.__dict__.setdefault("_bfs_scratch", {})
+    tid = threading.get_ident()
+    sc = per_thread.get(tid)
     if sc is None or len(sc.vis_t) != topo.num_nodes:
-        sc = topo._bfs_scratch = _Scratch(topo.num_nodes)
+        sc = per_thread[tid] = _Scratch(topo.num_nodes)
     return sc
+# <<< copy fix
 
 
 def _probe(adjh, hrow, masks, mask_bl, src: int, t0: int) -> int:
@@ -413,9 +484,12 @@ def bfs_int(ten: TEN, cond: Condition, max_steps: int | None = None) -> PathResu
     return _prune_scratch(cond.chunk, src, dests, sc, ep, t0, csr)
 
 
+# >>> copy fix: whole stays in the event search
+@_whole_stays
 def _bfs_int_switched(
     ten: TEN, cond: Condition, csr, t0: int, max_steps: int
 ) -> PathResult:
+# <<< copy fix
     """General event loop for topologies with switches: identical ordering,
     plus per-step serialized-egress budgets and buffer-occupancy rechecks
     (both of which force event re-pushes, so the switch-free elisions are
@@ -588,9 +662,12 @@ def _prune_scratch(
 # Reference per-timestep frontier scan (kept for differential testing)
 # ---------------------------------------------------------------------------
 
+# >>> copy fix: whole stays in the level search
+@_whole_stays
 def bfs_int_ref(
     ten: TEN, cond: Condition, max_steps: int | None = None
 ) -> PathResult:
+# <<< copy fix
     """The original Algorithm 2 loop: expand the whole frontier one timestep
     at a time, in active-list order. ``bfs_int`` must match it bit-for-bit;
     tests/test_pathfinding_diff.py enforces that on random topologies and
@@ -654,7 +731,10 @@ def bfs_int_ref(
 # Heterogeneous earliest-arrival search (paper §4.6)
 # ---------------------------------------------------------------------------
 
+# >>> copy fix: whole stays in the heterogeneous search
+@_whole_stays
 def bfs_cont(ten: TEN, cond: Condition, max_time: float | None = None) -> PathResult:
+# <<< copy fix
     topo = ten.topology
     src = cond.src
     dests = cond.remote_dests

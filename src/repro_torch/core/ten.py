@@ -46,8 +46,13 @@ class TEN:
         self._busy: list[list[tuple[float, float]]] = [
             [] for _ in range(topology.num_links)
         ]
+        # >>> copy fix: arrival floors for a chunk's whole stay
         # per-switch committed chunk-residency intervals
         self._residency: dict[int, list[tuple[float, float]]] = defaultdict(list)
+        # per-switch earliest arrival of the chunk being searched: set by
+        # path finding while it re-times a stay that would overfill a buffer
+        self._floors: dict[int, float] = {}
+        # <<< copy fix
         # integer fast path: [num_links, capacity] occupancy bitmap plus a
         # per-link int mirror (bit t set = timestep t busy) for scalar queries
         self._cap = _INITIAL_HORIZON
@@ -216,17 +221,79 @@ class TEN:
     def occupancy_at(self, switch: int, t: float) -> int:
         return sum(1 for s, e in self._residency[switch] if s - _EPS <= t < e - _EPS)
 
+    # >>> copy fix: a chunk's whole stay in a limited switch buffer
+    # A chunk stays in a switch from its arrival to its last forward, and
+    # validate() counts it there for all of that time. Path finding checks
+    # room only on arrival, then re-times a stay that would overfill the
+    # buffer later on (pathfinding._whole_stays) by raising the switch's
+    # arrival floor, which the two queries below honour.
     def next_drop_after(self, switch: int, t: float) -> float:
-        """Earliest residency end > t (inf if none)."""
+        """Earliest residency end > t (inf if none); the switch's arrival
+        floor while t is below it."""
+        floor = self._floors.get(switch)
+        if floor is not None and t < floor - _EPS:
+            return floor
         ends = [e for _, e in self._residency[switch] if e > t + _EPS]
         return min(ends) if ends else float("inf")
 
     def buffer_has_room(self, switch: int, t: float) -> bool:
         limit = self.topology.nodes[switch].buffer_limit
-        return limit is None or self.occupancy_at(switch, t) < limit
+        if limit is None:
+            return True
+        floor = self._floors.get(switch)
+        if floor is not None and t < floor - _EPS:
+            return False
+        return self.occupancy_at(switch, t) < limit
+
+    def stay_clash(self, switch: int, start: float, end: float) -> float | None:
+        """The first instant of the stay [start, end) at which committed
+        residencies already fill the switch's buffer, or None. Occupancy
+        rises only where a residency starts, so those are the instants to
+        check; a residency ending at an instant has left before it."""
+        limit = self.topology.nodes[switch].buffer_limit
+        if limit is None:
+            return None
+        res = self._residency.get(switch, ())
+        points = sorted({s for s, _ in res if start + _EPS < s < end - _EPS})
+        for t in [start, *points]:
+            if self.occupancy_at(switch, t) >= limit:
+                return t
+        return None
+
+    def next_room(self, switch: int, t: float) -> float:
+        """The first instant >= t with room in the switch's buffer: finite,
+        since every committed residency ends (inf for a buffer of none)."""
+        while t != float("inf") and not self.buffer_has_room(switch, t):
+            t = self.next_drop_after(switch, t)
+        return t
+
+    @staticmethod
+    def switch_stays(topology, cols) -> dict:
+        """{(limited switch, chunk): (arrival, departure)} of a finished
+        schedule (``TransferColumns`` in schedule order), as validate()
+        counts residencies: the first arrival's end to the last forward's
+        end, over the whole schedule."""
+        limited = set(topology.csr().limited_switches)
+        arrive: dict[tuple[int, int], float] = {}
+        depart: dict[tuple[int, int], float] = {}
+        if limited:
+            for c, u, v, e in zip(cols.chunk.tolist(), cols.src.tolist(),
+                                  cols.dst.tolist(), cols.end.tolist()):
+                if u in limited:
+                    depart[(u, c)] = max(depart.get((u, c), 0.0), e)
+                if v in limited:
+                    arrive.setdefault((v, c), e)
+        return {k: (a, max(depart.get(k, a), a)) for k, a in arrive.items()}
+
+    def commit_stays(self, cols) -> None:
+        """Commit the residencies a finished schedule leaves in the limited
+        switches (``switch_stays``)."""
+        for (sw, _), (a, d) in self.switch_stays(self.topology, cols).items():
+            self.commit_residency(sw, a, d)
 
     def commit_residency(self, switch: int, start: float, end: float) -> None:
         self._residency[switch].append((start, max(end, start)))
+    # <<< copy fix
 
     # ------------------------------------------------------------------
     def horizon(self) -> float:

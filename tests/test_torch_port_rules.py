@@ -70,21 +70,74 @@ COPIED = {
     "runtime": ("fault_tolerance",),
 }
 FIX_BEGIN, FIX_END = "# >>> copy fix: ", "# <<< copy fix"
-# the marked fixes of the copy: module -> (its marker, the first and last
-# reference lines it replaces, how many they are, lines the fix must hold)
+# the marked fixes of the copy: module -> its fixes in file order, each (its
+# marker, the first and last reference lines it replaces, how many they are,
+# lines the fix must hold)
 FIXES = {
-    "core/registry.py": (
+    "core/registry.py": [(
         "# >>> copy fix: _store_disk race",
         'tmp = f"{path}.tmp.{os.getpid()}"',
         "self.stats.bytes_stored += os.path.getsize(path)", 12,
-        ("os.path.getsize(tmp)", "threading.get_ident()")),
+        ("os.path.getsize(tmp)", "threading.get_ident()"))],
     # hierarchy: a local phase whose degraded sub-fabric no longer connects
     # its endpoints raises HierarchyError (the engine then goes flat), not a
     # bare AssertionError out of path finding (check_repair_seed(60973))
-    "core/hierarchy.py": (
+    "core/hierarchy.py": [(
         "# >>> copy fix: a local phase its sub-fabric cannot connect",
         "pre = None", "pre = None", 1,
-        ("sub.hop_matrix()", "raise HierarchyError(", "pre = None")),
+        ("sub.hop_matrix()", "raise HierarchyError(", "pre = None"))],
+    # finite switch buffers over a chunk's whole stay: the TEN's arrival
+    # floors and stay queries, the searches re-timed by them, the preloaded
+    # phases' residencies, and plans that still overfill made flat or in waves
+    "core/ten.py": [
+        ("# >>> copy fix: arrival floors for a chunk's whole stay",
+         "# per-switch committed chunk-residency intervals",
+         "self._residency: dict[int, list[tuple[float, float]]] = defaultdict(list)", 2,
+         ("self._floors: dict[int, float] = {}",)),
+        ("# >>> copy fix: a chunk's whole stay in a limited switch buffer",
+         "def next_drop_after(self, switch: int, t: float) -> float:",
+         "self._residency[switch].append((start, max(end, start)))", 11,
+         ("def stay_clash(", "def next_room(", "def switch_stays(", "def commit_stays(",
+          "floor = self._floors.get(switch)")),
+    ],
+    "core/pathfinding.py": [
+        ("# >>> copy fix: imports of the two fixes below", "import heapq", "import heapq", 1,
+         ("import functools", "import threading")),
+        ("# >>> copy fix: a chunk's whole stay in a limited switch buffer",
+         "return PathResult(transfers, arrivals, reached)",
+         "return PathResult(transfers, arrivals, reached)", 1,
+         ("def _first_clash(", "def _whole_stays(", "t = ten.next_room(v, t)",
+          "floors.clear()")),
+        # two threads searching one topology each get their own scratch
+        ("# >>> copy fix: path-finding scratch per thread",
+         "def _scratch_for(topo) -> _Scratch:", "return sc", 5,
+         ("threading.get_ident()", '"_bfs_scratch"')),
+        ("# >>> copy fix: whole stays in the event search",
+         "def _bfs_int_switched(", ") -> PathResult:", 3,
+         ("@_whole_stays", "def _bfs_int_switched(")),
+        ("# >>> copy fix: whole stays in the level search",
+         "def bfs_int_ref(", ") -> PathResult:", 3,
+         ("@_whole_stays", "def bfs_int_ref(")),
+        ("# >>> copy fix: whole stays in the heterogeneous search",
+         "def bfs_cont(", "def bfs_cont(", 1,
+         ("@_whole_stays", "def bfs_cont(")),
+    ],
+    "core/engine.py": [
+        ("# >>> copy fix: plans that overfill a switch buffer across phases",
+         "return CollectiveAlgorithm(forward_topo, list(reduce_conds), rev,",
+         "name=name or alg.name, phase_spans=spans)", 2,
+         ("def _overfills(", "TEN.switch_stays(", "if occ > limit:")),
+        ("# >>> copy fix: the switch residencies of preloaded phases",
+         "if preload is not None:", "ten.commit(t.link, t.start, t.end)", 7,
+         ("ten.commit_stays(preload.columns)",)),
+        ("# >>> copy fix: a hierarchical plan that overfills a switch",
+         "return self._hier_impl(kind, g, req)", "return self._hier_impl(kind, g, req)", 1,
+         ("not _overfills(alg)", 'req.hierarchy == "always"')),
+        ("# >>> copy fix: flat reductions in waves where a switch buffer overfills",
+         "def _flat_impl(self, kind, g, req: CollectiveRequest):",
+         "def _flat_impl(self, kind, g, req: CollectiveRequest):", 1,
+         ("def _in_waves(", "def _flat_plan(", "_overfills(alg)")),
+    ],
 }
 
 
@@ -111,21 +164,19 @@ def _cut(lines: list[str], first: str, last: str) -> tuple[list[str], list[str]]
                                  for m in mods])
 def test_planner_copy_does_not_drift(rel):
     """A copied module equals the reference's but for its import lines and
-    its marked fix, if it has one: the copy cannot drift silently."""
+    its marked fixes, if it has any: the copy cannot drift silently. Each
+    fix is cut out of the copy, and the reference lines it replaces out of
+    the reference, in file order."""
     port = _normalised((ROOT / "src" / "repro_torch" / rel).read_text())
     ref = (ROOT / "src" / "repro" / rel).read_text().splitlines()
-    if rel not in FIXES:
-        assert not any(FIX_BEGIN in line for line in port)
-        assert port == ref
-        return
-    marker, first, last, n_replaced, must_hold = FIXES[rel]
-    port, fix = _cut(port, marker, FIX_END)
-    assert not any(FIX_BEGIN in line for line in port), "one marked fix a module"
-    ref, replaced = _cut(ref, first, last)
+    for marker, first, last, n_replaced, must_hold in FIXES.get(rel, []):
+        port, fix = _cut(port, marker, FIX_END)
+        ref, replaced = _cut(ref, first, last)
+        assert len(replaced) == n_replaced, marker
+        for text in must_hold:
+            assert any(text in line for line in fix), (marker, text)
+    assert not any(FIX_BEGIN in line for line in port), "a marked fix not listed in FIXES"
     assert port == ref
-    assert len(replaced) == n_replaced
-    for text in must_hold:
-        assert any(text in line for line in fix)
 
 
 def test_core_exports_the_references_names():
