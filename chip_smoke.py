@@ -747,7 +747,9 @@ with open(out, "w") as f:
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")
-BWD_SYMBOL = re.compile(r"flash_bwd_(lse|dkdv|dq)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+# the flash backward's passes: the mma route's (templated on type and padded
+# head_dim) and the wgmma route's (bf16, templated on head_dim)
+BWD_SYMBOL = re.compile(r"flash_bwd_(wgmma_)?(lse|dkdv|dq)_kernelI(f|13__nv_bfloat16)?Li(\d+)E")
 
 
 # the SSD backward's passes: name and template arguments (csrc/ssd_scan_bwd.cu)
@@ -778,18 +780,26 @@ def ssd_bwd_ptxas(log: str) -> list[str]:
     return sorted(rows)
 
 
+def bwd_pass(sym) -> str:
+    """A backward pass's name, type and padded head_dim from a BWD_SYMBOL match."""
+    return (f"flash_bwd_{sym[1] or ''}{sym[2]}_kernel {'f32' if sym[3] == 'f' else 'bf16'} "
+            f"hd {sym[4]}")
+
+
 def bwd_ptxas(log: str) -> list[str]:
     """One line per instance of the backward's passes in nvcc's ``-Xptxas
-    -v`` output: pass, type, padded head_dim, registers, spill bytes."""
+    -v`` output: pass, type, padded head_dim, registers, spill bytes; and a
+    line for each pass whose wgmma ptxas serialises (C7518)."""
     rows, entry, spill = [], None, ("?", "?")
     for line in log.splitlines():
-        if m := PTXAS_ENTRY.search(line):
+        if "(C75" in line and (sym := BWD_SYMBOL.search(line)):
+            rows.append(f"{bwd_pass(sym)}: {line[line.index('(C75'):].split(' in the function')[0]}")
+        elif m := PTXAS_ENTRY.search(line):
             entry, spill = BWD_SYMBOL.search(m[1]), ("?", "?")
         elif m := PTXAS_SPILL.search(line):
             spill = (m[1], m[2])
         elif (m := PTXAS_REGS.search(line)) and entry:
-            dtype = "f32" if entry[2] == "f" else "bf16"
-            rows.append(f"flash_bwd_{entry[1]}_kernel {dtype} hd {entry[3]}: {m[1]} registers, "
+            rows.append(f"{bwd_pass(entry)}: {m[1]} registers, "
                         f"spill stores {spill[0]} B, loads {spill[1]} B")
             entry = None
     return sorted(rows)
@@ -1636,20 +1646,44 @@ def switch_buffers_phase(torch, dev, smi_line: str) -> None:
 
 def flash_counters(fa) -> tuple:
     """Every flash kernel's launch counter: the routed forward's total, each
-    forward route's, and the backward's."""
+    forward route's, the routed backward's total and each backward route's."""
     return (fa.flash_attention, fa.flash_attention_wgmma, fa.flash_attention_mma,
-            fa.flash_attention_wide, fa.flash_attention_bwd)
+            fa.flash_attention_wide, fa.flash_attention_bwd, fa.flash_attention_bwd_wgmma,
+            fa.flash_attention_bwd_mma)
+
+
+def bwd_want(fa, n: int, hd: int, dtype: str = "bfloat16") -> dict:
+    """The launches ``n`` backward calls at (dtype, head_dim) count on each
+    backward counter, by name: the total, and all of them on the route that
+    ``BWD_ROUTES`` names (bf16 at hd 64 and 128: wgmma; else mma)."""
+    import torch
+
+    route = fa.bwd_route(getattr(torch, dtype), hd)
+    return {"flash_attention_bwd": n, "flash_attention_bwd_wgmma": n * (route == "wgmma"),
+            "flash_attention_bwd_mma": n * (route == "mma")}
+
+
+def bwd_counters(fa, n: int, hd: int, dtype: str = "bfloat16") -> dict:
+    """``bwd_want`` keyed by the counters themselves."""
+    return {getattr(fa, name): k for name, k in bwd_want(fa, n, hd, dtype).items()}
 
 
 def backward_phase(torch, dev, gen, fa, ops, flash_attention_ref,
                    flash_attention_bwd_ref) -> dict:
-    """The backward kernel against its plain version at ``BWD_CASES``, then
-    timed at the training shape beside the plain version, its bound and
-    SDPA's backward. Returns the kernels-line numbers."""
+    """The backward's two routes against their plain version at
+    ``BWD_CASES``: every case through the router (``BWD_ROUTES``: bf16 at hd
+    64 and 128 on the wgmma route), each launch counted on its route, and
+    the bf16 hd 64 / 128 cases through the mma route too; a planted fault
+    that the check must catch; two calls bit-equal; then both routes timed
+    at the training shape beside the plain version, the bound and SDPA's
+    backward, with the device time of each pass. Returns the kernels-line
+    numbers of both routes."""
     from repro_torch.launch import trace
 
     phase("flash backward kernel checks")
-    got_err = None
+    counters = (fa.flash_attention_bwd, fa.flash_attention_bwd_wgmma,
+                fa.flash_attention_bwd_mma)
+    err = {"wgmma": None, "mma": None}
     for B, S, T, H, KV, hd, dt, kw in BWD_CASES:
         dtype = getattr(torch, dt)
         q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
@@ -1657,23 +1691,56 @@ def backward_phase(torch, dev, gen, fa, ops, flash_attention_ref,
         v = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dtype)
         do = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
         o = flash_attention_ref(q, k, v, **kw)
-        before = fa.flash_attention_bwd.launches
+        route = fa.bwd_route(dtype, hd)
+        before = [c.launches for c in counters]
         got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
         torch.cuda.synchronize()
-        if fa.flash_attention_bwd.launches != before + 1:
-            fail("the backward wrapper did not count its launch")
+        if [c.launches - n for c, n in zip(counters, before)] != [
+                1, route == "wgmma", route == "mma"]:
+            fail(f"the backward did not count one launch on its {route} route")
         want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
         tol = F32_TOL if dt == "float32" else BF16_TOL
-        checked = [compare(g, w, tol) for g, w in zip(got, want)]
-        ok = all(c[1] for c in checked) and all(bool(torch.isfinite(g).all()) for g in got)
-        print(f"  B={B} S={S} T={T} H={H} KV={KV} hd={hd} {dt} {kw}: max_abs_err dq/dk/dv "
-              f"{' / '.join(f'{c[0]:.3g}' for c in checked)} (tol {tol}) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"the backward kernel disagrees with its plain version at "
-                 f"{(B, S, T, H, KV, hd, dt, kw)}")
-        if (B, S, H, KV, hd) == TRAIN_SHAPE and dt == "bfloat16":
-            got_err = max(c[0] for c in checked)
+        runs = {route: got}
+        if route == "wgmma":  # the mma route at the same case
+            runs["mma"] = fa.flash_attention_bwd_mma(q, k, v, o, do, **kw)
+            torch.cuda.synchronize()
+        line = []
+        for name, grads in runs.items():
+            checked = [compare(g, w, tol) for g, w in zip(grads, want)]
+            ok = all(c[1] for c in checked) and all(bool(torch.isfinite(g).all()) for g in grads)
+            line.append(f"{name} max_abs_err dq/dk/dv "
+                        f"{' / '.join(f'{c[0]:.3g}' for c in checked)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the backward's {name} route disagrees with its plain version at "
+                     f"{(B, S, T, H, KV, hd, dt, kw)}")
+            if (B, S, H, KV, hd) == TRAIN_SHAPE and dt == "bfloat16":
+                err[name] = max(c[0] for c in checked)
+        if len(runs) == 2:
+            line.append("|wgmma - mma| " + " / ".join(
+                f"{float((a.float() - b.float()).abs().max()):.3g}"
+                for a, b in zip(runs["wgmma"], runs["mma"])))
+        print(f"  B={B} S={S} T={T} H={H} KV={KV} hd={hd} {dt} {kw} (tol {tol}): "
+              + "; ".join(line))
+
+    # planted fault: dk and dv summed over the first query head of each
+    # group only (the wgmma kernel run on those heads alone); the check
+    # must fail it
+    B, S, H, KV, hd = 2, 192, 4, 2, 64
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                   for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)))
+    o = flash_attention_ref(q, k, v, causal=True)
+    group = H // KV
+    faulty = fa.flash_attention_bwd_wgmma(q[:, :, ::group], k, v, o[:, :, ::group],
+                                          do[:, :, ::group], causal=True)
+    want = flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+    caught = [compare(g, w, BF16_TOL) for g, w in zip(faulty[1:], want[1:])]
+    print(f"  planted fault (dk, dv over the first head of each group of {group} only) at "
+          f"{(B, S, H, KV, hd)} bfloat16 causal: max_abs_err dk/dv "
+          f"{' / '.join(f'{c[0]:.3g}' for c in caught)} "
+          f"{'PASSED: FAIL' if all(c[1] for c in caught) else 'fails, as it must'}")
+    if all(c[1] for c in caught):
+        fail("the backward check passed dk and dv summed over one head of each group")
+    del q, k, v, o, do, faulty, want
 
     (q, k, v), (qt, kt, vt) = attention_inputs(torch, gen, dev, TRAIN_SHAPE, "bfloat16")
     o = ops.flash_attention(q, k, v, causal=True)
@@ -1690,31 +1757,46 @@ def backward_phase(torch, dev, gen, fa, ops, flash_attention_ref,
     if not all(torch.equal(a, b) for a, b in
                zip(first, ops.flash_attention_bwd(q, k, v, o, do, causal=True))):
         fail("two backward calls at the training shape gave different dq, dk or dv")
-    print(f"  training shape {TRAIN_SHAPE} bfloat16 causal: two calls bit-equal (dq, dk, dv)")
+    print(f"  training shape {TRAIN_SHAPE} bfloat16 causal "
+          f"({fa.bwd_route(q.dtype, q.shape[-1])} route): two calls bit-equal (dq, dk, dv)")
     del first
-    fns = {"kernel": (lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=True), 20),
+    fns = {"wgmma": (lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=True), 20),
+           "mma": (lambda: fa.flash_attention_bwd_mma(q, k, v, o, do, causal=True), 20),
            "plain": (lambda: flash_attention_bwd_ref(q, k, v, o, do, causal=True), 3),
            "sdpa_bwd": (lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
                                                     retain_graph=True), 20)}
     times = time_turns(torch, fns)
     bound = attention_bwd_bound(q, k, True, 0)
-    print(f"  training shape {TRAIN_SHAPE} bfloat16 causal: kernel {times['kernel']:.4f} ms, "
-          f"plain {times['plain']:.4f} ms, sdpa backward {times['sdpa_bwd']:.4f} ms "
-          f"({times['kernel'] / times['sdpa_bwd']:.2f}x); bound {bound[0] * 1e3:.2f} us by "
-          f"{bound[1]} ({bound[2] / 1e9:.2f} GFLOP, {bound[3] / 1e6:.1f} MB: "
-          f"{bound_terms(bound[4])}); kernel at {bound[2] / times['kernel'] / 1e9:.2f} "
-          f"TFLOP/s of the backward's products, {times['kernel'] / bound[0]:.2f}x its bound")
-    # device time of each pass, from the profiler's kernel records
-    calls, run = 5, fns["kernel"][0]
-    by_name = trace.traced(lambda: [run() for _ in range(calls)], dev)["by_name"]
-    passes = {m[1]: us / calls / 1e3 for name, us in by_name.items()
-              if (m := re.search(r"flash_bwd_(lse|dkdv|dq)_kernel", name))}
-    print(f"  training shape bfloat16, device time by pass (profiler, {calls} calls): " +
-          ", ".join(f"{name} {ms:.4f} ms" for name, ms in passes.items()))
+    print(f"  training shape {TRAIN_SHAPE} bfloat16 causal: wgmma route {times['wgmma']:.4f} "
+          f"ms, mma route {times['mma']:.4f} ms ({times['mma'] / times['wgmma']:.2f}x the "
+          f"wgmma route's), plain {times['plain']:.4f} ms, sdpa backward "
+          f"{times['sdpa_bwd']:.4f} ms (wgmma {times['wgmma'] / times['sdpa_bwd']:.2f}x); bound "
+          f"{bound[0] * 1e3:.2f} us by {bound[1]} ({bound[2] / 1e9:.2f} GFLOP, "
+          f"{bound[3] / 1e6:.1f} MB: {bound_terms(bound[4])}); wgmma at "
+          f"{bound[2] / times['wgmma'] / 1e9:.2f} TFLOP/s of the backward's products, "
+          f"{times['wgmma'] / bound[0]:.2f}x its bound; mma {times['mma'] / bound[0]:.2f}x")
+    # device time of each pass, from the profiler's kernel records; host cost of a call
+    calls, passes, host = 5, {}, {}
+    for route in ("wgmma", "mma"):
+        run = fns[route][0]
+        by_name = trace.traced(lambda: [run() for _ in range(calls)], dev)["by_name"]
+        passes[route] = {m[1]: us / calls / 1e3 for name, us in by_name.items()
+                         if (m := re.search(r"flash_bwd_(?:wgmma_)?(lse|dkdv|dq)_kernel", name))}
+        host[route] = host_us(torch, run)
+        print(f"  training shape bfloat16, {route} route: device time by pass (profiler, "
+              f"{calls} calls) " + ", ".join(f"{n} {ms:.4f} ms" for n, ms in passes[route].items())
+              + f" ({sum(passes[route].values()):.4f} ms in all); host {host[route]:.1f} us a call")
+    # SDPA's backward through autograd: its kernels' device time, beside the
+    # CUDA events' time, which its host cost can set
+    run = fns["sdpa_bwd"][0]
+    sdpa_device = sum(trace.traced(lambda: [run() for _ in range(calls)],
+                                   dev)["by_name"].values()) / calls / 1e3
+    print(f"  training shape bfloat16, sdpa backward: device time (profiler, {calls} calls) "
+          f"{sdpa_device:.4f} ms, CUDA events {times['sdpa_bwd']:.4f} ms")
     del q, k, v, o, do, qt, kt, vt, ot, dot, fns, run
 
-    # the same in f32 (the mma forward, 3xTF32 in the backward): printed, not
-    # in the kernels line (the training path runs bf16)
+    # the same in f32 (the mma forward, the mma backward in 3xTF32): printed,
+    # not in the kernels line (the training path runs bf16)
     (q, k, v), (qt, kt, vt) = attention_inputs(torch, gen, dev, TRAIN_SHAPE, "float32")
     o = ops.flash_attention(q, k, v, causal=True)
     do = torch.randn(q.shape, generator=gen, device=dev)
@@ -1730,12 +1812,15 @@ def backward_phase(torch, dev, gen, fa, ops, flash_attention_ref,
         "sdpa_bwd": lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)},
         10)
     bound32 = attention_bwd_bound(q, k, True, 0)
-    print(f"  training shape {TRAIN_SHAPE} float32 causal: kernel {f32['kernel']:.4f} ms, sdpa "
-          f"backward {f32['sdpa_bwd']:.4f} ms ({f32['kernel'] / f32['sdpa_bwd']:.2f}x; max "
-          f"abs diff {diff:.3g}); bound {bound32[0] * 1e3:.2f} us by {bound32[1]} "
-          f"({bound_terms(bound32[4])}); kernel {f32['kernel'] / bound32[0]:.2f}x its bound")
-    return dict(err=got_err, ms=times["kernel"], plain_ms=times["plain"],
-                library_ms=times["sdpa_bwd"], bound=bound)
+    print(f"  training shape {TRAIN_SHAPE} float32 causal (mma route): kernel "
+          f"{f32['kernel']:.4f} ms, sdpa backward {f32['sdpa_bwd']:.4f} ms "
+          f"({f32['kernel'] / f32['sdpa_bwd']:.2f}x; max abs diff {diff:.3g}); bound "
+          f"{bound32[0] * 1e3:.2f} us by {bound32[1]} ({bound_terms(bound32[4])}); kernel "
+          f"{f32['kernel'] / bound32[0]:.2f}x its bound")
+    return {route: dict(err=err[route], ms=times[route], plain_ms=times["plain"],
+                        library_ms=times["sdpa_bwd"], library_device_ms=sdpa_device,
+                        bound=bound, passes=passes[route], host_us=host[route])
+            for route in ("wgmma", "mma")}
 
 
 def encdec_vlm_kernel_phase(torch, dev, gen, fa, ops, flash_attention_ref,
@@ -1743,9 +1828,10 @@ def encdec_vlm_kernel_phase(torch, dev, gen, fa, ops, flash_attention_ref,
     """The flash forward and backward at ``ENCDEC_VLM_SHAPES`` (checked
     against their plain versions in the kernel phases above), timed beside
     their plain versions, their bounds and SDPA's forward and backward
-    (``enable_gqa``, a yardstick the port never calls): bf16 at every shape,
-    f32 (the mma route and the backward in 3xTF32) at whisper's. Printed,
-    not in the kernels line."""
+    (``enable_gqa``, a yardstick the port never calls): bf16 at every shape
+    (the backward on the wgmma route, and on the mma route beside it), f32
+    (the mma routes, the backward in 3xTF32) at whisper's. Printed, not in
+    the kernels line."""
     phase("flash kernels at the encdec and vlm shapes")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name, (B, S, T, H, KV, hd, causal) in ENCDEC_VLM_SHAPES.items():
@@ -1761,7 +1847,8 @@ def encdec_vlm_kernel_phase(torch, dev, gen, fa, ops, flash_attention_ref,
             torch.testing.assert_close(ot.detach().transpose(1, 2).float(), o.float(),
                                        rtol=tol, atol=tol)
             big = B * H * S * T > 5e8  # the plain versions' f32 scores take GBs
-            got = time_turns(torch, {
+            bwd_route = fa.bwd_route(q.dtype, hd)
+            fns = {
                 "kernel": (lambda: ops.flash_attention(q, k, v, causal=causal), 20),
                 "plain": (lambda: flash_attention_ref(q, k, v, causal=causal), 1 if big else 3),
                 "sdpa": (lambda: sdpa(qt.detach(), kt.detach(), vt.detach(), is_causal=causal,
@@ -1769,12 +1856,17 @@ def encdec_vlm_kernel_phase(torch, dev, gen, fa, ops, flash_attention_ref,
                 "bwd": (lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal), 10),
                 "plain_bwd": (lambda: flash_attention_bwd_ref(q, k, v, o, do, causal=causal), 1),
                 "sdpa_bwd": (lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
-                                                         retain_graph=True), 10)})
-            for what, bound, kernel, plain, lib in (
-                    ("forward", attention_bound(q, k, v, causal, 0), "kernel", "plain", "sdpa"),
-                    ("backward", attention_bwd_bound(q, k, causal, 0), "bwd", "plain_bwd",
-                     "sdpa_bwd")):
-                route = fa.route(q.dtype, hd) if what == "forward" else "bwd"
+                                                         retain_graph=True), 10)}
+            runs = [("forward", fa.route(q.dtype, hd), attention_bound(q, k, v, causal, 0),
+                     "kernel", "plain", "sdpa"),
+                    ("backward", bwd_route, attention_bwd_bound(q, k, causal, 0), "bwd",
+                     "plain_bwd", "sdpa_bwd")]
+            if bwd_route == "wgmma":  # the mma route beside it
+                fns["bwd_mma"] = (lambda: fa.flash_attention_bwd_mma(q, k, v, o, do,
+                                                                     causal=causal), 10)
+                runs.append(("backward", "mma", runs[1][2], "bwd_mma", "plain_bwd", "sdpa_bwd"))
+            got = time_turns(torch, fns)
+            for what, route, bound, kernel, plain, lib in runs:
                 print(f"  {name} {(B, S, T, H, KV, hd)} {dt} {'causal' if causal else 'non-causal'}"
                       f", {what} ({route}): kernel {got[kernel]:.4f} ms, plain {got[plain]:.4f} "
                       f"ms, sdpa {got[lib]:.4f} ms ({got[kernel] / got[lib]:.2f}x SDPA); bound "
@@ -1859,7 +1951,7 @@ def training_phase(torch, dev, get_config, LM, fa, flash_attention_ref,
     L = cfg.num_layers
     want = {"flash_attention": 2 * L * TRAIN_STEPS, "flash_attention_wgmma": 2 * L * TRAIN_STEPS,
             "flash_attention_mma": 0, "flash_attention_wide": 0,
-            "flash_attention_bwd": L * TRAIN_STEPS}
+            **bwd_want(fa, L * TRAIN_STEPS, cfg.head_dim, cfg.dtype)}
     if launches != want:
         fail(f"flash launches over {TRAIN_STEPS} training steps {launches}, want {want} (the "
              f"forward once a layer and again in remat's recompute, the backward once)")
@@ -2130,7 +2222,7 @@ def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None 
             "flash_attention": 2 * attn_blocks,
             "flash_attention_wgmma": 2 * attn_blocks * (route == "wgmma"),
             "flash_attention_mma": 2 * attn_blocks * (route == "mma"),
-            "flash_attention_wide": 0, "flash_attention_bwd": attn_blocks}
+            "flash_attention_wide": 0, **bwd_want(fa, attn_blocks, cfg.head_dim)}
     want = {name: n * TRAIN_STEPS for name, n in want.items()}
     if launches != want:
         fail(f"launches over {TRAIN_STEPS} {arch} training steps {launches}, want {want} (the "
@@ -2339,9 +2431,11 @@ def routes_differ(a: list, b: list) -> tuple[list[int], list[int]]:
 
 
 def flash_want(fa, wgmma: int = 0, mma: int = 0) -> dict:
-    """Launches a served prefill must count on each forward flash route."""
+    """Launches a served prefill must count on each forward flash route, and
+    none of the backward's."""
     return {fa.flash_attention: wgmma + mma, fa.flash_attention_wgmma: wgmma,
-            fa.flash_attention_mma: mma, fa.flash_attention_wide: 0}
+            fa.flash_attention_mma: mma, fa.flash_attention_wide: 0,
+            **bwd_counters(fa, 0, 64)}
 
 
 def logits_checks(cfg, lm, params, prompts, plain_kw: dict, tol: float,
@@ -2701,9 +2795,13 @@ def dp_phase(torch, dev, fa) -> None:
     print(f"dp: max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) " +
           " ".join(f"{name}_launches={n}" for name, n in launches.items()))
     layers = cfg.num_layers * DP_RANKS * DP_STEPS * len(train_lm.COLLECTIVES)
-    if launches["flash_attention_wgmma"] != 2 * layers or launches["flash_attention_bwd"] != layers:
-        fail(f"flash launches in the data-parallel runs {launches}: want the wgmma forward "
-             f"{2 * layers} times and the backward {layers}")
+    route = fa.route(getattr(torch, cfg.dtype), cfg.head_dim)
+    want = {"flash_attention": 2 * layers,
+            **{f"flash_attention_{r}": 2 * layers * (r == route) for r in ("wgmma", "mma", "wide")},
+            **bwd_want(fa, layers, cfg.head_dim, cfg.dtype)}
+    if launches != want:
+        fail(f"flash launches in the data-parallel runs {launches}, want {want} (the forward "
+             f"twice a layer, remat's recompute the second, the backward once)")
     if not (out["max_loss_diff"] < DP_LOSS_TOL and out["max_param_diff"] < DP_PARAM_TOL):
         fail(f"PCCL and the built-in all-reduce diverge beyond {DP_LOSS_TOL} (loss) or "
              f"{DP_PARAM_TOL} (params)")
@@ -3013,7 +3111,8 @@ def checkpoint_phase(torch, dev, fa, smi_line: str) -> None:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     L, R = cfg.num_layers, CKPT_STEPS - CKPT_LABEL
     want = {"flash_attention": 2 * L * R, "flash_attention_wgmma": 2 * L * R,
-            "flash_attention_mma": 0, "flash_attention_wide": 0, "flash_attention_bwd": L * R}
+            "flash_attention_mma": 0, "flash_attention_wide": 0,
+            **bwd_want(fa, L * R, cfg.head_dim, cfg.dtype)}
     if a["launches"] != want:
         fail(f"flash launches over the resumed run's {R} steps {a['launches']}, want {want}")
     u, c, r, save = a["u"], a["c"], a["r"], a["save"]
@@ -3542,18 +3641,20 @@ def policy_path_checks(torch, dev, fa, smi_line: str) -> dict:
         train_grads(torch, plain, params, batch)  # warm-up
         want_loss, want_grads, plain_step = train_grads(torch, plain, params, batch)
         train_grads(torch, lm, placed, batch)
-        fwd_bwd = (fa.flash_attention_wgmma, fa.flash_attention_bwd)
+        fwd_bwd = {fa.flash_attention_wgmma: L, **bwd_counters(fa, L, cfg.head_dim, cfg.dtype)}
         for c in fwd_bwd:
             c.launches = 0
         got_loss, got_grads, pol_step = train_grads(torch, lm, placed, batch)
-        counted = [c.launches for c in fwd_bwd]
+        counted = {c: c.launches for c in fwd_bwd}
         same = [torch.equal(got_grads[k], w) for k, w in want_grads.items()]
         print(f"  train step {SERVE_BATCH}x{SERVE_PROMPT} (f32 master weights, bf16 compute): "
               f"loss {float(got_loss):.6f} bit-equal {torch.equal(got_loss, want_loss)}, "
-              f"gradient leaves bit-equal {sum(same)} of {len(same)}; launches forward "
-              f"{counted[0]}, backward {counted[1]} (want {L} each)")
-        if counted != [L, L]:
-            fail(f"flash launches of the policy's train step {counted}, want {[L, L]}")
+              f"gradient leaves bit-equal {sum(same)} of {len(same)}; launches "
+              f"{({c.__name__: n for c, n in counted.items()})}")
+        if counted != fwd_bwd:
+            fail(f"flash launches of the policy's train step "
+                 f"{({c.__name__: n for c, n in counted.items()})}, want "
+                 f"{({c.__name__: n for c, n in fwd_bwd.items()})}")
         if not (torch.equal(got_loss, want_loss) and all(same)):
             fail("the policy's training step is not bit-equal to the step without it")
         times = dict(prefill_ms=(plain_prefill, pol_prefill),
@@ -3784,7 +3885,8 @@ def policy_family_checks(torch, dev, fa, ssd, smi_line: str) -> dict:
             want_loss, want_grads, plain_step = train_grads(torch, plain, params, batch)
             train_grads(torch, lm, placed, batch)
             train_want = {ssd.ssd_scan: ssd_blocks, ssd.ssd_scan_bwd: ssd_blocks,
-                          fa.flash_attention: attn_calls, fa.flash_attention_bwd: attn_calls}
+                          fa.flash_attention: attn_calls,
+                          **bwd_counters(fa, attn_calls, cfg.head_dim)}
             for c in train_want:
                 c.launches = 0
             got_loss, got_grads, pol_step = train_grads(torch, lm, placed, batch)
@@ -3878,13 +3980,13 @@ def tp_ssd_times(torch, dev, gen, ops, ssd, smi_line: str) -> dict:
 
 
 def tp_flash_times(torch, dev, gen, fa, ops, smi_line: str) -> dict:
-    """(d), the flash forward (the wgmma route) and backward in bf16 at one
-    rank's share of whisper-medium's 16 heads at ``TP_DEGREES``, at each of
-    ``TP_FLASH_SHAPES``: the last rank's heads, held against the plain
-    versions, compared bit for bit with the same heads of the 16-head call,
-    timed beside the plain versions, SDPA's forward and backward and the
-    bounds. Returns {"flash_attention_wgmma": [...], "flash_attention_bwd":
-    [...]} for the kernels line."""
+    """(d), the flash forward and backward (both on their wgmma routes) in
+    bf16 at one rank's share of whisper-medium's 16 heads at ``TP_DEGREES``,
+    at each of ``TP_FLASH_SHAPES``: the last rank's heads, held against the
+    plain versions, compared bit for bit with the same heads of the 16-head
+    call, timed beside the plain versions, the backward's mma route, SDPA's
+    forward and backward and the bounds. Returns {"flash_attention_wgmma":
+    [...], "flash_attention_bwd": [...]} for the kernels line."""
     from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3903,7 +4005,10 @@ def tp_flash_times(torch, dev, gen, fa, ops, smi_line: str) -> dict:
             o = ops.flash_attention(qr, kr, vr, causal=causal)
             if fa.flash_attention_wgmma.launches != before + 1:
                 fail(f"{name} at model={tp} {shape} did not go to the wgmma route")
+            before = fa.flash_attention_bwd_wgmma.launches
             grads = ops.flash_attention_bwd(qr, kr, vr, o, dor, causal=causal)
+            if fa.flash_attention_bwd_wgmma.launches != before + 1:
+                fail(f"{name}'s backward at model={tp} {shape} did not go to the wgmma route")
             err, ok = compare(o, flash_attention_ref(qr, kr, vr, causal=causal), BF16_TOL)
             checked = [compare(g, w, BF16_TOL) for g, w in zip(
                 grads, flash_attention_bwd_ref(qr, kr, vr, o, dor, causal=causal))]
@@ -3922,6 +4027,8 @@ def tp_flash_times(torch, dev, gen, fa, ops, smi_line: str) -> dict:
                 "sdpa": (lambda: sdpa(qt.detach(), kt.detach(), vt.detach(),
                                       is_causal=causal), 20),
                 "bwd": (lambda: ops.flash_attention_bwd(qr, kr, vr, o, dor, causal=causal), 10),
+                "bwd_mma": (lambda: fa.flash_attention_bwd_mma(qr, kr, vr, o, dor,
+                                                               causal=causal), 10),
                 "plain_bwd": (lambda: flash_attention_bwd_ref(qr, kr, vr, o, dor,
                                                               causal=causal), 2),
                 "sdpa_bwd": (lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
@@ -3931,9 +4038,11 @@ def tp_flash_times(torch, dev, gen, fa, ops, smi_line: str) -> dict:
                      "plain", "sdpa", err, same),
                     ("flash_attention_bwd", attention_bwd_bound(qr, kr, causal, 0), "bwd",
                      "plain_bwd", "sdpa_bwd", max(c[0] for c in checked), same_bwd)):
+                mma = (f", mma route {times['bwd_mma']:.4f} ms"
+                       if what == "flash_attention_bwd" else "")
                 print(f"  (d) {what} at {name} model={tp}, {shape} bfloat16 "
                       f"{'causal' if causal else 'non-causal'} ({smi_line}): kernel "
-                      f"{times[kernel]:.4f} ms, plain {times[plain]:.4f} ms, sdpa "
+                      f"{times[kernel]:.4f} ms{mma}, plain {times[plain]:.4f} ms, sdpa "
                       f"{times[lib]:.4f} ms; bound {bound[0] * 1e3:.2f} us by {bound[1]} "
                       f"({bound_terms(bound[4])}); {times[kernel] / bound[0]:.2f}x its bound; "
                       f"max_abs_err {e:.3g}; bit-equal to the same heads of the {H}-head "
@@ -3941,7 +4050,8 @@ def tp_flash_times(torch, dev, gen, fa, ops, smi_line: str) -> dict:
                 out[what].append(dict(case=f"{name} model={tp}", shape=list(shape),
                                       ms=times[kernel], plain_ms=times[plain], bound_ms=bound[0],
                                       bound_by=bound[1], library_ms=times[lib], max_abs_err=e,
-                                      bit_equal_to_full=bit))
+                                      bit_equal_to_full=bit,
+                                      **({"mma_ms": times["bwd_mma"]} if mma else {})))
             del qr, kr, vr, dor, o, grads, qt, kt, vt, ot, dot
         del q, k, v, do, o_all, grads_all
         torch.cuda.empty_cache()
@@ -4104,7 +4214,7 @@ def bundle_train_checks(torch, dev, fa, smi_line: str) -> dict:
         want = {"flash_attention": 2 * L * accum * STEPS_TIMED,
                 "flash_attention_wgmma": 2 * L * accum * STEPS_TIMED,
                 "flash_attention_mma": 0, "flash_attention_wide": 0,
-                "flash_attention_bwd": L * accum * STEPS_TIMED}
+                **bwd_want(fa, L * accum * STEPS_TIMED, cfg.head_dim, cfg.dtype)}
         print(f"steps train accum={accum} ({smi_line}): step_ms={statistics.median(step_ms):.3f} "
               f"(median of {STEPS_TIMED}: {', '.join(f'{x:.3f}' for x in step_ms)}) "
               f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) loss "
@@ -4273,7 +4383,7 @@ def launch_train_checks(torch, dev, fa, smi_line: str, cfg=None, shape=LAUNCH_SH
     L = cfg.num_layers
     want = {"flash_attention": 2 * L * steps, "flash_attention_wgmma": 2 * L * steps,
             "flash_attention_mma": 0, "flash_attention_wide": 0,
-            "flash_attention_bwd": L * steps}
+            **bwd_want(fa, L * steps, cfg.head_dim, cfg.dtype)}
     median = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
     print(f"launch train ({smi_line}): {steps} steps in {wall:.2f} s, step_ms={median:.3f} "
           f"(median of steps 1-{steps - 1}: {fmt_ms(ms[1:])}; step 0 {ms[0]:.3f}) "
@@ -4706,13 +4816,19 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"built {sorted(logs)} in {build_s:.1f} s")
     for name, log in logs.items():
-        if name in ("flash_attention_bwd", "ssd_scan_bwd"):  # by pass below
-            continue
+        if name in ("flash_attention_bwd", "flash_attention_bwd_wgmma", "ssd_scan_bwd"):
+            continue  # by pass below
         for line in log.splitlines():
             if any(key in line for key in ("registers", "spill", "(C75")):
                 print(f"  {name}: {line.strip()}")
-    for row in bwd_ptxas(logs["flash_attention_bwd"]):
-        print(f"  ptxas, backward: {row}")
+    for route in ("flash_attention_bwd", "flash_attention_bwd_wgmma"):
+        for row in bwd_ptxas(logs[route]):
+            print(f"  ptxas, backward: {row}")
+    wgmma_bwd = bwd_ptxas(logs["flash_attention_bwd_wgmma"])
+    if len([r for r in wgmma_bwd if "registers" in r]) != 6 or any(
+            "spill stores 0 B, loads 0 B" not in r for r in wgmma_bwd if "registers" in r):
+        fail(f"the wgmma backward's 6 passes (3 at hd 64 and 128) must build without "
+             f"spills: {wgmma_bwd}")
     for row in ssd_bwd_ptxas(logs["ssd_scan_bwd"]):
         print(f"  ptxas, SSD backward: {row}")
 
@@ -4943,7 +5059,9 @@ def main() -> int:
     train_launches = training_phase(torch, dev, get_config, LM, fa, flash_attention_ref,
                                     flash_attention_bwd_ref)
     ssm_launches = family_training_phase(torch, dev, fa, ssd, "mamba2-370m")
-    family_training_phase(torch, dev, fa, ssd, "zamba2-7b", layers=ZAMBA2_TRAIN_LAYERS)
+    # zamba2's shared attention block (hd 112) runs the backward's mma route
+    hybrid_launches = family_training_phase(torch, dev, fa, ssd, "zamba2-7b",
+                                            layers=ZAMBA2_TRAIN_LAYERS)
     dp_phase(torch, dev, fa)
 
     # 10. checkpoint/resume and the elastic recovery -------------------------
@@ -5019,22 +5137,42 @@ def main() -> int:
         "bound_by": wide["float32"]["bound"][1],
         "library_ms": wide["float32"]["sdpa"],
     }, {
-        "name": "flash_attention_bwd",
+        "name": "flash_attention_bwd_wgmma",
         "route": "cuda",
-        "source": flash_source + "flash_attention_bwd.cu",
+        "source": flash_source + "flash_attention_bwd_wgmma.cu",
         "replaces": "src/repro/models/attention.py:227",
-        "launches": train_launches["flash_attention_bwd"],
-        "max_abs_err": bwd["err"],
-        "ms": bwd["ms"],
-        "plain_ms": bwd["plain_ms"],
-        "bound_ms": bwd["bound"][0],
-        "bound_by": bwd["bound"][1],
-        "library_ms": bwd["library_ms"],
+        "launches": train_launches["flash_attention_bwd_wgmma"],
+        "max_abs_err": bwd["wgmma"]["err"],
+        "ms": bwd["wgmma"]["ms"],
+        "plain_ms": bwd["wgmma"]["plain_ms"],
+        "bound_ms": bwd["wgmma"]["bound"][0],
+        "bound_by": bwd["wgmma"]["bound"][1],
+        "library_ms": bwd["wgmma"]["library_ms"],
+        "library_device_ms": bwd["wgmma"]["library_device_ms"],
+        "passes_ms": bwd["wgmma"]["passes"],
+        "host_us": bwd["wgmma"]["host_us"],
         "tp_shapes": per_rank["flash_attention_bwd"],
         "steps_launches": bundle_launches["bwd"],
         "launch_launches": launch_launches["bwd"],
         "op_host_us": dryrun_ops["flash_attention_bwd"]["op_host_us"],
         "wrapper_host_us": dryrun_ops["flash_attention_bwd"]["wrapper_host_us"],
+    }, {
+        # timed at llama's training shape beside the wgmma route; its
+        # launches are zamba2-7b's training steps (the shared block at hd 112)
+        "name": "flash_attention_bwd_mma",
+        "route": "cuda",
+        "source": flash_source + "flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:227",
+        "launches": hybrid_launches["flash_attention_bwd_mma"],
+        "max_abs_err": bwd["mma"]["err"],
+        "ms": bwd["mma"]["ms"],
+        "plain_ms": bwd["mma"]["plain_ms"],
+        "bound_ms": bwd["mma"]["bound"][0],
+        "bound_by": bwd["mma"]["bound"][1],
+        "library_ms": bwd["mma"]["library_ms"],
+        "library_device_ms": bwd["mma"]["library_device_ms"],
+        "passes_ms": bwd["mma"]["passes"],
+        "host_us": bwd["mma"]["host_us"],
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -7,11 +7,13 @@ source and flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is. A failed build raises with nvcc's output; nothing falls
 back to another implementation.
 
-``flash_attention_wgmma.cu`` builds TMA tensor maps on the host with
-``cuTensorMapEncodeTiled``, a driver function. It takes the function from
-the driver that the CUDA runtime has loaded (``cudaGetDriverEntryPoint``), so
-no library is linked with ``-lcuda`` and the flags are the same for every
-source; ``cuda.h`` is included for the types alone.
+``flash_attention_wgmma.cu`` and ``flash_attention_bwd_wgmma.cu`` build TMA
+tensor maps on the host with ``cuTensorMapEncodeTiled``, a driver function.
+Each takes the function from the driver that the CUDA runtime has loaded
+(``cudaGetDriverEntryPoint``), so no library is linked with ``-lcuda`` and
+the flags are the same for every source; ``cuda.h`` is included for the
+types alone. Every source stands alone (no header of the repo's own), so
+the hash of the one file covers all it compiles.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention", "flash_attention_wgmma", "flash_attention_wide",
-           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
+           "flash_attention_bwd", "flash_attention_bwd_wgmma", "ssd_scan", "ssd_scan_bwd")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -23,12 +23,22 @@ its own launches (``flash_attention_wgmma.launches``,
 ``flash_attention_mma.launches``, ``flash_attention_wide.launches``);
 ``flash_attention.launches`` is the total.
 
-``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) computes dq, dk
-and dv from q, k, v, the forward's output and its cotangent, f32 or bf16 at
-every head_dim from 1 to ``BWD_MAX_HEAD_DIM``, whichever route ran the
-forward. It replaces the reference's jnp VJP of its flash core
+``flash_attention_bwd`` computes dq, dk and dv from q, k, v, the forward's
+output and its cotangent, f32 or bf16 at every head_dim from 1 to
+``BWD_MAX_HEAD_DIM``, whichever route ran the forward. It replaces the
+reference's jnp VJP of its flash core
 (``repro/models/attention.py:_flash_bwd_vjp``); the Pallas kernel has none.
-Its three passes count as one launch of ``flash_attention_bwd.launches``.
+``BWD_ROUTES`` picks one of two kernels from (dtype, head_dim), as
+``ROUTES`` does for the forward:
+
+- ``wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``): TMA loads and wgmma
+  products, for bf16 at head_dim 64 and 128;
+- ``mma`` (``csrc/flash_attention_bwd.cu``): mma.sync products (f32 in
+  3xTF32), for every other (dtype, head_dim).
+
+Each route's three passes count as one launch of its wrapper
+(``flash_attention_bwd_wgmma.launches``, ``flash_attention_bwd_mma.launches``);
+``flash_attention_bwd.launches`` is the total.
 
 ``flops`` is the arithmetic of either direction, which ``kernels/ops``
 registers as the FLOP formula of its operators.
@@ -60,6 +70,10 @@ class _RouteTable(dict):
         raise KeyError(key)
 
 
+BWD_ROUTES = {
+    (dtype, hd): "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "mma"
+    for dtype in _DTYPES for hd in range(1, BWD_MAX_HEAD_DIM + 1)
+}
 ROUTES = _RouteTable({
     (dtype, hd): "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "mma"
     for dtype in _DTYPES for hd in range(1, MAX_HEAD_DIM + 1)
@@ -75,6 +89,17 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
         return ROUTES[(dtype, head_dim)]
     except KeyError:
         raise ValueError(f"head_dim {head_dim} is not a positive integer") from None
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel that takes (dtype, head_dim): "wgmma" or "mma"."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype} not in {list(_DTYPES)}")
+    try:
+        return BWD_ROUTES[(dtype, head_dim)]
+    except KeyError:
+        raise ValueError(f"the backward kernel takes head_dim 1..{BWD_MAX_HEAD_DIM}, "
+                         f"not {head_dim}") from None
 
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -121,15 +146,16 @@ def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
     if t.data_ptr() % 16:
         raise ValueError(f"TMA needs a 16-byte aligned base; this view starts "
                          f"at {t.data_ptr() % 16} bytes past one")
+    shape, strides = t.shape, t.stride()  # read once: each accessor call costs host time
     out = []
-    inner = t.shape[-1]  # packed stride of the next dim out, in elements
+    inner = shape[-1]  # packed stride of the next dim out, in elements
     for dim in (2, 1, 0):
-        stride = t.stride(dim) if t.shape[dim] > 1 else inner
+        stride = strides[dim] if shape[dim] > 1 else inner
         if stride * nbytes % 16:
             raise ValueError(f"TMA needs strides of 16-byte multiples; stride "
                              f"{stride} of dim {dim} is {stride * nbytes} bytes")
         out.append(stride)
-        inner = stride * t.shape[dim]
+        inner = stride * shape[dim]
     return out[2], out[1], out[0]
 
 
@@ -233,34 +259,84 @@ def _check_bwd(q, k, v, o, dout) -> None:
             raise ValueError(f"{name}'s head_dim must be contiguous")
 
 
-def flash_attention_bwd(q, k, v, o, dout, *, causal=True, window=0, softcap=0.0):
-    """(dq, dk, dv) of ``flash_attention(q, k, v)`` = o for the cotangent
-    ``dout`` of o, on the card, in q's dtype: f32 or bf16 at head_dim 1 to
-    ``BWD_MAX_HEAD_DIM`` (else ValueError; nothing goes to plain torch)."""
-    _check_bwd(q, k, v, o, dout)
+def _launch_bwd(name, symbol, err_symbol, q, k, v, o, dout, in_strides, rows,
+                causal, window, softcap):
+    """Allocate dq, dk, dv and the f32 row scratch (lse and D, ``rows`` a
+    (b, h)) and launch backward kernel ``name``; ``in_strides`` are the 15
+    element strides of q, k, v, o and dout. Returns (dq, dk, dv, launched)."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        return dq.zero_(), dk.zero_(), dv.zero_(), False
+    lse = torch.empty((B, H, rows), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    st = (ctypes.c_longlong * 24)(*[s for t in (q, k, v, o, dout, dq, dk, dv)
-                                    for s in t.stride()[:3]])
-    fn, err_str = _kernel("flash_attention_bwd", "repro_flash_attention_bwd",
-                          "repro_bwd_cuda_error_string", _BWD_ARGS)
+    st = (ctypes.c_longlong * 24)(*in_strides, *[s for t in (dq, dk, dv)
+                                                 for s in t.stride()[:3]])
+    fn, err_str = _kernel(name, symbol, err_symbol, _BWD_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(t.data_ptr() for t in (q, k, v, o, dout, dq, dk, dv, lse, delta)),
                  _DTYPES[q.dtype], B, S, T, H, KV, hd, st, int(causal), int(window),
                  float(softcap), 1.0 / math.sqrt(hd), stream)
+    if err < 0:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a tensor "
+                           f"map (CUresult {-err})")
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+        raise RuntimeError(f"{name} kernel launch failed: "
                            f"{err_str(err).decode()} ({err})")
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return dq, dk, dv, True
+
+
+def flash_attention_bwd_mma(q, k, v, o, dout, *, causal=True, window=0, softcap=0.0):
+    """The mma.sync backward: f32 or bf16 at head_dim 1 to
+    ``BWD_MAX_HEAD_DIM`` (else ValueError)."""
+    _check_bwd(q, k, v, o, dout)
+    strides = [s for t in (q, k, v, o, dout) for s in t.stride()[:3]]
+    *grads, launched = _launch_bwd("flash_attention_bwd", "repro_flash_attention_bwd",
+                                   "repro_bwd_cuda_error_string", q, k, v, o, dout, strides,
+                                   q.shape[1], causal, window, softcap)
+    flash_attention_bwd_mma.launches += int(launched)
+    return tuple(grads)
+
+
+# the wgmma backward's row scratch: S rounded up to its work tiles' 128 rows
+_BWD_WGMMA_ROWS = 128
+
+
+def flash_attention_bwd_wgmma(q, k, v, o, dout, *, causal=True, window=0, softcap=0.0):
+    """The TMA and wgmma backward: bf16 at head_dim 64 or 128, q, k, v, o
+    and dout readable by TMA and on the card (else ValueError; nothing goes
+    to another route)."""
+    if bwd_route(q.dtype, q.shape[-1]) != "wgmma":
+        raise ValueError(f"the wgmma backward takes bf16 at head_dim 64 or 128, "
+                         f"not {q.dtype} at {q.shape[-1]}")
+    strides = [s for t in (q, k, v, o, dout) for s in tma_strides(t)]
+    _check_bwd(q, k, v, o, dout)
+    rows = -(-q.shape[1] // _BWD_WGMMA_ROWS) * _BWD_WGMMA_ROWS
+    *grads, launched = _launch_bwd("flash_attention_bwd_wgmma",
+                                   "repro_flash_attention_bwd_wgmma",
+                                   "repro_bwd_wgmma_cuda_error_string", q, k, v, o, dout,
+                                   strides, rows, causal, window, softcap)
+    flash_attention_bwd_wgmma.launches += int(launched)
+    return tuple(grads)
+
+
+_BWD_ROUTE_FNS = {"wgmma": flash_attention_bwd_wgmma, "mma": flash_attention_bwd_mma}
+
+
+def flash_attention_bwd(q, k, v, o, dout, *, causal=True, window=0, softcap=0.0):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` = o for the cotangent
+    ``dout`` of o, on the card, in q's dtype, through the kernel that
+    ``BWD_ROUTES`` names for (dtype, head_dim): f32 or bf16 at head_dim 1 to
+    ``BWD_MAX_HEAD_DIM`` (else ValueError; nothing goes to plain torch)."""
+    fn = _BWD_ROUTE_FNS[bwd_route(q.dtype, q.shape[-1])]
+    before = fn.launches
+    grads = fn(q, k, v, o, dout, causal=causal, window=window, softcap=softcap)
+    flash_attention_bwd.launches += fn.launches - before
+    return grads
 
 
 def visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -290,6 +366,8 @@ def flops(q_shape, k_shape, causal: bool, window: int, *, backward: bool = False
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd_mma.launches = 0
+flash_attention_bwd_wgmma.launches = 0
 flash_attention_mma.launches = 0
 flash_attention_wgmma.launches = 0
 flash_attention_wide.launches = 0

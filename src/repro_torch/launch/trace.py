@@ -43,8 +43,9 @@ from repro_torch.launch.serve import make_prompts, prefix_len, serve
 from repro_torch.models import LM
 
 _FLASH = re.compile(r"flash_fwd_(wgmma|mma|wide)_kernel")
-# the flash backward's three passes (csrc/flash_attention_bwd.cu)
-_FLASH_BWD = re.compile(r"flash_bwd_(lse|dkdv|dq)_kernel")
+# the flash backward's three passes, of either route (csrc/flash_attention_bwd.cu,
+# csrc/flash_attention_bwd_wgmma.cu)
+_FLASH_BWD = re.compile(r"flash_bwd_(?:wgmma_)?(lse|dkdv|dq)_kernel")
 # the SSD scan's three passes (csrc/ssd_scan.cu)
 _SSD = re.compile(r"ssd_(chunk_state|state_pass|chunk_out)_kernel")
 # the SSD backward's own passes (csrc/ssd_scan_bwd.cu); the states it

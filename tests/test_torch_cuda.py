@@ -500,6 +500,61 @@ def test_backward_kernel_is_deterministic(cuda, dtype):
         assert torch.equal(a, b)
 
 
+# the backward's wgmma route (csrc/flash_attention_bwd_wgmma.cu): the bf16
+# cases of BWD_CASES at head_dim 64 and 128, where BWD_ROUTES sends the call
+WGMMA_BWD_CASES = [c for c in BWD_CASES if c[6] == "bfloat16" and c[5] in (64, 128)]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,dtype,kw", WGMMA_BWD_CASES)
+def test_wgmma_backward_matches_plain_and_the_mma_route(cuda, B, S, T, H, KV, hd, dtype, kw):
+    """The router sends the call to the wgmma route and counts it there; its
+    gradients and the mma route's each match the plain version, and each
+    other, within BF16_TOL."""
+    q, k, v = _qkv(cuda, torch.bfloat16, B, S, T, H, KV, hd, seed=21)
+    o = tref(q, k, v, **kw)
+    do = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        q.shape, dtype=np.float32)).to(cuda, torch.bfloat16)
+    before = (tfa.flash_attention_bwd_wgmma.launches, tfa.flash_attention_bwd_mma.launches)
+    got = tops.flash_attention_bwd(q, k, v, o, do, **kw)
+    assert (tfa.flash_attention_bwd_wgmma.launches,
+            tfa.flash_attention_bwd_mma.launches) == (before[0] + 1, before[1])
+    mma = tfa.flash_attention_bwd_mma(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for g, m, w in zip(got, mma, flash_attention_bwd_ref(q, k, v, o, do, **kw)):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), rtol=BF16_TOL, atol=BF16_TOL)
+        torch.testing.assert_close(m.float(), w.float(), rtol=BF16_TOL, atol=BF16_TOL)
+        torch.testing.assert_close(g.float(), m.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_wgmma_backward_is_deterministic(cuda, hd):
+    """Two calls of the wgmma route on llama's training shape (and at hd
+    128) give the same bits: no atomics, every sum in a fixed order."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 4, 1024, 1024, 32, 8, hd, seed=23)
+    o = tfa.flash_attention(q, k, v, causal=True)
+    do = torch.randn_like(q)
+    first = tfa.flash_attention_bwd_wgmma(q, k, v, o, do, causal=True)
+    second = tfa.flash_attention_bwd_wgmma(q, k, v, o, do, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_wgmma_backward_refuses_on_the_card(cuda):
+    """On the card too, the wgmma route takes bf16 at hd 64 and 128 and
+    views TMA can read only; nothing falls back to the mma route."""
+    q, k, v = _qkv(cuda, torch.float32, 1, 16, 16, 2, 1, 64)
+    with pytest.raises(ValueError, match="bf16 at head_dim 64 or 128"):
+        tfa.flash_attention_bwd_wgmma(q, k, v, q, q)
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 16, 16, 2, 1, 96)
+    with pytest.raises(ValueError, match="bf16 at head_dim 64 or 128"):
+        tfa.flash_attention_bwd_wgmma(q, k, v, q, q)
+    q = _qkv(cuda, torch.bfloat16, 1, 16, 16, 2, 1, 65)[0][..., :64]
+    k = _qkv(cuda, torch.bfloat16, 1, 16, 16, 2, 1, 64)[1]
+    with pytest.raises(ValueError, match="16-byte multiples"):
+        tfa.flash_attention_bwd_wgmma(q, k, k, q, q)
+
+
 def test_backward_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, torch.bfloat16, 1, 16, 16, 2, 1, 256)
     with pytest.raises(ValueError, match="head_dim 1..128"):

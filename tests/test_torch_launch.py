@@ -48,6 +48,7 @@ from _torch_cpu import one_torch_thread  # noqa: E402, F401
 import _torch_launch_worker as worker  # noqa: E402
 from repro_torch.bridge import named_leaves, params_from_jax  # noqa: E402
 from repro_torch.data.pipeline import stub_inputs  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
@@ -321,10 +322,12 @@ def _counter(name: str):
 @pytest.fixture
 def counted_kernels(monkeypatch):
     """A stand-in of the flash kernel module whose counters count the plain
-    versions' calls (every forward as a ``wgmma`` launch)."""
-    fake = types.SimpleNamespace(**{n: _counter(n) for n in (
+    versions' calls (every forward as a ``wgmma`` launch, every backward on
+    the route that ``BWD_ROUTES`` names for its inputs)."""
+    fake = types.SimpleNamespace(bwd_route=tfa.bwd_route, **{n: _counter(n) for n in (
         "flash_attention", "flash_attention_wgmma", "flash_attention_mma",
-        "flash_attention_wide", "flash_attention_bwd")})
+        "flash_attention_wide", "flash_attention_bwd", "flash_attention_bwd_wgmma",
+        "flash_attention_bwd_mma")})
     fwd, bwd = ops.flash_attention_ref, ops.flash_attention_bwd_ref
 
     def forward(*a, **kw):
@@ -332,9 +335,10 @@ def counted_kernels(monkeypatch):
         fake.flash_attention_wgmma.launches += 1
         return fwd(*a, **kw)
 
-    def backward(*a, **kw):
+    def backward(q, *a, **kw):
         fake.flash_attention_bwd.launches += 1
-        return bwd(*a, **kw)
+        getattr(fake, f"flash_attention_bwd_{tfa.bwd_route(q.dtype, q.shape[-1])}").launches += 1
+        return bwd(q, *a, **kw)
 
     monkeypatch.setattr(ops, "flash_attention_ref", forward)
     monkeypatch.setattr(ops, "flash_attention_bwd_ref", backward)
