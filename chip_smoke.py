@@ -8,10 +8,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. the card: nvidia-smi's name and power limit, torch's device name; TF32 off;
 2. build the CUDA kernels from the sources in this checkout (nvcc, sm_90a);
 3. hold the three flash-attention routes (the wgmma kernel for bf16 at
-   head_dim 64 / 128, the mma kernel for f32 and every other head_dim up to
-   256, the wide kernel above 256) against their plain PyTorch version on
-   the card at the test shapes
-   (head_dim 112 and 120 included), strided views of a fused projection,
+   head_dim 64 and every multiple of 8 from 72 to 128, the mma kernel for
+   f32 and every other head_dim up to 256, the wide kernel above 256)
+   against their plain PyTorch version on the card at the test shapes
+   (head_dim 72, 80, 96, 112 and 120 included), strided views of a fused
+   projection, a planted fault of the wgmma kernel below hd 128 (tensor
+   maps of 128 columns, reading large values past each head's columns of
+   a fused projection) that the check must fail,
    the serving shape and the served shapes of chatglm3-6b (16 query heads
    a KV head) and zamba2-7b (MHA at hd 112), whisper-medium's (the encoder
    non-causal at a ragged 1500 x 1500, cross-attention at T != S, the
@@ -20,9 +23,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    then time both at the serving shape beside the plain version, the bound
    and, as a yardstick the port never calls,
    ``torch.nn.functional.scaled_dot_product_attention``; and the mma route
-   in bf16 at the training slice's shape and at head_dim 120 and 112 beside
-   SDPA (printed only); the wide route at head_dim 512 and 1024 beside its
-   plain version and SDPA;
+   in bf16 at the training slice's shape beside SDPA (printed only); the
+   wgmma route at h2o-danube-3-4b's hd 120 and zamba2-7b's hd 112 beside the
+   mma route on the same inputs, SDPA and the bound; the wide route at
+   head_dim 512 and 1024 beside its plain version and SDPA;
 4. hold the SSD chunked-scan kernel (output and final state) against its
    plain version (the token-by-token recurrence) on the card at the test
    shapes, a ragged S, S < chunk and the serving shape, and again with a
@@ -59,10 +63,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    counted and the plain SSD scan as the comparison, a planted fault that
    the bf16 check must reject, and the checks repeated in f32; then for
    zamba2-7b (the hybrid: 81 Mamba blocks, the shared attention block
-   after every 6 of them, 13 calls of the mma route and 81 of the SSD
-   kernel a prefill; plain attention and plain scan together as the
+   after every 6 of them, 13 calls of the wgmma route and 81 of the SSD
+   kernel a bf16 prefill; plain attention and plain scan together as the
    comparison, the same planted fault), chatglm3-6b and internlm2-20b
-   (the wgmma route at hd 128) and h2o-danube-3-4b (the mma route at hd
+   (the wgmma route at hd 128) and h2o-danube-3-4b (the wgmma route at hd
    120, and a 6144-token prompt on which its 4096-token window binds, with
    the window left out as a planted fault), each at full width and depth
    in bf16 and again in f32 (internlm2-20b's f32 at 24 of its 48 layers:
@@ -90,7 +94,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and for zamba2-7b at full width and 13 of its 81 layers (the SSD scan
    and its backward, and zamba2's shared attention block, through their
    kernels; the plain scan, scan backward and attention as the
-   comparison), each with its launches counted exactly, one traced step,
+   comparison; the flash backward at the shared block's shape checked and
+   timed beside SDPA's backward, by CUDA events and device time, and its
+   bound), each with its launches counted exactly, one traced step,
    and the first step repeated in f32 with every SSM gradient leaf held to
    the plain one;
 9. the data-parallel step of train_lm's 100m model with 8 ranks stacked on
@@ -229,7 +235,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    --dry-run`` and ``launch.serve --dry-run``, each cell's FLOPs and
    collective bytes a device, its predicted peak beside the card's memory,
    its trace seconds, and the card's allocated memory unchanged;
-19. print one JSON line of per-kernel numbers (each kernel's numbers at the
+19. print one JSON line of per-kernel numbers (the wgmma route's at hd 120
+   and 112 beside the mma route, SDPA and the bound under ``head_dims``, the
+   mma backward's at zamba2-7b's shared block under ``zamba2_shape``; each
+   kernel's numbers at the
    per-rank shapes of (d) under ``tp_shapes``, the bundle steps' launches
    under ``steps_launches``, the launchers' under ``launch_launches``, the
    host time a call through the operator and through the wrapper under
@@ -325,6 +334,10 @@ ENCDEC_VLM_SHAPES = {
     "llava": (1, LLAVA_SEQ, LLAVA_SEQ, 56, 8, 128, True),
 }
 
+# bf16 head dims below 128 that the wgmma route runs through its hd-128
+# instance, beyond zamba2-7b's 112 and h2o-danube's 120
+WGMMA_PADDED_HEAD_DIMS = (72, 80, 96)
+
 CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
     (1, 128, 128, 4, 4, 32, "float32", dict(causal=True)),            # MHA
     (1, 128, 128, 4, 4, 32, "float32", dict(causal=False)),
@@ -357,13 +370,25 @@ CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
     (4, 300, 700, 32, 4, 64, "bfloat16", dict(causal=False)),
     (4, 512, 8, 32, 8, 64, "bfloat16", dict(causal=True, window=4)),  # empty work tiles
     (3, 1000, 1000, 16, 4, 128, "bfloat16", dict(causal=True, softcap=20.0)),
-    # head dims only the mma route takes: zamba2-7b's 112, h2o-danube's 120
+    # zamba2-7b's 112 and h2o-danube's 120: the wgmma route in bf16 (the
+    # hd-128 instance, TMA zero-filling the columns past hd), mma in f32
     *[case for hd in (112, 120) for dt in ("float32", "bfloat16") for case in (
         (1, 1000, 1000, 4, 2, hd, dt, dict(causal=True)),             # ragged, GQA
         (1, 256, 256, 4, 4, hd, dt, dict(causal=True, window=96)),
         (1, 128, 128, 2, 2, hd, dt, dict(causal=True, softcap=20.0)),
         (1, 64, 8, 2, 2, hd, dt, dict(causal=True, window=4)),         # empty rows
     )],
+    # the other bf16 head dims below 128 that the wgmma route takes
+    *[case for hd in WGMMA_PADDED_HEAD_DIMS for case in (
+        (1, 1000, 1000, 4, 2, hd, "bfloat16", dict(causal=True)),      # ragged, GQA
+        (1, 96, 160, 4, 4, hd, "bfloat16", dict(causal=False)),        # T != S, MHA
+        (1, 256, 256, 4, 4, hd, "bfloat16", dict(causal=True, window=96, softcap=20.0)),
+        (1, 64, 8, 2, 2, hd, "bfloat16", dict(causal=True, window=4)),  # empty rows
+        (2, 1000, 1000, 32, 8, hd, "bfloat16", dict(causal=True)),     # work > SMs
+    )],
+    # bf16 head dims the wgmma route does not take (no multiple of 8): mma
+    (1, 256, 256, 4, 2, 100, "bfloat16", dict(causal=True)),
+    (1, 96, 160, 4, 2, 116, "bfloat16", dict(causal=False)),
     (1, 200, 300, 4, 2, 20, "float32", dict(causal=True)),            # hd 20, T != S
     (1, 300, 200, 4, 1, 256, "bfloat16", dict(causal=True)),          # the widest hd
     # head dims above 256: the wide route (257: no multiple of 8; 1024 and
@@ -378,10 +403,13 @@ CHECK_CASES = [  # B, S, T, H, KV, hd, dtype, kwargs
         (1, 64, 64, 2, 1, 4096, dt, dict(causal=True)),
     )],
     # served shapes no row above reaches: chatglm3-6b's 16 query heads a KV
-    # head (wgmma in bf16, mma in f32), zamba2-7b's MHA at hd 112 (mma)
+    # head (wgmma in bf16, mma in f32), zamba2-7b's MHA at hd 112 and
+    # h2o-danube's prefill at hd 120 (wgmma in bf16, mma in f32)
     (4, 1024, 1024, 32, 2, 128, "bfloat16", dict(causal=True)),
     (4, 1024, 1024, 32, 2, 128, "float32", dict(causal=True)),
     (4, 1024, 1024, 32, 32, 112, "bfloat16", dict(causal=True)),
+    (4, 1024, 1024, 32, 32, 112, "float32", dict(causal=True)),
+    (4, 1024, 1024, 32, 8, 120, "bfloat16", dict(causal=True, window=4096)),
     # granite-moe-3b-a800m's 24 query heads on 8 KV heads: a GQA group of 3
     # (wgmma in bf16, mma in f32)
     (4, 1024, 1024, 24, 8, 64, "bfloat16", dict(causal=True)),
@@ -403,13 +431,22 @@ FUSED_CASES = [  # B, S, H, KV, hd, dtype, kwargs
     (2, 130, 4, 1, 32, "float32", dict(causal=True)),
     *[(2, 130, 4, 1, hd, dt, dict(causal=True))
       for hd in (112, 120, 320, 512) for dt in ("float32", "bfloat16")],
+    *[(2, 130, 4, 1, hd, "bfloat16", dict(causal=True)) for hd in WGMMA_PADDED_HEAD_DIMS],
 ]
 # the mma route in bf16, timed beside SDPA (causal): B, S, H, KV, hd
-YARDSTICKS = {
-    "the 10m training model": (8, 256, 8, 4, 32),
-    "h2o-danube-3-4b's head_dim": (SERVE_BATCH, SERVE_PROMPT, 32, 8, 120),
-    "zamba2-7b's head_dim": (SERVE_BATCH, SERVE_PROMPT, 32, 32, 112),
+YARDSTICKS = {"the 10m training model": (8, 256, 8, 4, 32)}
+# the served bf16 head dims below 128, on the wgmma route: timed beside the
+# mma route on the same inputs, SDPA and the bound (causal; B, S, H, KV, hd)
+PADDED_HEAD_DIM_SHAPES = {
+    "h2o-danube-3-4b": (SERVE_BATCH, SERVE_PROMPT, 32, 8, 120),
+    "zamba2-7b": (SERVE_BATCH, SERVE_PROMPT, 32, 32, 112),
 }
+# the planted fault of the wgmma route below hd 128: a copy of the kernel
+# whose tensor maps span the instance's 128 columns instead of the call's
+# hd, run on q/k/v as views of one projection with large values just past
+# each head's hd columns (B, S, H, KV at each hd)
+WGMMA_FAULT_CASE = (2, 200, 4, 2)
+WGMMA_FAULT_HEAD_DIMS = (112, 120)
 
 # the wide route, timed beside its plain version and SDPA (causal): B, S, H,
 # KV, hd; the first goes to the kernels line
@@ -524,6 +561,8 @@ SSM_GRAD_REL_TOL = 1e-3
 ZAMBA2_TRAIN_LAYERS = 13
 # the flash backward at zamba2-7b's shared block (B, S, H, KV, hd), bf16
 ZAMBA2_ATTN = (TRAIN_SHAPE[0], TRAIN_SHAPE[1], 32, 32, 112)
+# its times (``zamba2_bwd_times``), filled by zamba2-7b's training phase
+ZAMBA2_BWD: dict = {}
 # the moe family (granite-moe-1b-a400m, granite-moe-3b-a800m), served at
 # full width and depth. A bf16 difference between the kernel and the plain
 # attention flips near-tie routes (0.7-0.8% of the first layer's (token,
@@ -1823,6 +1862,116 @@ def backward_phase(torch, dev, gen, fa, ops, flash_attention_ref,
             for route in ("wgmma", "mma")}
 
 
+def start_wgmma_fault_build(build):
+    """Start nvcc on a copy of ``csrc/flash_attention_wgmma.cu`` whose three
+    tensor maps span the instance's width (``HD``, 128) instead of the
+    call's head_dim: the planted fault of ``wgmma_fault_checks``. Returns
+    (library path, nvcc process)."""
+    src = (build.CSRC / "flash_attention_wgmma.cu").read_text()
+    faulty, n = re.subn(r"(make_map\(encode, &tm_[qkv], [qkv], B, \w+, \w+, )hd,", r"\1HD,",
+                        src)
+    if n != 3:
+        fail("the wgmma source no longer passes hd to its three tensor maps as "
+             "'make_map(encode, &tm_x, x, B, L, N, hd, ...'; the planted fault cannot be "
+             "made")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = build.BUILD_DIR / "flash_attention_wgmma_fault128.cu"
+    path.write_text(faulty)
+    lib = path.with_suffix(".so")
+    proc = subprocess.Popen([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(path)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return lib, proc
+
+
+def wgmma_fault_checks(torch, gen, dev, fa, ops, fault_build, flash_attention_ref) -> None:
+    """q/k/v as views of one projection whose rows hold, just past each
+    head's hd columns, 8 columns of large values (``WGMMA_FAULT_CASE`` at
+    ``WGMMA_FAULT_HEAD_DIMS``): the wgmma route (one launch) within
+    ``BF16_TOL`` of the plain version, and the copy built with 128-column
+    tensor maps (``start_wgmma_fault_build``), which reads those columns and
+    the next head's, outside it."""
+    import ctypes
+
+    lib, proc = fault_build
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc failed on the planted-fault copy of the wgmma kernel:\n{out}")
+    dll = ctypes.CDLL(str(lib))
+    fn, err_str = dll.repro_flash_attention_wgmma_fwd, dll.repro_wgmma_cuda_error_string
+    fn.argtypes, fn.restype = fa._FWD_ARGS, ctypes.c_int
+    err_str.argtypes, err_str.restype = [ctypes.c_int], ctypes.c_char_p
+    fa._fns["flash_attention_wgmma_fault128"] = (fn, err_str)
+    B, S, H, KV = WGMMA_FAULT_CASE
+    for hd in WGMMA_FAULT_HEAD_DIMS:
+        # one row past S keeps the faulty maps' reads of the last head inside
+        # the allocation
+        rows = torch.randn((B, S + 1, H + 2 * KV, hd + 8), generator=gen, device=dev)
+        rows[..., hd:] *= 100.0
+        rows = rows.to(torch.bfloat16)[:, :S]
+        q, k, v = rows[:, :, :H, :hd], rows[:, :, H:H + KV, :hd], rows[:, :, H + KV:, :hd]
+        want = flash_attention_ref(q, k, v, causal=True)
+        before = fa.flash_attention_wgmma.launches
+        got = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if fa.flash_attention_wgmma.launches != before + 1:
+            fail(f"the fault case at hd {hd} did not go to the wgmma route")
+        err, ok = compare(got, want, BF16_TOL)
+        strides = (*fa.tma_strides(q), *fa.tma_strides(k), *fa.tma_strides(v))
+        faulty, _ = fa._launch("flash_attention_wgmma_fault128",
+                               "repro_flash_attention_wgmma_fwd",
+                               "repro_wgmma_cuda_error_string", q, k, v, strides, True, 0, 0.0)
+        torch.cuda.synchronize()
+        fault_err, fault_ok = compare(faulty, want, BF16_TOL)
+        print(f"  wgmma: B={B} S={S} H={H} KV={KV} hd={hd} bfloat16 causal, q/k/v views of "
+              f"one projection with 8 columns of large values past each head: "
+              f"max_abs_err={err:.3g} (tol {BF16_TOL}) {'ok' if ok else 'FAIL'}; planted "
+              f"fault (tensor maps of 128 columns): max_abs_err={fault_err:.3g} "
+              f"{'PASSED: FAIL' if fault_ok else 'fails, as it must'}")
+        if not (ok and torch.isfinite(got).all()):
+            fail(f"the wgmma route disagrees with its plain version at hd {hd} with large "
+                 f"values past each head's columns")
+        if fault_ok:
+            fail(f"the check passed the wgmma kernel with 128-column tensor maps at hd {hd}")
+        del rows, q, k, v, want, got, faulty
+    del fa._fns["flash_attention_wgmma_fault128"]
+
+
+def padded_head_dim_times(torch, gen, dev, fa, ops, smi_line: str) -> list:
+    """The wgmma route at ``PADDED_HEAD_DIM_SHAPES`` (bf16, causal; the
+    hd-128 instance with zero-filled columns), the mma route on the same
+    inputs, SDPA and the bound, three rounds in turns. Returns the kernels
+    line's ``head_dims`` rows."""
+    rows = []
+    for arch, shape in PADDED_HEAD_DIM_SHAPES.items():
+        (q, k, v), (qt, kt, vt) = attention_inputs(torch, gen, dev, shape, "bfloat16")
+        if fa.route(q.dtype, q.shape[-1]) != "wgmma":
+            fail(f"{arch}'s head_dim {q.shape[-1]} does not route to the wgmma kernel")
+        fns = {"wgmma": lambda: ops.flash_attention(q, k, v, causal=True),
+               "mma": lambda: fa.flash_attention_mma(q, k, v, causal=True),
+               "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True)}
+        wgmma, mma = fns["wgmma"](), fns["mma"]()
+        torch.testing.assert_close(wgmma.float(), fns["sdpa"]().transpose(1, 2).float(),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+        torch.testing.assert_close(wgmma.float(), mma.float(), rtol=BF16_TOL, atol=BF16_TOL)
+        got = time_pair(torch, fns, 100)
+        bound_ms, bound_by, flops, nbytes, terms = attention_bound(q, k, v, True, 0)
+        print(f"  {arch}'s head_dim {shape[-1]}: {shape} bfloat16 causal ({smi_line}): wgmma "
+              f"{got['wgmma']:.4f} ms, mma {got['mma']:.4f} ms (wgmma "
+              f"{got['mma'] / got['wgmma']:.2f}x faster), sdpa {got['sdpa']:.4f} ms (wgmma "
+              f"{got['wgmma'] / got['sdpa']:.2f}x); bound {bound_ms * 1e3:.2f} us by {bound_by} "
+              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: {bound_terms(terms)}); wgmma "
+              f"at {flops / got['wgmma'] / 1e9:.2f} TFLOP/s, {got['wgmma'] / bound_ms:.2f}x "
+              f"its bound")
+        if got["wgmma"] >= got["mma"]:
+            fail(f"the wgmma route at {arch}'s {shape} is not faster than the mma route")
+        rows.append({"arch": arch, "shape": list(shape), "ms": got["wgmma"],
+                     "mma_ms": got["mma"], "library_ms": got["sdpa"], "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+        del q, k, v, qt, kt, vt, fns, wgmma, mma
+    return rows
+
+
 def encdec_vlm_kernel_phase(torch, dev, gen, fa, ops, flash_attention_ref,
                             flash_attention_bwd_ref) -> None:
     """The flash forward and backward at ``ENCDEC_VLM_SHAPES`` (checked
@@ -2078,6 +2227,41 @@ def ssd_bwd_phase(torch, dev, gen, ops, ssd, ssd_scan_bwd_ref) -> dict:
     return dict(out["mamba2-370m"], err=err)
 
 
+def zamba2_bwd_times(torch, dev, fa, ops, trace, q, k, v, o, do) -> dict:
+    """The flash backward at ``ZAMBA2_ATTN`` (the route ``BWD_ROUTES``
+    names, the mma route at hd 112) beside SDPA's backward through
+    autograd, three rounds in turns by CUDA events, and the device time of
+    each from the profiler's kernel records; the bound
+    (``attention_bwd_bound``). Returns the kernels line's numbers."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    route = fa.bwd_route(q.dtype, q.shape[-1])
+    fns = {"kernel": lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=True),
+           "sdpa_bwd": lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)}
+    for g, w in zip(fns["kernel"](), fns["sdpa_bwd"]()):
+        torch.testing.assert_close(g.float(), w.transpose(1, 2).float(),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+    got = time_pair(torch, fns, 20)
+    calls = 5
+    device = {name: sum(trace.traced(lambda: [fn() for _ in range(calls)],
+                                     dev)["by_name"].values()) / calls / 1e3
+              for name, fn in fns.items()}
+    bound = attention_bwd_bound(q, k, True, 0)
+    print(f"  flash backward at {ZAMBA2_ATTN} bfloat16 causal, {route} route: kernel "
+          f"{got['kernel']:.4f} ms (device {device['kernel']:.4f}), sdpa backward "
+          f"{got['sdpa_bwd']:.4f} ms (device {device['sdpa_bwd']:.4f}; kernel "
+          f"{got['kernel'] / got['sdpa_bwd']:.2f}x by CUDA events, "
+          f"{device['kernel'] / device['sdpa_bwd']:.2f}x by device time); bound "
+          f"{bound[0] * 1e3:.2f} us by {bound[1]} ({bound[2] / 1e9:.2f} GFLOP, "
+          f"{bound[3] / 1e6:.1f} MB: {bound_terms(bound[4])}); kernel "
+          f"{got['kernel'] / bound[0]:.2f}x its bound")
+    return {"shape": list(ZAMBA2_ATTN), "route": route, "ms": got["kernel"],
+            "device_ms": device["kernel"], "library_ms": got["sdpa_bwd"],
+            "library_device_ms": device["sdpa_bwd"], "bound_ms": bound[0],
+            "bound_by": bound[1]}
+
+
 def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None = None,
                           f32_layers: int | None = None, seq: int = TRAIN_SHAPE[1],
                           plain_rows: int | None = None, no_f32: str = "",
@@ -2151,6 +2335,8 @@ def family_training_phase(torch, dev, fa, ssd, arch: str, *, layers: int | None 
         if not all(c[1] for c in checked):
             fail("the flash backward kernel disagrees with its plain version at zamba2-7b's "
                  "shared block")
+        ZAMBA2_BWD.update(zamba2_bwd_times(torch, dev, fa, ops, trace, q, k, v, o, do))
+        ZAMBA2_BWD["err"] = max(c[0] for c in checked)
         del q, k, v, o, do, got
 
     lm, params = model(cfg)
@@ -2706,22 +2892,22 @@ def check_serving(arch: str, want: dict, plain_kw: dict, rel_tol: float, *,
 
 def serving_phases(fa, ssd, flash_attention_ref, ssd_scan_ref) -> None:
     """The hybrid zamba2-7b and the three dense configs beyond llama3.2-1b,
-    each at full width and depth in bf16 and again in f32 (internlm2-20b's
-    f32 at ``INTERNLM2_F32_LAYERS`` layers)."""
+    each at full width and depth in bf16 (every attention call on the wgmma
+    route) and again in f32 (the mma route; internlm2-20b's f32 at
+    ``INTERNLM2_F32_LAYERS`` layers)."""
     from repro_torch.configs import get_config
 
     z = get_config("zamba2-7b")
     groups = z.num_layers // z.hybrid_attn_period
-    zamba_want = {**flash_want(fa, mma=groups), ssd.ssd_scan: z.num_layers}
-    check_serving("zamba2-7b", zamba_want,
+    scans = {ssd.ssd_scan: z.num_layers}
+    check_serving("zamba2-7b", {**flash_want(fa, wgmma=groups), **scans},
                   dict(attention=flash_attention_ref, ssd_scan=ssd_scan_ref),
                   HYBRID_BF16_REL_TOL, f32_tol=HYBRID_F32_REL_TOL, fault=scan_fault(),
-                  want_f32=zamba_want)
-    for arch, route in (("chatglm3-6b", "wgmma"), ("internlm2-20b", "wgmma"),
-                        ("h2o-danube-3-4b", "mma")):
+                  want_f32={**flash_want(fa, mma=groups), **scans})
+    for arch in ("chatglm3-6b", "internlm2-20b", "h2o-danube-3-4b"):
         L = get_config(arch).num_layers
         L32 = INTERNLM2_F32_LAYERS if arch == "internlm2-20b" else L
-        check_serving(arch, flash_want(fa, **{route: L}), dict(attention=flash_attention_ref),
+        check_serving(arch, flash_want(fa, wgmma=L), dict(attention=flash_attention_ref),
                       LOGITS_REL_TOL, f32_tol=LLAMA_F32_REL_TOL,
                       want_f32=flash_want(fa, mma=L32), f32_layers=L32,
                       long_prompt=WINDOW_PROMPT if get_config(arch).sliding_window else None)
@@ -4812,6 +4998,7 @@ def main() -> int:
     # 2. build -------------------------------------------------------------
     phase("build")
     t0 = time.perf_counter()
+    fault_build = start_wgmma_fault_build(build)  # beside the seven sources
     logs = build.build_all()
     build_s = time.perf_counter() - t0
     print(f"built {sorted(logs)} in {build_s:.1f} s")
@@ -4872,6 +5059,7 @@ def main() -> int:
             fail(f"kernel disagrees with its plain version at {(B, S, T, H, KV, hd, dt, kw)}")
         if (B, S, H, KV, hd) == SLICE_SHAPE and not fused:
             slice_err[dt] = err
+    wgmma_fault_checks(torch, gen, dev, fa, ops, fault_build, flash_attention_ref)
 
     # both routes at the serving shape: wgmma (bf16), mma (f32, its route;
     # and bf16, a yardstick beside wgmma that nothing here serves)
@@ -4921,7 +5109,7 @@ def main() -> int:
 
     # the wgmma route at head_dim 128 (chatglm3, internlm2, llava), the same
     # B, S, H, KV, and the mma route in bf16 at the yardstick shapes, beside
-    # SDPA: printed, not in the kernels line (no path here runs them)
+    # SDPA: printed, not in the kernels line
     for label, shape, route_fn in (
             ("head_dim 128, wgmma", (*SLICE_SHAPE[:4], 128), ops.flash_attention),
             *[(f"{name}, mma", shape, fa.flash_attention_mma)
@@ -4941,6 +5129,7 @@ def main() -> int:
               f"{flops / got['kernel'] / 1e9:.2f} TFLOP/s, "
               f"{got['kernel'] / bound_ms:.2f}x its bound")
         del q, k, v, qt, kt, vt, pair
+    head_dims = padded_head_dim_times(torch, gen, dev, fa, ops, smi_line)
 
     # the wide route (head_dim above 256) beside its plain version and SDPA:
     # f32 at WIDE_SHAPE goes to the kernels line, the rest is printed
@@ -5107,6 +5296,7 @@ def main() -> int:
         "bound_ms": bounds["bfloat16"][0],
         "bound_by": bounds["bfloat16"][1],
         "library_ms": times["sdpa_bf16"],
+        "head_dims": head_dims,
         "tp_shapes": per_rank["flash_attention_wgmma"],
         "steps_launches": bundle_launches["wgmma"],
         "launch_launches": launch_launches["wgmma"],
@@ -5173,6 +5363,7 @@ def main() -> int:
         "library_device_ms": bwd["mma"]["library_device_ms"],
         "passes_ms": bwd["mma"]["passes"],
         "host_us": bwd["mma"]["host_us"],
+        "zamba2_shape": ZAMBA2_BWD,
     }, {
         "name": "ssd_scan",
         "route": "cuda",

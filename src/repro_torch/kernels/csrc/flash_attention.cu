@@ -1,7 +1,8 @@
 // Flash attention forward on the tensor cores by mma.sync (sm_90a), for
 // every (dtype, head_dim) that the wgmma kernel (csrc/flash_attention_wgmma.cu,
-// bf16 at head_dim 64 and 128) does not take: f32 at any head_dim and bf16
-// at the other head dims, 1 to 256. CUDA C++ behind a C interface.
+// bf16 at head_dim 64 and at the multiples of 8 from 72 to 128) does not
+// take: f32 at any head_dim and bf16 at the other head dims, 1 to 256. CUDA
+// C++ behind a C interface.
 //
 // Replaces repro/kernels/flash_attention.py:_flash_kernel (the Pallas TPU
 // kernel under `flash_attention`, pallas_call at line 136). Same function:

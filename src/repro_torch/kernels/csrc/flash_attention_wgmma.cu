@@ -4,8 +4,9 @@
 //
 // Replaces repro/kernels/flash_attention.py:_flash_kernel (the Pallas TPU
 // kernel under `flash_attention`, pallas_call at line 136) for bf16 at
-// head_dim 64 and 128; kernels/flash_attention.py's route table sends f32
-// and the other head dims to the scalar kernel (csrc/flash_attention.cu).
+// head_dim 64 and at every multiple of 8 from 72 to 128 (the latter through
+// the hd-128 instance, below); kernels/flash_attention.py's route table sends
+// f32 and the other head dims to the mma.sync kernel (csrc/flash_attention.cu).
 // Same function: GQA attention o = softmax(softcap(q k^T / sqrt(hd)) + mask) v
 // with causal and sliding-window masks at -1e30 applied after the softcap,
 // online softmax (m, l, acc) in f32, fully-masked rows -> 0, kv head =
@@ -50,6 +51,17 @@
 // row holds 64 bf16 (128 bytes), so hd 128 is loaded as two boxes, each a
 // [rows][64] tile; every tile starts on a 1024-byte boundary, as the wgmma
 // descriptors' swizzle mode requires.
+//
+// Head dims 72..120 (multiples of 8: zamba2-7b's 112, h2o-danube-3-4b's 120)
+// run the hd-128 instance with the call's true hd as the tensor maps'
+// innermost extent. TMA fills the second box's columns hd..127 with zeros,
+// as it fills rows past S or T, and still counts the whole box's bytes for
+// the mbarrier's expect_tx; it never reads the next head's columns. Q K^T
+// over the 128 zero-padded columns is the product over hd, O's columns
+// hd..127 stay 0, the scale is the true hd's (the wrapper passes it), and
+// the epilogue stores hd / 8 column groups, so nothing past hd is written.
+// hd must be a multiple of 8: TMA needs 16-byte strides (2 hd bytes a head)
+// and the epilogue writes 8 columns a group.
 //
 // The tensor maps are encoded on the host at each launch, over the strided
 // [B, S, H, hd] views (4-D, hd innermost); cuTensorMapEncodeTiled is reached
@@ -313,8 +325,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        __nv_bfloat16* __restrict__ o, int B, int S, int Tk, int H,
-                       int group, long long o_sb, long long o_ss, long long o_sh,
-                       int causal, int window, float softcap, float scale) {
+                       int group, int hd, long long o_sb, long long o_ss,
+                       long long o_sh, int causal, int window, float softcap,
+                       float scale) {
   static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
   constexpr int NBOX = HD / 64;  // 128-byte box rows along hd
   using L = Smem<HD>;
@@ -518,7 +531,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       kv += t.n_tiles;
 
-      // epilogue: O / l, rows >= S not stored
+      // epilogue: O / l, rows >= S and columns >= hd not stored
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float l = l_i[r];
@@ -530,8 +543,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           __nv_bfloat16* orow = o + t.b * o_sb + row * o_ss + t.h * o_sh + 2 * t4;
 #pragma unroll
           for (int j = 0; j < HD / 8; ++j)
-            *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-                pack_bf16(o_acc[4 * j + 2 * r] * inv, o_acc[4 * j + 2 * r + 1] * inv);
+            if (8 * j < hd)
+              *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+                  pack_bf16(o_acc[4 * j + 2 * r] * inv, o_acc[4 * j + 2 * r + 1] * inv);
         }
       }
     }
@@ -567,7 +581,7 @@ EncodeTiled encode_tiled() {
 
 // A 4-D map over a strided [B, L, N, hd] bf16 view (element strides sb, sl,
 // sn; hd contiguous), boxes of 64 x 1 x rows x 1 with 128-byte swizzle.
-// Positions past L read as zeros.
+// Positions past L, and columns past hd, read as zeros.
 CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int L,
                   int N, int hd, long long sb, long long sl, long long sn, int rows) {
   const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(N), cuuint64_t(L), cuuint64_t(B)};
@@ -580,18 +594,20 @@ CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// The instance of width HD (64 or 128) at the call's hd <= HD: the maps span
+// hd columns, TMA zero-fills the rest of the box.
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
-           int H, int KV, const long long* st, int causal, int window, float softcap,
-           float scale, cudaStream_t stream) {
+           int H, int KV, int hd, const long long* st, int causal, int window,
+           float softcap, float scale, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return int(cudaErrorSymbolNotFound);
   CUtensorMap tm_q, tm_k, tm_v;
-  CUresult res = make_map(encode, &tm_q, q, B, S, H, HD, st[0], st[1], st[2], BQ);
+  CUresult res = make_map(encode, &tm_q, q, B, S, H, hd, st[0], st[1], st[2], BQ);
   if (res == CUDA_SUCCESS)
-    res = make_map(encode, &tm_k, k, B, Tk, KV, HD, st[3], st[4], st[5], BKV);
+    res = make_map(encode, &tm_k, k, B, Tk, KV, hd, st[3], st[4], st[5], BKV);
   if (res == CUDA_SUCCESS)
-    res = make_map(encode, &tm_v, v, B, Tk, KV, HD, st[6], st[7], st[8], BKV);
+    res = make_map(encode, &tm_v, v, B, Tk, KV, hd, st[6], st[7], st[8], BKV);
   if (res != CUDA_SUCCESS) return -int(res);
 
   const size_t smem = Smem<HD>::bytes;
@@ -607,7 +623,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   const long long n_work = (long long)((S + BQ - 1) / BQ) * H * B;
   const int grid = int(n_work < sms ? n_work : sms);  // one block an SM
   flash_fwd_wgmma_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), B, S, Tk, H, H / KV, st[9],
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), B, S, Tk, H, H / KV, hd, st[9],
       st[10], st[11], causal, window, softcap, scale);
   return int(cudaGetLastError());
 }
@@ -617,8 +633,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 extern "C" {
 
 // dtype: 1 = bfloat16 (the only one taken; the argument keeps the scalar
-// kernel's interface). q [B,S,H,hd], k/v [B,Tk,KV,hd], o [B,S,H,hd]; hd 64 or
-// 128. strides:
+// kernel's interface). q [B,S,H,hd], k/v [B,Tk,KV,hd], o [B,S,H,hd]; hd 64, or
+// a multiple of 8 from 72 to 128 (the hd-128 instance). strides:
 // 12 element strides, (batch, seq, head) for q, k, v, o in that order; hd
 // is contiguous, q/k/v 16-byte aligned with strides of 16-byte multiples
 // (the wrapper checks). Returns 0, a cudaError_t, or -(CUresult) when a
@@ -631,11 +647,11 @@ int repro_flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
-    return launch<64>(q, k, v, o, B, S, Tk, H, KV, strides, causal, window, softcap,
+    return launch<64>(q, k, v, o, B, S, Tk, H, KV, hd, strides, causal, window, softcap,
                       scale, st);
-  if (hd == 128)
-    return launch<128>(q, k, v, o, B, S, Tk, H, KV, strides, causal, window, softcap,
-                       scale, st);
+  if (hd > 64 && hd <= 128 && hd % 8 == 0)
+    return launch<128>(q, k, v, o, B, S, Tk, H, KV, hd, strides, causal, window,
+                       softcap, scale, st);
   return int(cudaErrorInvalidValue);
 }
 

@@ -4,7 +4,9 @@ that routes a call to one of them, and the wrapper of the backward kernel.
 Both replace ``repro/kernels/flash_attention.py:flash_attention`` (Pallas):
 
 - ``wgmma`` (``csrc/flash_attention_wgmma.cu``): TMA loads and tensor-core
-  products (wgmma), for bf16 at head_dim 64 and 128;
+  products (wgmma), for bf16 at ``WGMMA_HEAD_DIMS``: 64, and every multiple
+  of 8 from 72 to 128 (those below 128 through the hd-128 instance, TMA
+  filling the columns past head_dim with zeros);
 - ``mma`` (``csrc/flash_attention.cu``): tensor-core products by mma.sync,
   f32 as three TF32 products (3xTF32, as one misses the f32 tolerance) and
   bf16 as one, for every other head_dim up to ``MAX_HEAD_DIM``;
@@ -57,6 +59,9 @@ from repro_torch.kernels import build
 MAX_HEAD_DIM = 256  # the widest padded width the mma kernel is built for
 BWD_MAX_HEAD_DIM = 128  # the widest padded width the backward kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# bf16 head dims of the wgmma forward: TMA reads heads 16-byte aligned (a
+# multiple of 8 bf16) and the epilogue stores 8 columns a group
+WGMMA_HEAD_DIMS = (64, *range(72, 129, 8))
 
 
 class _RouteTable(dict):
@@ -75,7 +80,7 @@ BWD_ROUTES = {
     for dtype in _DTYPES for hd in range(1, BWD_MAX_HEAD_DIM + 1)
 }
 ROUTES = _RouteTable({
-    (dtype, hd): "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "mma"
+    (dtype, hd): "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "mma"
     for dtype in _DTYPES for hd in range(1, MAX_HEAD_DIM + 1)
 })
 _fns: dict[str, tuple] = {}
@@ -210,12 +215,13 @@ def flash_attention_wide(q, k, v, *, causal=True, window=0, softcap=0.0):
 
 
 def flash_attention_wgmma(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """The tensor-core route: bf16 at head_dim 64 or 128, q/k/v readable by
-    TMA (else ValueError; nothing goes to another route)."""
+    """The tensor-core route: bf16 at head_dim 64 or a multiple of 8 from 72
+    to 128, q/k/v readable by TMA (else ValueError; nothing goes to another
+    route)."""
     _check(q, k, v)
     if route(q.dtype, q.shape[-1]) != "wgmma":
-        raise ValueError(f"the wgmma kernel takes bf16 at head_dim 64 or 128, "
-                         f"not {q.dtype} at {q.shape[-1]}")
+        raise ValueError(f"the wgmma kernel takes bf16 at head_dim 64 or a multiple of 8 "
+                         f"from 72 to 128, not {q.dtype} at {q.shape[-1]}")
     strides = (*tma_strides(q), *tma_strides(k), *tma_strides(v))
     o, launched = _launch("flash_attention_wgmma", "repro_flash_attention_wgmma_fwd",
                           "repro_wgmma_cuda_error_string", q, k, v, strides,

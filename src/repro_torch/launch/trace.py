@@ -128,34 +128,101 @@ def by_range(events) -> dict:
     return dict(out)
 
 
-# profiler sessions ``traced`` opens before it gives up on one that records
-# no kernel: on the card's machine one session of a 20 ms all-gather
-# (chip_smoke.py's examples phase) once came back without device events
-SESSIONS = 3
+# On the card's machine a profiler session can lose the records of kernels
+# at either end of it. Kernels launched as the session opens are lost over
+# a span that grows with the process's age (all five 0.2 ms kernels of a
+# session from ~85 s in); a 50 ms idle margin keeps them, but now and then,
+# in bursts, a session still loses its first kernels, or every kernel after
+# its first few in several processes at once (``launch/profile_probe.py``
+# shows the first kind). So ``fn`` runs between two sets of ``PADS`` short spin
+# kernels, each set apart from it by a synchronise and from the session's
+# start or end by an idle margin: where a leading and a trailing spin kernel
+# are recorded, the kernels of ``fn`` between them are too. A session that
+# lost an end runs again (``fn`` again) with that end's margin one step
+# wider in ``MARGINS_S``, up to ``SESSIONS`` sessions a call, then
+# ``traced`` raises. A session that kept both ends leaves each end's margin
+# one step narrower for the next call, so a burst does not widen every
+# later session. The spin kernels are left out of every number ``traced``
+# returns.
+MARGINS_S = (0.05, 0.1, 0.2, 0.4, 0.8, 1.6, 3.2, 6.4)
+SESSIONS = 12
+_held = {"leading": 0, "trailing": 0}  # index in MARGINS_S of each end's margin
+PADS, PAD_CYCLES = 3, 200_000
+
+
+def _is_pad(name: str) -> bool:
+    return "spin_kernel" in name
+
+
+def _pads(device, margin: float, *, leading: bool) -> None:
+    """Spin kernels with the idle margin on the session's side of them."""
+    torch.cuda.synchronize(device)
+    if leading:
+        time.sleep(margin)
+    with torch.cuda.device(device):
+        for _ in range(PADS):
+            torch.cuda._sleep(PAD_CYCLES)
+    torch.cuda.synchronize(device)
+    if not leading:
+        time.sleep(margin)
+
+
+def _ends(kernels) -> dict:
+    """Whether a session kept each end, from its kernels' (name, start): a
+    spin kernel before the first of the other kernels, and one after the
+    last of them, in the card's order (neither where there is no other
+    kernel)."""
+    order = [name for _, name in sorted((start, name) for name, start in kernels)]
+    inner = [i for i, name in enumerate(order) if not _is_pad(name)]
+    return {"leading": bool(inner) and inner[0] > 0,
+            "trailing": bool(inner) and inner[-1] < len(order) - 1}
+
+
+def _raw_kernels(prof) -> list:
+    """(name, start) of a session's device events, from the profiler's raw
+    records: a session that lost an end is judged without building its
+    events, which takes seconds for a training step's. A range's annotation
+    lies within ``fn``'s kernels, so it moves neither end."""
+    return [(e.name(), e.start_ns()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def _step(held: dict, kept: dict) -> dict:
+    """Each end's margin index for the next session: one wider where the
+    session lost that end, one narrower where it kept it, within
+    ``MARGINS_S``."""
+    return {end: max(i - 1, 0) if kept[end] else min(i + 1, len(MARGINS_S) - 1)
+            for end, i in held.items()}
 
 
 def traced(fn, device) -> dict:
     """Run ``fn`` once under the profiler; wall and device-busy times, device
-    time by kernel kind, by kernel and by range (``RANGES``). A session that
-    records no kernel on the card is run again in a new one (``fn`` again),
-    up to ``SESSIONS`` in all, then raises."""
-    for _ in range(SESSIONS):
+    time by kernel kind, by kernel and by range (``RANGES``), and the
+    sessions it took. A session that may have lost kernels of ``fn`` is run
+    again with a wider margin at the end it lost, up to ``SESSIONS`` in
+    all, then raises."""
+    for session in range(1, SESSIONS + 1):
+        margin = {end: MARGINS_S[i] for end, i in _held.items()}
         torch.cuda.synchronize(device)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _pads(device, margin["leading"], leading=True)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize(device)
             wall_us = (time.perf_counter() - t0) * 1e6
-        # a record_function range also appears on the card's timeline, as a
-        # user annotation spanning its kernels: not a kernel
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False) and e.name not in RANGES]
-        if kernels:
+            _pads(device, margin["trailing"], leading=False)
+        kept = _ends(_raw_kernels(prof))
+        _held.update(_step(_held, kept))
+        if all(kept.values()):
             break
     else:
-        raise RuntimeError(f"the profiler recorded no kernel on the card in {SESSIONS} "
-                           f"sessions")
+        raise RuntimeError(f"the profiler lost kernels on the card at an end of each of "
+                           f"{SESSIONS} sessions (margins up to {MARGINS_S[-1]} s)")
+    # a record_function range also appears on the card's timeline, as a user
+    # annotation spanning its kernels: not a kernel
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not _is_pad(e.name)
+               and not getattr(e, "is_user_annotation", False) and e.name not in RANGES]
     by_name = defaultdict(float)
     for e in kernels:
         by_name[e.name] += e.time_range.end - e.time_range.start
@@ -165,7 +232,7 @@ def traced(fn, device) -> dict:
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     return {"wall_us": wall_us, "busy_us": busy, "launches": len(kernels),
             "by_kind": dict(by_kind), "by_name": dict(by_name),
-            "by_range": by_range(prof.events())}
+            "by_range": by_range(prof.events()), "sessions": session}
 
 
 def print_phase(name: str, r: dict, per: int, top: int) -> None:
@@ -173,7 +240,8 @@ def print_phase(name: str, r: dict, per: int, top: int) -> None:
     print(f"{name}: wall {r['wall_us'] / per / 1e3:.3f} ms, device busy "
           f"{r['busy_us'] / per / 1e3:.3f} ms ({r['busy_us'] / r['wall_us']:.1%} "
           f"of wall, idle {1 - r['busy_us'] / r['wall_us']:.1%}), "
-          f"{r['launches'] / per:.0f} kernels" + (" per step" if per > 1 else ""))
+          f"{r['launches'] / per:.0f} kernels" + (" per step" if per > 1 else "")
+          + (f" ({r['sessions']} profiler sessions)" if r.get("sessions", 1) > 1 else ""))
     for kind, us in sorted(r["by_kind"].items(), key=lambda kv: -kv[1]):
         print(f"  {kind:16s} {us / per / 1e3:9.3f} ms  {us / total:6.1%}")
     for rng, us in r.get("by_range", {}).items():

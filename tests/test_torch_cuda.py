@@ -65,13 +65,26 @@ def _qkv(device, dtype, B, S, T, H, KV, hd, seed=9):
     (1, 96, 160, 4, 2, 128, "float32", dict(causal=False)),           # T != S
     (1, 64, 8, 2, 2, 16, "float32", dict(causal=True, window=4)),     # empty rows
     (1, 128, 128, 4, 2, 32, "bfloat16", dict(causal=True)),           # bf16, mma route
-    # head dims only the mma route takes: zamba2-7b's 112, h2o-danube's 120
+    # zamba2-7b's 112, h2o-danube's 120: wgmma in bf16 (the hd-128 instance,
+    # zero-padded), mma in f32
     *[case for hd in (112, 120) for dt in ("float32", "bfloat16") for case in (
         (1, 1000, 1000, 4, 2, hd, dt, dict(causal=True)),             # ragged, GQA
         (1, 256, 256, 4, 4, hd, dt, dict(causal=True, window=96)),
         (1, 128, 128, 2, 2, hd, dt, dict(causal=True, softcap=20.0)),
         (1, 64, 8, 2, 2, hd, dt, dict(causal=True, window=4)),         # empty rows
     )],
+    # the wgmma route's padded head dims, bf16: ragged S, T != S, window,
+    # softcap, GQA and MHA, empty rows, more work tiles than SMs
+    *[case for hd in (72, 96, 112, 120) for case in (
+        (1, 1000, 1000, 4, 2, hd, "bfloat16", dict(causal=True, window=96)),
+        (1, 96, 160, 4, 4, hd, "bfloat16", dict(causal=False)),
+        (1, 160, 96, 4, 2, hd, "bfloat16", dict(causal=True, softcap=20.0)),
+        (1, 64, 8, 2, 2, hd, "bfloat16", dict(causal=True, window=4)),
+        (2, 1000, 1000, 32, 8, hd, "bfloat16", dict(causal=True)),
+    )],
+    # bf16 at no multiple of 8: mma
+    (1, 256, 256, 4, 2, 100, "bfloat16", dict(causal=True)),
+    (1, 96, 160, 4, 2, 116, "bfloat16", dict(causal=False)),
     (1, 200, 300, 4, 2, 20, "float32", dict(causal=True)),            # hd 20, T != S
     (1, 300, 200, 4, 1, 256, "bfloat16", dict(causal=True)),          # the widest hd
     # bf16 at head_dim 64 / 128: the wgmma route
@@ -93,7 +106,7 @@ def _qkv(device, dtype, B, S, T, H, KV, hd, seed=9):
     (3, 1000, 1000, 16, 4, 128, "bfloat16", dict(causal=True, softcap=20.0)),
     (4, 1024, 1024, 32, 8, 64, "bfloat16", dict(causal=True)),        # the slice
     # served shapes: chatglm3-6b's 16 query heads a KV head (wgmma in bf16,
-    # mma in f32) and zamba2-7b's MHA at hd 112 (mma)
+    # mma in f32) and zamba2-7b's MHA at hd 112 (wgmma)
     (4, 1024, 1024, 32, 2, 128, "bfloat16", dict(causal=True)),
     (4, 1024, 1024, 32, 2, 128, "float32", dict(causal=True)),
     (4, 1024, 1024, 32, 32, 112, "bfloat16", dict(causal=True)),
@@ -129,7 +142,8 @@ def test_kernel_matches_plain(cuda, B, S, T, H, KV, hd, dtype, kw):
     torch.cuda.synchronize()
     route = tfa.route(td, hd)
     assert route == ("wide" if hd > 256 else
-                     "wgmma" if dtype == "bfloat16" and hd in (64, 128) else "mma")
+                     "wgmma" if dtype == "bfloat16" and (
+                         hd == 64 or (72 <= hd <= 128 and hd % 8 == 0)) else "mma")
     assert [c.launches - b for c, b in zip(counters, before)] == \
         [1, int(route == "wgmma"), int(route == "mma"), int(route == "wide")]
     assert got.dtype == td
@@ -156,7 +170,8 @@ def test_kernel_reads_strided_layout(cuda):
 @pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
 def test_mma_kernel_reads_strided_layout_at_wide_head_dims(cuda, hd, dtype, tol):
     """q/k/v as views of one fused projection at zamba2-7b's and
-    h2o-danube's head dims, on the mma route."""
+    h2o-danube's head dims, through the mma kernel (the route of f32; bf16
+    there goes to the wgmma route, which the tests below hold)."""
     rng = np.random.default_rng(14)
     qkv = torch.from_numpy(rng.standard_normal(
         (2, 130, 6 * hd), dtype=np.float32)).to(cuda, getattr(torch, dtype))
@@ -165,22 +180,25 @@ def test_mma_kernel_reads_strided_layout_at_wide_head_dims(cuda, hd, dtype, tol)
     v = qkv[..., 5 * hd:].reshape(2, 130, 1, hd)
     assert not q.is_contiguous()
     before = tfa.flash_attention_mma.launches
-    got = tops.flash_attention(q, k, v, causal=True)
+    got = tfa.flash_attention_mma(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert tfa.flash_attention_mma.launches == before + 1
     torch.testing.assert_close(got.float(), tref(q, k, v, causal=True).float(),
                                rtol=tol, atol=tol)
 
 
-def test_wgmma_kernel_reads_strided_bf16_layout(cuda):
-    """bf16 q/k/v as views of one fused projection, on the wgmma route."""
-    rng = np.random.default_rng(13)
-    qkv = torch.from_numpy(rng.standard_normal(
-        (2, 130, 6 * 64), dtype=np.float32)).to(cuda, torch.bfloat16)
-    q = qkv[..., :4 * 64].reshape(2, 130, 4, 64)
-    k = qkv[..., 4 * 64:5 * 64].reshape(2, 130, 1, 64)
-    v = qkv[..., 5 * 64:].reshape(2, 130, 1, 64)
-    assert not q.is_contiguous()
+@pytest.mark.parametrize("hd", [112, 120])
+def test_wgmma_kernel_reads_only_head_dim_columns(cuda, hd):
+    """Each head of a fused projection followed by 8 columns of large
+    values: the padded instance's tensor maps stop at hd, so the result
+    matches the plain version; maps of 128 columns would read those values
+    (``chip_smoke.py`` plants that fault and sees it fail)."""
+    B, S, H, KV = 2, 200, 4, 2
+    rng = np.random.default_rng(17)
+    rows = rng.standard_normal((B, S + 1, H + 2 * KV, hd + 8), dtype=np.float32)
+    rows[..., hd:] *= 100.0
+    rows = torch.from_numpy(rows).to(cuda, torch.bfloat16)[:, :S]
+    q, k, v = rows[:, :, :H, :hd], rows[:, :, H:H + KV, :hd], rows[:, :, H + KV:, :hd]
     before = tfa.flash_attention_wgmma.launches
     got = tops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
@@ -189,11 +207,41 @@ def test_wgmma_kernel_reads_strided_bf16_layout(cuda):
                                rtol=BF16_TOL, atol=BF16_TOL)
 
 
-def test_wgmma_kernel_refuses_strides_tma_cannot_take(cuda):
-    """A bf16 hd-64 view whose heads lie 136 bytes apart raises; it goes to
-    no other route."""
-    q, k, v = _qkv(cuda, torch.bfloat16, 1, 64, 64, 4, 4, 68)
-    q, k, v = (t[..., :64] for t in (q, k, v))
+@pytest.mark.parametrize("hd", [72, 96, 112, 120])
+def test_wgmma_kernel_is_deterministic_at_padded_head_dims(cuda, hd):
+    """Two calls at a served shape's (B, S, H, KV) give the same bits."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 2, 1024, 1024, 32, 8, hd)
+    first = tops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(first, tops.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("hd", [64, 72, 96, 112, 120])
+def test_wgmma_kernel_reads_strided_bf16_layout(cuda, hd):
+    """bf16 q/k/v as views of one fused projection, on the wgmma route (at
+    72..120 its zero-padded hd-128 instance): one launch there, none on the
+    mma route."""
+    rng = np.random.default_rng(13)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (2, 130, 6 * hd), dtype=np.float32)).to(cuda, torch.bfloat16)
+    q = qkv[..., :4 * hd].reshape(2, 130, 4, hd)
+    k = qkv[..., 4 * hd:5 * hd].reshape(2, 130, 1, hd)
+    v = qkv[..., 5 * hd:].reshape(2, 130, 1, hd)
+    assert not q.is_contiguous()
+    before = (tfa.flash_attention_wgmma.launches, tfa.flash_attention_mma.launches)
+    got = tops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_wgmma.launches, tfa.flash_attention_mma.launches) == (
+        before[0] + 1, before[1])
+    torch.testing.assert_close(got.float(), tref(q, k, v, causal=True).float(),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("hd,full", [(64, 68), (112, 116)])
+def test_wgmma_kernel_refuses_strides_tma_cannot_take(cuda, hd, full):
+    """A bf16 view at hd 64 or 112 whose heads lie 136 or 232 bytes apart
+    (no multiple of 16) raises; it goes to no other route."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 64, 64, 4, 4, full)
+    q, k, v = (t[..., :hd] for t in (q, k, v))
     counters = (tfa.flash_attention, tfa.flash_attention_wgmma,
                 tfa.flash_attention_mma)
     before = [c.launches for c in counters]
@@ -203,8 +251,9 @@ def test_wgmma_kernel_refuses_strides_tma_cannot_take(cuda):
 
 
 def test_kernel_rejects_unsupported_head_dim(cuda):
-    """Every head_dim from 1 up is taken; 0 raises and launches nothing, and
-    the mma route alone refuses one above 256."""
+    """Every head_dim from 1 up is taken; 0 raises and launches nothing, the
+    mma route alone refuses one above 256, and the wgmma route alone refuses
+    bf16 at a head_dim that is no multiple of 8 or above 128."""
     q, k, v = _qkv(cuda, torch.float32, 1, 16, 16, 2, 2, 0)
     before = tfa.flash_attention.launches
     with pytest.raises(ValueError, match="head_dim 0"):
@@ -213,6 +262,11 @@ def test_kernel_rejects_unsupported_head_dim(cuda):
     q, k, v = _qkv(cuda, torch.float32, 1, 16, 16, 2, 2, 300)
     with pytest.raises(ValueError, match="outside 1..256"):
         tfa.flash_attention_mma(q, k, v)
+    for hd in (100, 136):
+        q, k, v = _qkv(cuda, torch.bfloat16, 1, 16, 16, 2, 2, hd)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            tfa.flash_attention_wgmma(q, k, v)
+    assert tfa.flash_attention.launches == before
 
 
 @pytest.mark.parametrize("hd", [320, 512])

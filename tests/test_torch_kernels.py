@@ -89,10 +89,14 @@ def test_bf16():
     (1, 256, 4, 2, 120, None, dict(causal=True, window=32)),    # h2o-danube's hd, GQA
     (1, 128, 2, 2, 20, None, dict(causal=True, softcap=20.0)),  # no multiple of 8
     (1, 96, 4, 2, 200, 160, dict(causal=False)),                # wider than 128, T != S
+    (1, 128, 4, 2, 72, None, dict(causal=True, softcap=20.0)),  # the narrowest padded
+    (1, 96, 4, 4, 96, 160, dict(causal=False)),                 # T != S, MHA
 ])
 def test_head_dims_of_the_mma_route(B, S, H, KV, hd, T, kw, dtype, tol):
-    """Head dims that only the mma route takes on the card (any but bf16 at
-    64 / 128), held against the Pallas kernel and the oracle."""
+    """Head dims other than 64 and 128 (on the card: the mma route in f32
+    and at 20 and 200, the wgmma route's zero-padded hd-128 instance in
+    bf16 at the multiples of 8 from 72 to 120), held against the Pallas
+    kernel and the oracle."""
     _check(9, B, S, H, KV, hd, tol=tol, dtype=dtype, T=T, **kw)
 
 
@@ -183,7 +187,14 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     (torch.bfloat16, 64, "wgmma"),   # llama3.2-1b
     (torch.bfloat16, 128, "wgmma"),  # chatglm3, internlm2, llava
     *[(dtype, hd, "mma") for dtype in (torch.float32, torch.bfloat16)
-      for hd in (8, 20, 40, 112, 120, 200, 256)],  # 112: zamba2-7b, 120: h2o-danube
+      for hd in (8, 20, 40, 200, 256)],
+    # bf16 at the multiples of 8 from 72 to 120: wgmma (the hd-128 instance,
+    # TMA zero-filling the columns past hd); 112: zamba2-7b, 120: h2o-danube
+    *[(dtype, hd, "wgmma" if dtype == torch.bfloat16 else "mma")
+      for dtype in (torch.float32, torch.bfloat16) for hd in (112, 120)],
+    *[(torch.bfloat16, hd, "wgmma") for hd in (72, 80, 96)],
+    # no multiple of 8 (TMA needs 16-byte head strides): mma
+    *[(torch.bfloat16, hd, "mma") for hd in (100, 116)],
     # above 256: the wide kernel, as the reference's kernel takes any head_dim
     *[(dtype, hd, "wide") for dtype in (torch.float32, torch.bfloat16)
       for hd in (257, 300, 320, 512, 4096)],

@@ -61,8 +61,9 @@ def test_config_copy_matches_reference(arch):
 
 
 def test_dense_configs_take_the_kernel_routes_they_are_checked_on():
-    """Head dims of the dense configs as the card serves them in bf16:
-    hd 64 / 128 on the wgmma route, h2o-danube's 120 on the mma route."""
+    """Head dims of the dense configs as the card serves them in bf16: all
+    on the wgmma route, hd 64 / 128 and h2o-danube's 120 (the hd-128
+    instance, zero-padded)."""
     got = {arch: (tget_config(arch).head_dim, tget_config(arch).num_kv_heads,
                   tget_config(arch).rotary_pct, tget_config(arch).sliding_window,
                   tfa.route(torch.bfloat16, tget_config(arch).head_dim))
@@ -70,7 +71,7 @@ def test_dense_configs_take_the_kernel_routes_they_are_checked_on():
     assert got == {"llama3.2-1b": (64, 8, 1.0, 0, "wgmma"),
                    "chatglm3-6b": (128, 2, 0.5, 0, "wgmma"),
                    "internlm2-20b": (128, 8, 1.0, 0, "wgmma"),
-                   "h2o-danube-3-4b": (120, 8, 1.0, 4096, "mma")}
+                   "h2o-danube-3-4b": (120, 8, 1.0, 4096, "wgmma")}
 
 
 # ---------------------------------------------------------------------------

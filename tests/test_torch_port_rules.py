@@ -346,6 +346,113 @@ def test_trace_needs_cuda_and_sums_busy_time(no_cuda):
     assert trace.kind_of("vectorized_elementwise_kernel") == "other"
 
 
+@pytest.mark.parametrize("names, leading, trailing", [
+    (["pad", "k", "k", "pad"], True, True),
+    (["pad", "pad", "k", "pad", "pad"], True, True),
+    (["k", "k", "pad"], False, True),  # the leading spin kernels lost
+    (["pad", "k", "k"], True, False),  # the trailing ones lost
+    (["pad", "pad"], False, False),  # every kernel of the call lost
+    ([], False, False),
+])
+def test_traced_keeps_a_session_only_with_spin_kernels_around_its_kernels(
+        names, leading, trailing):
+    """``trace.traced`` takes a profiler session as whole only where a spin
+    kernel precedes and follows the call's kernels in the card's order, and
+    says which end it lost."""
+    from repro_torch.launch import trace
+
+    spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+    events = [(spin if n == "pad" else "void add_kernel(float*)", 10 * i)
+              for i, n in enumerate(names)]
+    want = {"leading": leading, "trailing": trailing}
+    assert trace._ends(events) == want
+    assert trace._ends(events[::-1]) == want  # the profiler's order is not the card's
+
+
+@pytest.mark.parametrize("held, kept, want", [
+    ((0, 0), (True, True), (0, 0)),
+    ((3, 2), (True, True), (2, 1)),  # a whole session narrows both margins
+    ((0, 0), (False, True), (1, 0)),
+    ((2, 5), (True, False), (1, 6)),
+    ((7, 7), (False, False), (7, 7)),  # the widest margin stays the widest
+])
+def test_traced_widens_the_margin_of_the_end_it_lost(held, kept, want):
+    from repro_torch.launch import trace
+
+    ends = ("leading", "trailing")
+    assert trace._step(dict(zip(ends, held)), dict(zip(ends, kept))) == dict(zip(ends, want))
+    assert len(trace.MARGINS_S) == 8
+
+
+def _fake_sessions(monkeypatch, trace, sessions):
+    """``trace.traced`` on the CPU: each profiler session returns the next
+    list of kernel names ("pad" a spin kernel); records each session's
+    margins."""
+    import contextlib
+    from types import SimpleNamespace
+
+    import torch
+
+    monkeypatch.setattr(trace, "_held", {"leading": 0, "trailing": 0})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    margins = []
+    monkeypatch.setattr(trace, "_pads", lambda device, margin, leading: margins.append(
+        ("leading" if leading else "trailing", margin)))
+    script = iter(sessions)
+
+    @contextlib.contextmanager
+    def profile(activities):
+        cuda = torch.autograd.DeviceType.CUDA
+        names = ["at::cuda::spin_kernel(long)" if n == "pad" else "void add_kernel(float*)"
+                 for n in next(script)]
+        events = [SimpleNamespace(name=n, device_type=cuda,
+                                  time_range=SimpleNamespace(start=10 * i, end=10 * i + 5))
+                  for i, n in enumerate(names)]
+        # the raw records, listed in another order than the card's
+        raw = [SimpleNamespace(name=lambda n=n: n, start_ns=lambda i=i: 10_000 * i,
+                               device_type=lambda: cuda)
+               for i, n in reversed(list(enumerate(names)))]
+        kineto = SimpleNamespace(kineto_results=SimpleNamespace(events=lambda: raw))
+        yield SimpleNamespace(events=lambda: events, profiler=kineto)
+
+    monkeypatch.setattr(trace, "profile", profile)
+    return margins
+
+
+def test_traced_runs_a_session_again_until_it_keeps_both_ends(monkeypatch):
+    from repro_torch.launch import trace
+
+    margins = _fake_sessions(monkeypatch, trace, [
+        ["k", "k", "pad"],  # the leading spin kernels lost
+        ["pad", "k", "k"],  # the trailing ones lost
+        ["pad", "k", "k", "k", "pad"],
+    ])
+    calls = []
+    r = trace.traced(lambda: calls.append(1), "cpu")
+    assert r["sessions"] == 3 and len(calls) == 3
+    assert r["launches"] == 3 and r["busy_us"] == 15  # spin kernels left out
+    assert margins == [("leading", 0.05), ("trailing", 0.05), ("leading", 0.1),
+                       ("trailing", 0.05), ("leading", 0.05), ("trailing", 0.1)]
+    assert trace._held == {"leading": 0, "trailing": 0}
+
+
+def test_traced_raises_after_its_sessions(monkeypatch):
+    from repro_torch.launch import trace
+
+    margins = _fake_sessions(monkeypatch, trace, [["k", "pad"]] * trace.SESSIONS)
+    with pytest.raises(RuntimeError, match="each of 12 sessions"):
+        trace.traced(lambda: None, "cpu")
+    leading = [m for end, m in margins if end == "leading"]
+    assert leading == [0.05, 0.1, 0.2, 0.4, 0.8, 1.6, 3.2, 6.4, 6.4, 6.4, 6.4, 6.4]
+
+
+def test_profile_probe_needs_cuda(no_cuda):
+    from repro_torch.launch import profile_probe
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        profile_probe.main(["--seconds", "0"])
+
+
 def test_trace_takes_a_dtype(no_cuda):
     """--dtype float32 traces llama as chip_smoke.py serves it in f32 (the
     mma route); it still needs a card, and refuses other types."""
